@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of the gossip simulator (``sidecar_tpu`` is the
+JAX reference it is held against, bit for bit).
+
+This package imports ``torch`` and numpy only — never ``jax`` and
+nothing from ``sidecar_tpu``.  Its module names mirror the reference's
+so each counterpart is easy to find:
+
+* ``ops/status.py``, ``ops/merge.py``, ``ops/ttl.py``,
+  ``ops/suspicion.py``, ``ops/gossip.py``, ``ops/knobs.py``,
+  ``ops/topology.py`` — the leaf ops, plain functions on tensors;
+* ``ops/kernels/`` — the hand-written CUDA publish kernels, their plain
+  PyTorch versions, and the ``nvcc`` build;
+* ``models/timecfg.py``, ``models/compressed.py`` — the compressed
+  model's dense lockstep round and its drivers;
+* ``convert.py`` — moving state, params and graphs across from the
+  reference's numpy form.
+
+Entry points run on the card (``device="cuda"``) unless the caller asks
+for the CPU (``device="cpu"``), where every kernel call takes its plain
+PyTorch version.
+"""

@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels of the port, with their plain PyTorch
+versions and the device dispatch (see ``publish_gather.py``); the
+``nvcc`` build lives in ``build.py``."""
+
+from sidecar_tpu_torch.ops.kernels.publish_gather import (  # noqa: F401
+    eligible_lines,
+    fused_publish_gather,
+    fused_publish_gather_cuda,
+    fused_publish_gather_torch,
+    publish_board,
+    publish_board_cuda,
+    publish_board_torch,
+)

@@ -1,0 +1,206 @@
+// Publish selection of the compressed gossip round, for Hopper (sm_90a).
+//
+// Replaces the two TPU kernels of sidecar_tpu/ops/kernels/publish_gather.py:
+//   * publish_board_kernel         <- publish_board_pallas         (:193)
+//   * fused_publish_gather_kernel  <- fused_publish_gather_pallas  (:371)
+// and computes exactly what their XLA twins (publish_board_xla :142,
+// fused_publish_gather_xla :355) compute: integer arithmetic only, held
+// equal with torch.equal against the port's plain PyTorch versions.
+//
+// Selection of one row of K cache lines (B = min(budget, K)):
+//   priority = eligible ? val : 0          eligible = slot >= 0 && sent < limit
+//   t        = B-th largest priority, counting repeats
+//   above    = priority > t
+//   tie      = priority == t && priority > 0
+//   ties are admitted in the row's rotated column order while their rank
+//   is <= B - #above, rot = (uint32(gid) * 2654435761) & (K - 1)
+//   bval/bslot = selected ? (val, slot) : (0, -1)
+//   sent       = min(sent + fanout * selected, limit)          (int8)
+//
+// Design (a simple, correct first form):
+//   * One block per row, max(K, 32) threads, one line per thread; threads
+//     past K carry priority 0 and only take part in the barriers.
+//   * Threshold: the 31-step greedy bit search of the Pallas kernel — the
+//     largest t with count(priority >= t) >= B, bit by bit from bit 30 —
+//     with __syncthreads_count for every count.  No sort.
+//   * Tie rank: __ballot_sync/__popc give each warp's inclusive count, a
+//     32-entry shared array the warp offsets; the count of ties left of
+//     rot is one more __syncthreads_count.
+//   * The fused kernel runs N*(F+1) blocks on gridDim.x: block b < N*F
+//     recomputes the board of peer src[b] (row read clamped to [0, N), the
+//     unclamped id seeds the rotation, as the Pallas kernel does) and
+//     writes pv/ps with the staleness gate; block N*F + r writes own row
+//     r's sent.  The [N, K] board never reaches device memory.
+//
+// Bound on an H100 SXM (3.35 TB/s; the work is a few integer ops per byte,
+// far below the card's operation rate, so bytes bound it):
+//   publish_board_kernel at N=100,000, K=256: reads 9 B and writes 9 B per
+//     line, ~461 MB, ~0.14 ms.
+//   fused_publish_gather_kernel at N=100,000, K=256, F=3: reads the cache
+//     (230 MB) and src, writes sent (25.6 MB) and pv/ps (614 MB), ~871 MB,
+//     ~0.26 ms.
+// What the design does about it: every load and store is coalesced (thread
+// j touches line j of a contiguous row), and the fused kernel keeps the
+// board out of memory.  It still reads each peer row once per pull (F+1
+// reads of the cache in all, mostly served from L2 at this size) and pays
+// 31+ block barriers per row; cp.async/TMA for the peer rows, a warp per
+// row, and keeping a board in shared memory across F are later work.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr uint32_t kPhaseMult = 2654435761u;
+
+struct Selection {
+  bool selected;
+  int sent;
+};
+
+// Every thread of the block must call this (it holds block barriers).
+__device__ __forceinline__ Selection select_line(
+    int val, int slot, int sent, bool in_row, uint32_t gid, int k,
+    int budget, int limit, int fanout, int* warp_total) {
+  const int j = threadIdx.x;
+  const bool eligible = in_row && slot >= 0 && sent < limit;
+  const int priority = eligible ? val : 0;
+
+  int thresh = 0;
+  for (int b = 30; b >= 0; --b) {
+    const int cand = thresh | (1 << b);
+    if (__syncthreads_count(priority >= cand) >= budget) thresh = cand;
+  }
+  const bool above = priority > thresh;
+  const bool tie = priority == thresh && priority > 0;
+  const int n_above = __syncthreads_count(above);
+  const int rot = static_cast<int>((gid * kPhaseMult) &
+                                   static_cast<uint32_t>(k - 1));
+  const int total = __syncthreads_count(tie);
+  const int before_rot = __syncthreads_count(tie && j < rot);
+
+  // Inclusive count of ties in columns [0, j].
+  const unsigned lane = j & 31u;
+  const unsigned warp = j >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, tie);
+  if (lane == 31u) warp_total[warp] = __popc(ballot);
+  __syncthreads();
+  int prefix = __popc(ballot & (0xffffffffu >> (31u - lane)));
+  for (unsigned w = 0; w < warp; ++w) prefix += warp_total[w];
+
+  const int rank = j >= rot ? prefix - before_rot
+                            : prefix + total - before_rot;
+  Selection out;
+  out.selected = above || (tie && rank <= budget - n_above);
+  const int bumped = sent + (out.selected ? fanout : 0);
+  out.sent = bumped < limit ? bumped : limit;
+  return out;
+}
+
+__global__ void publish_board_kernel(
+    const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
+    const int8_t* __restrict__ cache_sent, int k, int budget, int limit,
+    int fanout, int row_offset, int* __restrict__ bval,
+    int* __restrict__ bslot, int8_t* __restrict__ sent_out) {
+  __shared__ int warp_total[32];
+  const int j = threadIdx.x;
+  const bool in_row = j < k;
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * k + j;
+  int val = 0, slot = -1, sent = 0;
+  if (in_row) {
+    val = cache_val[idx];
+    slot = cache_slot[idx];
+    sent = cache_sent[idx];
+  }
+  const uint32_t gid = static_cast<uint32_t>(
+      row_offset + static_cast<int>(blockIdx.x));
+  const Selection s = select_line(val, slot, sent, in_row, gid, k, budget,
+                                  limit, fanout, warp_total);
+  if (in_row) {
+    bval[idx] = s.selected ? val : 0;
+    bslot[idx] = s.selected ? slot : -1;
+    sent_out[idx] = static_cast<int8_t>(s.sent);
+  }
+}
+
+__global__ void fused_publish_gather_kernel(
+    const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
+    const int8_t* __restrict__ cache_sent, const int* __restrict__ src,
+    int n, int f, int k, int budget, int limit, int fanout, int now,
+    int stale_ticks, int8_t* __restrict__ sent_out, int* __restrict__ pv,
+    int* __restrict__ ps) {
+  __shared__ int warp_total[32];
+  const int64_t block = blockIdx.x;
+  const int64_t n_pull = static_cast<int64_t>(n) * f;
+  const bool own = block >= n_pull;   // uniform across the block
+  int row, gid;
+  if (own) {
+    row = static_cast<int>(block - n_pull);
+    gid = row;
+  } else {
+    gid = src[block];
+    row = gid < 0 ? 0 : (gid >= n ? n - 1 : gid);
+  }
+  const int j = threadIdx.x;
+  const bool in_row = j < k;
+  const int64_t at = static_cast<int64_t>(row) * k + j;
+  int val = 0, slot = -1, sent = 0;
+  if (in_row) {
+    val = cache_val[at];
+    slot = cache_slot[at];
+    sent = cache_sent[at];
+  }
+  const Selection s = select_line(val, slot, sent, in_row,
+                                  static_cast<uint32_t>(gid), k, budget,
+                                  limit, fanout, warp_total);
+  if (!in_row) return;
+  if (own) {
+    sent_out[at] = static_cast<int8_t>(s.sent);
+  } else {
+    int bv = s.selected ? val : 0;
+    const int ts = bv >> 3;
+    if (ts > 0 && ts < now - stale_ticks) bv = 0;
+    const int64_t out = block * k + j;
+    pv[out] = bv;
+    ps[out] = s.selected ? slot : -1;
+  }
+}
+
+inline unsigned threads_for(int k) { return k < 32 ? 32u : static_cast<unsigned>(k); }
+
+}  // namespace
+
+// Plain C interface, bound with ctypes.  Pointers are device pointers of
+// contiguous tensors; `stream` is a cudaStream_t.  Returns the launch's
+// cudaError_t (0 on success).  The wrapper has checked shapes, dtypes and
+// that k is a power of two in [1, 1024].
+extern "C" int sidecar_publish_board(
+    const void* cache_val, const void* cache_slot, const void* cache_sent,
+    int n, int k, int budget, int limit, int fanout, int row_offset,
+    void* bval, void* bslot, void* sent, void* stream) {
+  if (n <= 0) return 0;
+  publish_board_kernel<<<static_cast<unsigned>(n), threads_for(k), 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(cache_val), static_cast<const int*>(cache_slot),
+      static_cast<const int8_t*>(cache_sent), k, budget, limit, fanout,
+      row_offset, static_cast<int*>(bval), static_cast<int*>(bslot),
+      static_cast<int8_t*>(sent));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sidecar_fused_publish_gather(
+    const void* cache_val, const void* cache_slot, const void* cache_sent,
+    const void* src, int n, int f, int k, int budget, int limit, int fanout,
+    int now, int stale_ticks, void* sent, void* pv, void* ps, void* stream) {
+  if (n <= 0) return 0;
+  const int64_t blocks = static_cast<int64_t>(n) * (f + 1);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  fused_publish_gather_kernel<<<static_cast<unsigned>(blocks), threads_for(k),
+                                0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(cache_val), static_cast<const int*>(cache_slot),
+      static_cast<const int8_t*>(cache_sent), static_cast<const int*>(src), n,
+      f, k, budget, limit, fanout, now, stale_ticks,
+      static_cast<int8_t*>(sent), static_cast<int*>(pv),
+      static_cast<int*>(ps));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,224 @@
+"""The publish selection of the compressed round — plain PyTorch
+versions, the hand-written CUDA kernels' wrappers, and the dispatch
+between them.
+
+Two functions, each with both forms:
+
+* ``publish_board`` — each row's top-``budget`` freshest eligible cache
+  lines as a message board (``bval``/``bslot``, unselected lines zeroed
+  or -1) plus the transmit-count bump ``sent``.  Plain version
+  :func:`publish_board_torch` (the reference's ``publish_board_xla``);
+  kernel ``publish_board_kernel`` in ``csrc/publish_gather.cu``
+  (replaces ``publish_board_pallas``).
+* ``fused_publish_gather`` — the own rows' ``sent`` plus, for each
+  receiver row r and leg f, the board of peer ``src[r, f]`` with the
+  staleness gate applied (``pv``/``ps`` [N, F, K]); the [N, K] board
+  never reaches memory in the kernel.  Plain version
+  :func:`fused_publish_gather_torch` (``fused_publish_gather_xla``);
+  kernel ``fused_publish_gather_kernel`` (replaces
+  ``fused_publish_gather_pallas``).
+
+Dispatch is by the tensors' device and nothing else: a CUDA tensor
+launches the kernel (or the call raises), a CPU tensor takes the plain
+version.  Each CUDA wrapper counts its launches in a plain integer
+attribute, ``<wrapper>.launches``.
+
+The selection, on one row of K lines with ``B = min(budget, K)``:
+``priority = eligible ? val : 0``; the threshold ``t`` is the B-th
+largest priority counting repeats; lines above ``t`` are selected, and
+ties at ``t`` (with ``t > 0``) are admitted in a per-row rotated order
+— the rotation ``rot = (gid · 2654435761 mod 2³²) & (K−1)`` — while
+their rotated rank is ``≤ B − #above``; ``sent = min(sent + fanout ·
+selected, limit)`` as int8.  All integer; kernels and plain versions
+are held equal with ``torch.equal``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sidecar_tpu_torch.ops.gossip import MASK32, PHASE_MULT
+from sidecar_tpu_torch.ops.merge import staleness_mask
+
+
+def eligible_lines(cache_slot, cache_sent, limit: int):
+    """Publish eligibility of a cache line: occupied AND transmits left
+    (memberlist TransmitLimited semantics)."""
+    return (cache_slot >= 0) & (cache_sent.to(torch.int32) < limit)
+
+
+# -- plain PyTorch versions ---------------------------------------------------
+
+def publish_board_torch(cache_val, cache_slot, cache_sent, *, budget: int,
+                        limit: int, fanout: int, cache_lines: int,
+                        row_offset: int = 0):
+    """The publish selection in plain PyTorch — the op sequence of the
+    reference's ``publish_board_xla``: ``topk`` threshold plus the
+    rotated prefix-sum tie admission.  ``row_offset`` is the global id
+    of row 0 (the tie-rotation seed).  Returns ``(bval, bslot, sent)``."""
+    k = cache_lines
+    n = cache_val.shape[0]
+    dev = cache_val.device
+    eligible = eligible_lines(cache_slot, cache_sent, limit)
+    priority = torch.where(eligible, cache_val, 0)
+    budget = min(budget, k)
+    thresh = torch.topk(priority, budget, dim=1).values[:, -1:]
+    above = priority > thresh
+    tie = (priority == thresh) & (priority > 0)
+    n_above = above.sum(dim=1, keepdim=True, dtype=torch.int32)
+
+    rows = torch.arange(n, dtype=torch.int64, device=dev) + row_offset
+    rot = (((rows * PHASE_MULT) & MASK32) & (k - 1))[:, None]
+    s = torch.cumsum(tie.to(torch.int32), dim=1, dtype=torch.int32)
+    total = s[:, -1:]
+    base = torch.where(
+        rot > 0, torch.gather(s, 1, torch.clamp(rot - 1, min=0)), 0)
+    cols = torch.arange(k, dtype=torch.int64, device=dev)[None, :]
+    rank = torch.where(cols >= rot, s - base, s + total - base)
+    admit = tie & (rank <= budget - n_above)
+
+    selected = above | admit
+    bval = torch.where(selected, cache_val, 0)
+    bslot = torch.where(selected, cache_slot, -1)
+    sent = torch.clamp(
+        cache_sent.to(torch.int32) + torch.where(selected, fanout, 0),
+        max=limit).to(torch.int8)
+    return bval, bslot, sent
+
+
+def fused_publish_gather_torch(cache_val, cache_slot, cache_sent, src,
+                               now: int, *, stale_ticks: int, budget: int,
+                               limit: int, fanout: int, cache_lines: int):
+    """Publish, staleness-filter the board, gather the sampled rows —
+    the reference's ``fused_publish_gather_xla``.  ``ps`` keeps its slot
+    where the gate zeroes ``pv`` (the merge masks it later).  Returns
+    ``(sent, pv, ps)``."""
+    bval, bslot, sent = publish_board_torch(
+        cache_val, cache_slot, cache_sent, budget=budget, limit=limit,
+        fanout=fanout, cache_lines=cache_lines)
+    bval = torch.where(staleness_mask(bval, now, stale_ticks), 0, bval)
+    rows = src.to(torch.int64)
+    return sent, bval[rows], bslot[rows]
+
+
+# -- CUDA wrappers ------------------------------------------------------------
+
+def _check_cache(cache_val, cache_slot, cache_sent, cache_lines: int):
+    for name, t, dtype in (("cache_val", cache_val, torch.int32),
+                           ("cache_slot", cache_slot, torch.int32),
+                           ("cache_sent", cache_sent, torch.int8)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dim() != 2 or tuple(t.shape) != tuple(cache_val.shape):
+            raise ValueError(f"{name} must be [N, K] like cache_val, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != cache_val.device:
+            raise ValueError(f"{name} is on {t.device}, "
+                             f"cache_val on {cache_val.device}")
+    k = cache_val.shape[1]
+    if k != cache_lines:
+        raise ValueError(f"cache width {k} != cache_lines {cache_lines}")
+    if k < 1 or k > 1024 or k & (k - 1):
+        raise ValueError(f"cache_lines must be a power of two in "
+                         f"[1, 1024], got {k}")
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_on(err: int, what: str):
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def publish_board_cuda(cache_val, cache_slot, cache_sent, *, budget: int,
+                       limit: int, fanout: int, cache_lines: int,
+                       row_offset: int = 0):
+    """Launch ``publish_board_kernel`` (one block per row) on the
+    current stream.  Returns ``(bval, bslot, sent)``."""
+    from sidecar_tpu_torch.ops.kernels.build import load
+
+    _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
+    lib = load()
+    n, k = cache_val.shape
+    bval = torch.empty_like(cache_val)
+    bslot = torch.empty_like(cache_slot)
+    sent = torch.empty_like(cache_sent)
+    with torch.cuda.device(cache_val.device):
+        err = lib.sidecar_publish_board(
+            _ptr(cache_val), _ptr(cache_slot), _ptr(cache_sent), n, k,
+            min(budget, k), limit, fanout, row_offset,
+            _ptr(bval), _ptr(bslot), _ptr(sent), _stream(cache_val))
+    _raise_on(err, "publish_board_kernel launch")
+    publish_board_cuda.launches += 1
+    return bval, bslot, sent
+
+
+publish_board_cuda.launches = 0
+
+
+def fused_publish_gather_cuda(cache_val, cache_slot, cache_sent, src,
+                              now: int, *, stale_ticks: int, budget: int,
+                              limit: int, fanout: int, cache_lines: int):
+    """Launch ``fused_publish_gather_kernel`` (one block per (r, f) pull
+    plus one per own row) on the current stream.  Returns
+    ``(sent, pv, ps)``."""
+    from sidecar_tpu_torch.ops.kernels.build import load
+
+    _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
+    if src.dtype != torch.int32 or src.dim() != 2 or \
+            src.shape[0] != cache_val.shape[0]:
+        raise ValueError(f"src must be int32 [N, F], got {src.dtype} "
+                         f"{tuple(src.shape)}")
+    if src.device != cache_val.device or not src.is_contiguous():
+        raise ValueError("src must be contiguous on the cache's device")
+    lib = load()
+    n, k = cache_val.shape
+    f = src.shape[1]
+    sent = torch.empty_like(cache_sent)
+    pv = torch.empty((n, f, k), dtype=torch.int32, device=cache_val.device)
+    ps = torch.empty_like(pv)
+    with torch.cuda.device(cache_val.device):
+        err = lib.sidecar_fused_publish_gather(
+            _ptr(cache_val), _ptr(cache_slot), _ptr(cache_sent), _ptr(src),
+            n, f, k, min(budget, k), limit, fanout, now, stale_ticks,
+            _ptr(sent), _ptr(pv), _ptr(ps), _stream(cache_val))
+    _raise_on(err, "fused_publish_gather_kernel launch")
+    fused_publish_gather_cuda.launches += 1
+    return sent, pv, ps
+
+
+fused_publish_gather_cuda.launches = 0
+
+
+# -- device dispatch ----------------------------------------------------------
+
+def publish_board(cache_val, cache_slot, cache_sent, **kw):
+    """The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if cache_val.is_cuda:
+        return publish_board_cuda(cache_val, cache_slot, cache_sent, **kw)
+    return publish_board_torch(cache_val, cache_slot, cache_sent, **kw)
+
+
+def fused_publish_gather(cache_val, cache_slot, cache_sent, src, now,
+                         **kw):
+    """The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if cache_val.is_cuda:
+        return fused_publish_gather_cuda(cache_val, cache_slot, cache_sent,
+                                         src, now, **kw)
+    return fused_publish_gather_torch(cache_val, cache_slot, cache_sent,
+                                      src, now, **kw)

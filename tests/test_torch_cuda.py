@@ -1,0 +1,88 @@
+"""Tests of the port that need the card: each CUDA kernel against its
+plain PyTorch version on the same CUDA tensors, and a short run on the
+card against the same run on the CPU.  Marked ``cuda``; each decides
+inside a fixture whether a card is present and skips with the reason
+where none is.  ``python3 chip_smoke.py`` covers the same ground at the
+north-star shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sidecar_tpu_torch import convert
+from sidecar_tpu_torch.models.compressed import (
+    CompressedParams,
+    CompressedSim,
+)
+from sidecar_tpu_torch.models.timecfg import TimeConfig
+from sidecar_tpu_torch.ops import topology
+from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def cache(rng, n, k, tie_value=None):
+    ts = np.full((n, k), tie_value) if tie_value is not None else \
+        rng.integers(1, 1 << 20, (n, k))
+    cs = np.where(rng.random((n, k)) < 0.7,
+                  rng.integers(0, 8 * n, (n, k)), -1)
+    cv = np.where(cs >= 0, ts << 3, 0)
+    se = rng.integers(0, 8, (n, k))
+    return (torch.tensor(cv, dtype=torch.int32).cuda(),
+            torch.tensor(cs, dtype=torch.int32).cuda(),
+            torch.tensor(se, dtype=torch.int8).cuda())
+
+
+@pytest.mark.parametrize("n,k", [(7, 8), (33, 16), (130, 32), (64, 256),
+                                 (9, 1024)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_publish_board_kernel_equals_plain(card, n, k, ties):
+    cv, cs, se = cache(np.random.default_rng(n + k), n, k,
+                       tie_value=5 if ties else None)
+    kw = dict(budget=5, limit=6, fanout=3, cache_lines=k, row_offset=3)
+    got = pg.publish_board_cuda(cv, cs, se, **kw)
+    want = pg.publish_board_torch(cv, cs, se, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n,k,f", [(20, 16, 3), (33, 64, 2), (7, 8, 4),
+                                   (50, 1024, 3)])
+def test_fused_gather_kernel_equals_plain(card, n, k, f):
+    rng = np.random.default_rng(n * k)
+    cv, cs, se = cache(rng, n, k)
+    src = torch.tensor(rng.integers(0, n, (n, f)),
+                       dtype=torch.int32).cuda()
+    kw = dict(stale_ticks=1 << 18, budget=5, limit=6, fanout=f,
+              cache_lines=k)
+    got = pg.fused_publish_gather_cuda(cv, cs, se, src, 1 << 19, **kw)
+    want = pg.fused_publish_gather_torch(cv, cs, se, src, 1 << 19, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_run_on_card_equals_cpu(card, fused):
+    p = CompressedParams(n=512, services_per_node=10, cache_lines=256,
+                         fold_quorum=0.995, deep_sweep_every=0)
+    topo = topology.erdos_renyi(512, 8.0, seed=3)
+    t = TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=4.0)
+    cpu = CompressedSim(p, topo, t, device="cpu")
+    gpu = CompressedSim(p, topo, t, device="cuda", fused_gather=fused)
+    gen = torch.Generator().manual_seed(0)
+    draws = [cpu.draw(gen, r) for r in range(1, 31)]
+    slots = np.arange(0, p.m, 97)
+    a, ca = cpu.run_behind(cpu.mint(cpu.init_state(), slots, 10), 30, 5,
+                           draws=draws)
+    b, cb = gpu.run_behind(gpu.mint(gpu.init_state(), slots, 10), 30, 5,
+                           draws=draws)
+    assert torch.equal(ca, cb.cpu())
+    for name, value in convert.state_to_numpy(a).items():
+        np.testing.assert_array_equal(
+            convert.state_to_numpy(b)[name], value, err_msg=name)

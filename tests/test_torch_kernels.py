@@ -1,0 +1,230 @@
+"""The publish kernels' plain PyTorch versions against the JAX
+reference's ``publish_board_xla``/``_pallas`` and
+``fused_publish_gather_xla``/``_pallas`` (Pallas in interpret mode on
+the CPU), at the adversarial shapes of ``tests/test_kernels.py``:
+ragged row counts, K from 8 to 1024, tie-heavy rows, rows with nothing
+eligible, tombstone-only rows, an empty cache, a row offset, a budget
+wider than the cache and a firing staleness gate.  Exact comparisons.
+
+Also the dispatch rule: a CPU tensor takes the plain version, and the
+CUDA wrappers refuse anything that is not a CUDA tensor.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sidecar_tpu.ops.kernels.publish_gather import (
+    fused_publish_gather_pallas,
+    fused_publish_gather_xla,
+    publish_board_pallas,
+    publish_board_xla,
+)
+from sidecar_tpu.ops.status import ALIVE, TOMBSTONE
+from sidecar_tpu_torch.ops import kernels as tk
+from sidecar_tpu_torch.ops.kernels import publish_gather as tpg
+
+
+def random_cache(rng, n, k, *, occupancy=0.7, tie_value=None,
+                 sent_ceiling=8, status=ALIVE):
+    """The cache-triple generator of tests/test_kernels.py, in numpy."""
+    if tie_value is not None:
+        ts = np.full((n, k), tie_value, dtype=np.int64)
+    else:
+        ts = rng.integers(1, 1 << 20, (n, k), dtype=np.int64)
+    cv = ((ts << 3) | status).astype(np.int32)
+    occupied = rng.random((n, k)) < occupancy
+    cs = np.where(occupied, rng.integers(0, n * 8, (n, k)), -1)
+    cv = np.where(cs >= 0, cv, 0).astype(np.int32)
+    se = rng.integers(0, sent_ceiling, (n, k)).astype(np.int8)
+    return cv, cs.astype(np.int32), se
+
+
+def jitted(fn, **static):
+    """``fn`` with its keyword arguments fixed, under one ``jax.jit`` —
+    a single compile per shape instead of one per primitive."""
+    return jax.jit(functools.partial(fn, **static))
+
+
+def board_case(name):
+    """(cache triple, kwargs) of one named adversarial board case."""
+    if name.startswith("random"):
+        n, k = (int(x) for x in name.split("-")[1:])
+        rng = np.random.default_rng(n * 1000 + k)
+        return random_cache(rng, n, k), dict(budget=5, limit=6, fanout=3)
+    if name == "tie-heavy":
+        rng = np.random.default_rng(0)
+        return random_cache(rng, 50, 32, occupancy=1.0, tie_value=17,
+                            sent_ceiling=2), dict(budget=6, limit=6,
+                                                  fanout=3)
+    if name == "tie-heavy-1024":
+        rng = np.random.default_rng(11)
+        return random_cache(rng, 20, 1024, occupancy=0.9, tie_value=5,
+                            sent_ceiling=2), dict(budget=15, limit=6,
+                                                  fanout=3)
+    if name == "all-ineligible":
+        rng = np.random.default_rng(1)
+        cv, cs, se = random_cache(rng, 19, 16)
+        return (cv, cs, np.full_like(se, 100)), dict(budget=4, limit=6,
+                                                     fanout=2)
+    if name == "tombstone-only":
+        rng = np.random.default_rng(2)
+        return random_cache(rng, 21, 32, status=TOMBSTONE), \
+            dict(budget=5, limit=8, fanout=3)
+    if name == "empty":
+        return (np.zeros((12, 16), np.int32),
+                np.full((12, 16), -1, np.int32),
+                np.zeros((12, 16), np.int8)), dict(budget=5, limit=6,
+                                                   fanout=3)
+    if name == "row-offset":
+        rng = np.random.default_rng(3)
+        return random_cache(rng, 24, 32, tie_value=9, occupancy=1.0,
+                            sent_ceiling=2), dict(budget=4, limit=6,
+                                                  fanout=2, row_offset=13)
+    if name == "budget-over-k":
+        rng = np.random.default_rng(4)
+        return random_cache(rng, 9, 8), dict(budget=64, limit=6, fanout=2)
+    raise KeyError(name)
+
+
+BOARD_CASES = ["random-7-8", "random-20-64", "random-33-16",
+               "random-64-256", "random-130-32",
+               "tie-heavy", "tie-heavy-1024", "all-ineligible",
+               "tombstone-only", "empty", "row-offset", "budget-over-k"]
+
+
+def assert_all_equal(got, want, names):
+    for name, g, w in zip(names, got, want):
+        g = g.numpy()
+        w = np.asarray(w)
+        np.testing.assert_array_equal(g, w, err_msg=name)
+        assert g.dtype == w.dtype, (name, g.dtype, w.dtype)
+
+
+class TestPublishBoardPlain:
+    @pytest.mark.parametrize("case", BOARD_CASES)
+    def test_matches_xla(self, case):
+        (cv, cs, se), kw = board_case(case)
+        k = cv.shape[1]
+        want = jitted(publish_board_xla, cache_lines=k, **kw)(
+            jnp.asarray(cv), jnp.asarray(cs), jnp.asarray(se))
+        got = tpg.publish_board_torch(torch.tensor(cv), torch.tensor(cs),
+                                      torch.tensor(se), cache_lines=k, **kw)
+        assert_all_equal(got, want, ("bval", "bslot", "sent"))
+
+    @pytest.mark.parametrize("case", ["tie-heavy", "row-offset",
+                                      "budget-over-k"])
+    def test_matches_pallas_interpret(self, case):
+        (cv, cs, se), kw = board_case(case)
+        k = cv.shape[1]
+        want = publish_board_pallas(jnp.asarray(cv), jnp.asarray(cs),
+                                    jnp.asarray(se), cache_lines=k,
+                                    interpret=True, **kw)
+        got = tk.publish_board(torch.tensor(cv), torch.tensor(cs),
+                               torch.tensor(se), cache_lines=k, **kw)
+        assert_all_equal(got, want, ("bval", "bslot", "sent"))
+
+
+GATHER_CASES = [(20, 16, 3), (33, 64, 2), (7, 8, 4), (5, 256, 3)]
+
+
+def gather_inputs(n, k, f):
+    rng = np.random.default_rng(n + k + f)
+    cache = random_cache(rng, n, k)
+    src = rng.integers(0, n, (n, f)).astype(np.int32)
+    kw = dict(stale_ticks=1 << 18, budget=5, limit=6, fanout=f,
+              cache_lines=k)
+    return cache, src, 1 << 19, kw
+
+
+def stale_inputs():
+    """Records straddling the staleness horizon (ts in [1, 50) stale)."""
+    rng = np.random.default_rng(7)
+    n, k, f = 16, 16, 3
+    ts = rng.integers(1, 100, (n, k), dtype=np.int64)
+    cache = (((ts << 3) | ALIVE).astype(np.int32),
+             rng.integers(0, n * 4, (n, k)).astype(np.int32),
+             np.zeros((n, k), np.int8))
+    src = rng.integers(0, n, (n, f)).astype(np.int32)
+    kw = dict(stale_ticks=40, budget=6, limit=6, fanout=f, cache_lines=k)
+    return cache, src, 90, kw
+
+
+def run_both(ref, cache, src, now, kw):
+    cv, cs, se = cache
+    if ref is fused_publish_gather_xla:
+        ref = jitted(ref, now=now, **kw)
+    else:   # the Pallas interpreter runs faster un-jitted
+        ref = functools.partial(ref, now=now, interpret=True, **kw)
+    want = ref(jnp.asarray(cv), jnp.asarray(cs), jnp.asarray(se),
+               jnp.asarray(src))
+    got = tk.fused_publish_gather(torch.tensor(cv), torch.tensor(cs),
+                                  torch.tensor(se), torch.tensor(src), now,
+                                  **kw)
+    return got, want
+
+
+class TestFusedGatherPlain:
+    @pytest.mark.parametrize("n,k,f", GATHER_CASES)
+    def test_matches_xla(self, n, k, f):
+        got, want = run_both(fused_publish_gather_xla, *gather_inputs(n, k, f))
+        assert_all_equal(got, want, ("sent", "pv", "ps"))
+
+    @pytest.mark.parametrize("n,k,f", GATHER_CASES[1:3])
+    def test_matches_pallas_interpret(self, n, k, f):
+        got, want = run_both(fused_publish_gather_pallas,
+                             *gather_inputs(n, k, f))
+        assert_all_equal(got, want, ("sent", "pv", "ps"))
+
+    @pytest.mark.parametrize("ref", [fused_publish_gather_xla,
+                                     fused_publish_gather_pallas])
+    def test_staleness_gate_fires_identically(self, ref):
+        got, want = run_both(ref, *stale_inputs())
+        assert_all_equal(got, want, ("sent", "pv", "ps"))
+        # Premise: the gate fired, and ps kept its slot where pv zeroed.
+        pv, ps = got[1], got[2]
+        assert bool(((pv == 0) & (ps >= 0)).any())
+
+
+class TestDispatch:
+    def _cache(self):
+        (cv, cs, se), _ = board_case("random-20-64")
+        return torch.tensor(cv), torch.tensor(cs), torch.tensor(se)
+
+    def test_cpu_tensor_takes_plain_version(self):
+        cv, cs, se = self._cache()
+        before = (tpg.publish_board_cuda.launches,
+                  tpg.fused_publish_gather_cuda.launches)
+        kw = dict(budget=5, limit=6, fanout=3, cache_lines=64)
+        a = tk.publish_board(cv, cs, se, **kw)
+        b = tpg.publish_board_torch(cv, cs, se, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        src = torch.zeros((20, 3), dtype=torch.int32)
+        tk.fused_publish_gather(cv, cs, se, src, 10, stale_ticks=5, **kw)
+        assert (tpg.publish_board_cuda.launches,
+                tpg.fused_publish_gather_cuda.launches) == before
+
+    def test_cuda_wrappers_refuse_cpu_tensors(self):
+        cv, cs, se = self._cache()
+        kw = dict(budget=5, limit=6, fanout=3, cache_lines=64)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tpg.publish_board_cuda(cv, cs, se, **kw)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tpg.fused_publish_gather_cuda(
+                cv, cs, se, torch.zeros((20, 3), dtype=torch.int32), 10,
+                stale_ticks=5, **kw)
+
+    def test_kernel_source_is_present(self):
+        from sidecar_tpu_torch.ops.kernels import build
+
+        text = build.SOURCE.read_text()
+        for sym in ("publish_board_kernel", "fused_publish_gather_kernel",
+                    "extern \"C\" int sidecar_publish_board",
+                    "extern \"C\" int sidecar_fused_publish_gather"):
+            assert sym in text, sym
+        assert "sm_90a" in " ".join(build.FLAGS)
+        assert build.library_path().parent == build.BUILD_DIR

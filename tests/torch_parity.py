@@ -1,0 +1,113 @@
+"""Shared helpers of the ``test_torch_*`` suites: build the JAX
+reference and the PyTorch port from the same inputs, replay the
+reference's key schedule as the port's :class:`RoundDraws`, and compare
+states field for field.
+
+The reference draws inside its round: the round key is
+``fold_in(key, round_idx_before_step)`` and ``split(k, 4)`` gives
+``(k_perturb, k_peers, k_drop, k_pp)`` (``models/compressed.py``
+``_step``/``_run_*_jit``).  :func:`jax_draws` reproduces those draws
+with ``jax.random`` and hands them to the port, whose drivers take them
+through ``draws=``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from sidecar_tpu.models import compressed as jax_compressed
+from sidecar_tpu.models.timecfg import TimeConfig as JaxTimeConfig
+from sidecar_tpu.ops import topology as jax_topology
+from sidecar_tpu_torch import convert
+from sidecar_tpu_torch.models.compressed import CompressedSim
+from sidecar_tpu_torch.ops.gossip import RoundDraws
+
+STATE_FIELDS = ("own", "cache_slot", "cache_val", "cache_sent", "floor",
+                "node_alive", "round_idx", "evictions", "dropped")
+
+# The bench's north-star protocol constants (bench.py _bench_north_star).
+BENCH_TIME = dict(refresh_interval_s=10_000.0, push_pull_interval_s=4.0)
+
+
+def jax_draws(key, round_idx: int, *, n: int, fanout: int, deg=None,
+              cache_lines: int = 0, keep_prob: float = 1.0) -> RoundDraws:
+    """The reference's draws for the round taken from ``round_idx``."""
+    k = jax.random.fold_in(key, round_idx)
+    _k_perturb, k_peers, k_drop, k_pp = jax.random.split(k, 4)
+    if deg is None:
+        slot = jax.random.randint(k_peers, (n, fanout), 0, n - 1,
+                                  dtype=jnp.int32)
+    else:
+        slot = jax.random.randint(
+            k_peers, (n, fanout), 0,
+            jnp.maximum(jnp.asarray(deg), 1)[:, None], dtype=jnp.int32)
+    stride = int(jax.random.randint(k_pp, (), 1, n, dtype=jnp.int32))
+    keep = None
+    if keep_prob < 1.0:
+        keep = torch.tensor(np.asarray(jax.random.bernoulli(
+            k_drop, keep_prob, (n, fanout, cache_lines))))
+    return RoundDraws(peer_slot=torch.tensor(np.asarray(slot)),
+                      stride=stride, keep=keep)
+
+
+def jax_draw_seq(jsim, key, start_round: int, num_rounds: int):
+    """The reference's draws for ``num_rounds`` rounds from
+    ``start_round`` of the JAX sim ``jsim``."""
+    p = jsim.p
+    deg = None if jsim.topo.deg is None else jsim.topo.deg
+    return [jax_draws(key, start_round + i, n=p.n, fanout=p.fanout,
+                      deg=deg, cache_lines=p.cache_lines,
+                      keep_prob=1.0 - p.drop_prob)
+            for i in range(num_rounds)]
+
+
+def to_numpy_state(state) -> dict:
+    """``{field: np.ndarray}`` of a JAX state."""
+    return {f: np.asarray(getattr(state, f)) for f in STATE_FIELDS}
+
+
+def port_pair(params_kw: dict, topo, time_kw: dict, *,
+              fused_gather: bool = True):
+    """The reference sim and the port sim (on the CPU) built from the
+    same params, time config and graph."""
+    jp = jax_compressed.CompressedParams(**params_kw)
+    jt = JaxTimeConfig(**time_kw)
+    jsim = jax_compressed.CompressedSim(jp, topo, jt)
+    tsim = CompressedSim(
+        convert.params_from_jax_fields(dataclasses.asdict(jp)),
+        convert.topology_from_numpy(topo.n, topo.nbrs, topo.deg, topo.name),
+        convert.timecfg_from_fields(dataclasses.asdict(jt)),
+        device="cpu", fused_gather=fused_gather)
+    return jsim, tsim
+
+
+def port_state(jax_state):
+    """The port's copy of a JAX state, on the CPU."""
+    return convert.state_from_numpy(to_numpy_state(jax_state), "cpu")
+
+
+def assert_states_equal(jax_state, port_state, ctx: str = ""):
+    got = convert.state_to_numpy(port_state)
+    want = to_numpy_state(jax_state)
+    for f in STATE_FIELDS:
+        np.testing.assert_array_equal(got[f], want[f],
+                                      err_msg=f"{ctx} field {f}")
+        assert got[f].dtype == want[f].dtype, (ctx, f, got[f].dtype,
+                                               want[f].dtype)
+
+
+def bench_burst(m: int, frac: float, seed: int = 7) -> np.ndarray:
+    """The bench's churn burst: ``frac`` of the slots, sorted."""
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(m, size=max(1, int(m * frac)),
+                              replace=False)).astype(np.int32)
+
+
+def er(n: int):
+    """The bench's graph, ER(avg degree 8, seed 3)."""
+    return jax_topology.erdos_renyi(n, avg_degree=8.0, seed=3)
