@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the compressed model's dense lockstep round — the bench's
-north-star workload — through the port's entry points, and checks it:
+north-star workload — through the port's entry points, on one device
+and over node shards, and checks it:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — ``nvcc`` builds the kernels from
@@ -12,7 +13,7 @@ north-star workload — through the port's entry points, and checks it:
    memory and spills (``-Xptxas -v``);
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
    same CUDA tensors, ``torch.equal`` on every output (integer outputs,
-   no tolerance), over adversarial shapes and the north-star shape;
+   no tolerance), over adversarial shapes and the north-star shapes;
    then each timed with CUDA events beside its bound;
 4. lockstep — n=4096, K=256, ER(8, seed 3), 50 rounds from one set of
    injected draws three ways: on the card with the fused kernel, on the
@@ -22,7 +23,13 @@ north-star workload — through the port's entry points, and checks it:
    bench's 0.1 % burst, ``run_behind(every=25)`` until the behind count
    crosses ε=1e-4 of the unsettled set (at most 600 rounds), once with
    each kernel; the two runs must agree and each kernel's launch count
-   must equal the rounds run.
+   must equal the rounds run;
+6. sharded  — the same run through the node-sharded twin in every
+   board-exchange mode at d ∈ {1, 4} shards, from the same generator
+   seed: each must reach ε in the same rounds with the same behind
+   curve and final state as the single-device unfused run, drop no
+   pull, and launch the publish and board-row-gather kernels d times a
+   round.
 
 Each phase prints one JSON line; then the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -38,7 +45,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("device", "build", "kernels", "lockstep", "north_star")
+PHASES = ("device", "build", "kernels", "lockstep", "north_star",
+          "sharded")
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 KERNEL_SOURCE = "sidecar_tpu_torch/ops/kernels/csrc/publish_gather.cu"
 
@@ -148,6 +156,31 @@ def gather_cases():
     return cases
 
 
+def row_gather_cases():
+    """(label, bval, bslot, src, base) for board_row_gather: ragged
+    request counts, blocks at an offset with src overshooting them on
+    both sides, every row out of block, K from 8 to 1024, F = 1."""
+    import numpy as np
+
+    cases = []
+    for n, k, f, rows, base, hi in (
+            (13, 16, 3, 13, 0, 18), (20, 32, 2, 5, 10, 20),
+            (33, 8, 4, 11, 22, 38), (7, 128, 2, 7, 0, 12),
+            (9, 1024, 1, 4, 3, 12), (31, 64, 3, 7, 50, 70),
+            (1000, 256, 3, 1000, 0, 1000), (777, 256, 1, 250, 500, 1000)):
+        rng = np.random.default_rng(n * 100 + k + f)
+        cases.append((f"n={n} k={k} f={f} rows={rows} base={base}",
+                      rng.integers(0, 1 << 20, (rows, k)).astype(np.int32),
+                      rng.integers(-1, 4 * rows, (rows, k)).astype(np.int32),
+                      rng.integers(0, hi, (n, f)).astype(np.int32), base))
+    rng = np.random.default_rng(5)
+    cases.append(("all rows out of block",
+                  rng.integers(0, 99, (6, 64)).astype(np.int32),
+                  rng.integers(-1, 24, (6, 64)).astype(np.int32),
+                  rng.integers(0, 100, (10, 3)).astype(np.int32), 100))
+    return cases
+
+
 def to_cuda(arrays):
     import torch
 
@@ -185,7 +218,8 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int):
 
     from sidecar_tpu_torch.ops.kernels import publish_gather as pg
 
-    worst = {"publish_board": 0, "fused_publish_gather": 0}
+    worst = {"publish_board": 0, "fused_publish_gather": 0,
+             "board_row_gather": 0}
     failures = []
     for label, cache, kw in board_cases():
         cv, cs, se = to_cuda(cache)
@@ -233,6 +267,16 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int):
     del got, want
     torch.cuda.synchronize()
 
+    for label, bval, bslot, src_c, base in row_gather_cases():
+        bv, bs, sr = to_cuda((bval, bslot, src_c))
+        got = pg.board_row_gather_cuda(bv, bs, sr, base)
+        want = pg.board_row_gather_torch(bv, bs, sr, base)
+        torch.cuda.synchronize()
+        worst["board_row_gather"] = max(worst["board_row_gather"],
+                                        max_abs_diff(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            failures.append(f"board_row_gather {label}")
+
     line = ns_n * ns_k
     board_bytes = line * (4 + 4 + 1) * 2
     fused_bytes = line * (4 + 4 + 1) + src.numel() * 4 + line * 1 + \
@@ -254,11 +298,58 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int):
         records[name] = dict(max_abs_err=worst[name], ms=ms,
                              plain_ms=plain_ms,
                              bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
-                             bytes=nbytes)
+                             bytes=nbytes, library_ms=None)
+
+    # The board row gather at the sharded north star's two shapes, on a
+    # published board: d=1 (all_gather: the whole board at base 0) and
+    # d=4 (shard 2's own block at base 2·nl, its rows' sampled peers).
+    bval, bslot, _ = pg.publish_board_cuda(cv, cs, se, **bkw)
+    del cv, cs, se
+    nl = ns_n // 4
+    blk = slice(2 * nl, 3 * nl)
+    shapes = {"d=1": (bval, bslot, src, 0),
+              "d=4": (bval[blk], bslot[blk], src[blk], 2 * nl)}
+    rg = {}
+    for label, (bv, bs, sr, base) in shapes.items():
+        got = pg.board_row_gather_cuda(bv, bs, sr, base)
+        want = pg.board_row_gather_torch(bv, bs, sr, base)
+        worst["board_row_gather"] = max(worst["board_row_gather"],
+                                        max_abs_diff(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            failures.append(f"board_row_gather north-star {label}")
+        del got, want
+        rel = sr.to(torch.int64) - base
+        inb = (rel >= 0) & (rel < bv.shape[0])
+        # Each input read once: src, and every in-block row some request
+        # names; each output written once.
+        rows_named = int(torch.unique(rel[inb]).numel())
+        out_bytes = 2 * sr.numel() * ns_k * 4
+        nbytes = sr.numel() * 4 + out_bytes + 2 * rows_named * ns_k * 4
+        per_request = sr.numel() * 4 + out_bytes + \
+            2 * int(inb.sum()) * ns_k * 4
+        # The gather without the mask: no single call computes the
+        # masked one.
+        flat = torch.clamp(rel, 0, bv.shape[0] - 1).reshape(-1)
+        rg[label] = dict(
+            rows=bv.shape[0], base=base, requests=sr.numel(),
+            in_block=int(inb.sum()), rows_named=rows_named,
+            ms=cuda_time_ms(lambda: pg.board_row_gather_cuda(bv, bs, sr,
+                                                             base)),
+            plain_ms=cuda_time_ms(lambda: pg.board_row_gather_torch(
+                bv, bs, sr, base)),
+            library_ms=cuda_time_ms(lambda: (
+                torch.index_select(bv, 0, flat),
+                torch.index_select(bs, 0, flat))),
+            bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+            per_request_bytes=per_request,
+            per_request_bound_ms=per_request / PEAK_BYTES_PER_S * 1e3)
+    records["board_row_gather"] = dict(rg["d=1"],
+                                       max_abs_err=worst["board_row_gather"])
     emit({"phase": "kernels", "cases": len(board_cases())
-          + len(gather_cases()) + 2, "failures": failures,
+          + len(gather_cases()) + len(row_gather_cases()) + 4,
+          "failures": failures,
           "shape": {"n": ns_n, "k": ns_k, "f": ns_f},
-          "kernels": records})
+          "kernels": records, "board_row_gather_shapes": rg})
     if failures:
         raise SystemExit(f"kernel parity failed: {failures}")
     return records
@@ -293,13 +384,15 @@ def reset_launches():
 
     pg.publish_board_cuda.launches = 0
     pg.fused_publish_gather_cuda.launches = 0
+    pg.board_row_gather_cuda.launches = 0
 
 
 def launches():
     from sidecar_tpu_torch.ops.kernels import publish_gather as pg
 
     return {"publish_board": pg.publish_board_cuda.launches,
-            "fused_publish_gather": pg.fused_publish_gather_cuda.launches}
+            "fused_publish_gather": pg.fused_publish_gather_cuda.launches,
+            "board_row_gather": pg.board_row_gather_cuda.launches}
 
 
 def states_equal(a, b) -> list:
@@ -344,9 +437,11 @@ def phase_lockstep(n=4096, rounds=50, every=5):
                        for l in ("cuda_fused", "cuda_unfused"))
     ok = (not any(diffs.values()) and curves_equal
           and counts["cuda_fused"] == {"publish_board": 0,
-                                       "fused_publish_gather": rounds}
+                                       "fused_publish_gather": rounds,
+                                       "board_row_gather": 0}
           and counts["cuda_unfused"] == {"publish_board": rounds,
-                                         "fused_publish_gather": 0}
+                                         "fused_publish_gather": 0,
+                                         "board_row_gather": 0}
           and bool(torch.isfinite(runs["cpu"][1]).all()))
     emit({"phase": "lockstep", "n": n, "rounds": rounds, "every": every,
           "behind": runs["cpu"][1].tolist(), "field_diffs": diffs,
@@ -382,6 +477,74 @@ def run_to_eps(sim, state, generator, *, eps, max_rounds, every, thr_total,
     torch.cuda.synchronize()
     return state, first, curve, hit_total, hit_unsettled, rounds, \
         time.perf_counter() - t0
+
+
+# Coarse kernel families of a profiled round: the first key found in
+# the kernel's lower-cased name (PyTorch's kernels carry their
+# operation's name).
+KERNEL_FAMILIES = (("board_row_gather_kernel", "K3 board_row_gather"),
+                   ("publish_board_kernel", "K2 publish_board"),
+                   ("fused_publish_gather_kernel", "K1 fused_publish_gather"),
+                   ("index", "indexing (gathers, scatters)"),
+                   ("gather", "indexing (gathers, scatters)"),
+                   ("scatter", "indexing (gathers, scatters)"),
+                   ("catarray", "cat"), ("sort", "sort"),
+                   ("reduce", "reductions"), ("scan", "scans"),
+                   ("elementwise", "elementwise"), ("memcpy", "copies"),
+                   ("memset", "copies"), ("copy", "copies"))
+
+
+def profile_rounds(sim, state, rounds=5):
+    """Device activity of ``rounds`` rounds from ``state`` under
+    ``torch.profiler`` (after one unprofiled pass over the same draws):
+    device-busy time a round (the union of the kernels' intervals), the
+    host wall of the profiled window, and device time by kernel
+    family.  The profiler slows the host side, so the idle share it
+    gives is an upper bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = sim.default_generator(7)
+    draws = [sim.draw(gen, state.round_idx + 1 + i) for i in range(rounds)]
+    sim.run_fast(state, rounds, draws=draws)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_fast(state, rounds, draws=draws)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, families = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        name = e.name.lower()
+        family = next((label for key, label in KERNEL_FAMILIES
+                       if key in name), "other")
+        families[family] = families.get(family, 0.0) + (end - start)
+    if not spans:
+        return {"device_time": "not measured: the profiler recorded no "
+                               "device activity"}
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    per_round = 1e3 * rounds
+    return {"rounds": rounds, "kernels": len(spans),
+            "wall_ms_per_round": wall_us / per_round,
+            "device_busy_ms_per_round": busy / per_round,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+            "device_ms_per_round_by_family": {
+                k: v / per_round for k, v in sorted(
+                    families.items(), key=lambda kv: -kv[1])}}
 
 
 def phase_breakdown(sim, state, generator, iters=5):
@@ -428,22 +591,30 @@ def phase_breakdown(sim, state, generator, iters=5):
             "census_path": sim.census_path(state)}
 
 
-def phase_north_star(n, max_rounds=600, every=25, eps=1e-4):
+NORTH_STAR_RUN = dict(max_rounds=600, every=25, eps=1e-4)
+
+
+def north_star_thresholds(p, slots, eps):
+    """The ε crossings on both denominators: the total belief space and
+    the burst's own unsettled set."""
+    return dict(thr_total=eps * float(p.n) * float(p.m),
+                thr_unsettled=eps * float(len(slots)) * (p.n - 1))
+
+
+def phase_north_star(topo, graph_s, max_rounds, every, eps):
+    """Both single-device paths; returns the launch counts of each and
+    the unfused run ``(final, curve, rounds to ε, rounds run)`` that
+    the sharded phase is held against."""
     import math
 
     import torch
 
     from sidecar_tpu_torch.models.compressed import CompressedSim
-    from sidecar_tpu_torch.ops.topology import erdos_renyi
 
+    n = topo.n
     p = bench_params(n)
-    t0 = time.perf_counter()
-    topo = erdos_renyi(n, avg_degree=8.0, seed=3)
-    graph_s = time.perf_counter() - t0
     slots = burst(p.m, 0.001)
-    behind0 = float(len(slots)) * (n - 1)
-    thr_total = eps * float(n) * float(p.m)
-    thr_unsettled = eps * behind0
+    thr = north_star_thresholds(p, slots, eps)
     results = {}
     for fused in (True, False):
         sim = CompressedSim(p, topo, bench_time(), fused_gather=fused)
@@ -457,23 +628,24 @@ def phase_north_star(n, max_rounds=600, every=25, eps=1e-4):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         final, first, curve, hit_total, hit_unsettled, rounds, wall = \
-            run_to_eps(
-            sim, state, sim.default_generator(0), eps=eps,
-            max_rounds=max_rounds, every=every, thr_total=thr_total,
-            thr_unsettled=thr_unsettled)
+            run_to_eps(sim, state, sim.default_generator(0), eps=eps,
+                       max_rounds=max_rounds, every=every, **thr)
         counts = launches()
         breakdown = None
         if fused:
             breakdown = phase_breakdown(sim, first,
                                         sim.default_generator(5))
+        profile = profile_rounds(sim, first)
         label = "fused" if fused else "unfused"
-        results[label] = (final, curve, counts, rounds)
+        results[label] = (final, curve, counts, (hit_total, hit_unsettled),
+                          rounds)
         kernel = "fused_publish_gather" if fused else "publish_board"
         other = "publish_board" if fused else "fused_publish_gather"
         ok = (counts[kernel] == rounds and counts[other] == 0
+              and counts["board_row_gather"] == 0
               and all(math.isfinite(b) for b in curve)
               and hit_unsettled is not None)
-        emit({"phase": "north_star", "path": label, "n": n, "m": p.m,
+        emit({"phase": "north_star", "path": label, "n": p.n, "m": p.m,
               "cache_lines": p.cache_lines, "burst": len(slots),
               "graph_build_s": graph_s, "rounds_run": rounds,
               "rounds_to_eps": hit_total,
@@ -482,7 +654,8 @@ def phase_north_star(n, max_rounds=600, every=25, eps=1e-4):
               "behind_curve": curve, "evictions": int(final.evictions),
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "warmup_launches": warm, "launches": counts,
-              "breakdown_after_first_sample": breakdown, "ok": ok})
+              "breakdown_after_first_sample": breakdown,
+              "profile_after_first_sample": profile, "ok": ok})
         if not ok:
             raise SystemExit(f"north-star phase failed ({label})")
     diffs = states_equal(results["fused"][0], results["unfused"][0])
@@ -491,8 +664,70 @@ def phase_north_star(n, max_rounds=600, every=25, eps=1e-4):
           "ok": same})
     if not same:
         raise SystemExit("fused and unfused north-star runs differ")
-    return {"fused_publish_gather": results["fused"][2],
-            "publish_board": results["unfused"][2]}
+    final, curve, _counts, hits, rounds = results["unfused"]
+    return [results["fused"][2], results["unfused"][2]], \
+        (final, curve, hits, rounds)
+
+
+# -- phase 6: the sharded north star ------------------------------------------
+
+SHARDED_RUNS = [(mode, d) for mode in ("all_gather", "all_to_all", "ring",
+                                       "zoned") for d in (1, 4)]
+
+
+def phase_sharded(topo, reference, max_rounds, every, eps):
+    """The north-star run through the node-sharded twin in every mode at
+    d ∈ {1, 4}, held against the single-device unfused run; returns the
+    launch counts of each run."""
+    import math
+
+    import torch
+
+    from sidecar_tpu_torch.parallel import ShardedCompressedSim
+
+    ref_final, ref_curve, ref_hits, ref_rounds = reference
+    p = bench_params(topo.n)
+    slots = burst(p.m, 0.001)
+    thr = north_star_thresholds(p, slots, eps)
+    all_counts = []
+    for mode, d in SHARDED_RUNS:
+        t0 = time.perf_counter()
+        sim = ShardedCompressedSim(p, topo, bench_time(), d=d,
+                                   board_exchange=mode)
+        build_s = time.perf_counter() - t0
+        state = sim.mint(sim.init_state(), slots, 10)
+        sim.run_fast(state, 2, generator=sim.default_generator(99))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        final, first, curve, hit_total, hit_unsettled, rounds, wall = \
+            run_to_eps(sim, state, sim.default_generator(0), eps=eps,
+                       max_rounds=max_rounds, every=every, **thr)
+        counts = launches()
+        all_counts.append(counts)
+        profile = profile_rounds(sim, first)
+        diffs = states_equal(ref_final, final)
+        dropped = sim.sync_exchange_metrics(final)
+        ok = (not diffs and curve == ref_curve and rounds == ref_rounds
+              and (hit_total, hit_unsettled) == ref_hits and dropped == 0
+              and counts == {"publish_board": d * rounds,
+                             "fused_publish_gather": 0,
+                             "board_row_gather": d * rounds}
+              and all(math.isfinite(b) for b in curve))
+        emit({"phase": "sharded", "board_exchange": mode, "d": d,
+              "n": p.n, "m": p.m, "rounds_run": rounds,
+              "rounds_to_eps": hit_total,
+              "rounds_to_eps_unsettled": hit_unsettled, "wall_s": wall,
+              "rounds_per_s": rounds / wall, "sim_build_s": build_s,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "exchange_bytes_per_round": sim.exchange_bytes_per_round,
+              "dropped": dropped, "launches": counts,
+              "field_diffs": diffs, "curve_equal": curve == ref_curve,
+              "profile_after_first_sample": profile, "ok": ok})
+        if not ok:
+            raise SystemExit(f"sharded phase failed ({mode}, d={d})")
+        del sim, state, final, first
+    return all_counts
 
 
 def main(argv=None) -> int:
@@ -528,22 +763,37 @@ def main(argv=None) -> int:
         records = phase_kernels(args.n, 256, 3)
     if "lockstep" in phases:
         phase_lockstep()
-    counts = {}
-    if "north_star" in phases:
-        counts = phase_north_star(args.n)
+    # The main path's runs, each with its counts set to 0 just before it
+    # and read just after.
+    runs = []
+    if "north_star" in phases or "sharded" in phases:
+        from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+        # One graph for both phases: the bit-identical builder takes
+        # over a minute on the host at n=100,000.
+        t0 = time.perf_counter()
+        topo = erdos_renyi(args.n, avg_degree=8.0, seed=3)
+        graph_s = time.perf_counter() - t0
+        counts, reference = phase_north_star(topo, graph_s,
+                                             **NORTH_STAR_RUN)
+        runs += counts
+        if "sharded" in phases:
+            runs += phase_sharded(topo, reference, **NORTH_STAR_RUN)
     if records:
         replaces = {
             "fused_publish_gather":
                 "sidecar_tpu/ops/kernels/publish_gather.py:371",
             "publish_board": "sidecar_tpu/ops/kernels/publish_gather.py:193",
+            "board_row_gather":
+                "sidecar_tpu/ops/kernels/publish_gather.py:265",
         }
         emit({"kernels": [
             {"name": f"{name}_kernel", "route": "cuda",
              "source": KERNEL_SOURCE, "replaces": replaces[name],
-             "launches": counts.get(name, {}).get(name, 0),
+             "launches": sum(c[name] for c in runs),
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-             "bound_by": "bytes", "library_ms": None}
+             "bound_by": "bytes", "library_ms": rec["library_ms"]}
             for name, rec in records.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,10 +8,12 @@ so each counterpart is easy to find:
 * ``ops/status.py``, ``ops/merge.py``, ``ops/ttl.py``,
   ``ops/suspicion.py``, ``ops/gossip.py``, ``ops/knobs.py``,
   ``ops/topology.py`` — the leaf ops, plain functions on tensors;
-* ``ops/kernels/`` — the hand-written CUDA publish kernels, their plain
-  PyTorch versions, and the ``nvcc`` build;
+* ``ops/kernels/`` — the hand-written CUDA publish and board-row-gather
+  kernels, their plain PyTorch versions, and the ``nvcc`` build;
 * ``models/timecfg.py``, ``models/compressed.py`` — the compressed
   model's dense lockstep round and its drivers;
+* ``parallel/mesh.py``, ``parallel/sharded_compressed.py`` — the
+  node-sharded twin of the compressed model over a shard group;
 * ``convert.py`` — moving state, params and graphs across from the
   reference's numpy form.
 

@@ -277,14 +277,18 @@ class CompressedSim:
 
     # -- the round's phases -------------------------------------------------
 
-    def _publish(self, state: CompressedState, limit: int):
+    def _publish(self, state: CompressedState, limit: int,
+                 row_offset: int = 0):
         """The message board ``(bval, bslot, sent)`` — the publish-only
-        kernel on the card, its plain version on the CPU."""
+        kernel on the card, its plain version on the CPU.  ``state`` may
+        be a shard's row block; ``row_offset`` is the global id of its
+        row 0 (the tie-rotation seed)."""
         p = self.p
         return kernel_ops.publish_board(
             state.cache_val, state.cache_slot, state.cache_sent,
             budget=min(p.budget, p.cache_lines), limit=limit,
-            fanout=p.fanout, cache_lines=p.cache_lines)
+            fanout=p.fanout, cache_lines=p.cache_lines,
+            row_offset=row_offset)
 
     @staticmethod
     def _lex_max(wv, ws, cv, cs):
@@ -388,20 +392,24 @@ class CompressedSim:
         return cache_val, cache_slot, cache_sent, ev
 
     def _announce_offers(self, own0, floor0, node_alive, round_idx: int,
-                         now: int):
+                         now: int, row_offset: int = 0):
         """Owner refresh (a fresh version of every due, present,
         non-tombstone own record; one the whole cluster already holds
         folds straight into the floor) and recovery re-offers of own
-        slots still above the floor.  Returns ``(own, floor, offer_val,
-        base_slot)``."""
+        slots still above the floor.  ``own0``/``node_alive`` may be a
+        shard's row block whose row 0 is global node ``row_offset``:
+        slot ids and recovery phases are then global, and only the
+        block's floor slice is read and rewritten.  Returns ``(own,
+        floor, offer_val, base_slot)``."""
         p, t = self.p, self.t
         kn = self._knobs
         s = p.services_per_node
         n = own0.shape[0]
         dev = own0.device
-        node = torch.arange(n, dtype=I32, device=dev)[:, None]
-        slots = torch.arange(n * s, dtype=I32, device=dev).reshape(n, s)
-        floor_l = floor0.reshape(n, s)
+        node = row_offset + torch.arange(n, dtype=I32, device=dev)[:, None]
+        lo, hi = row_offset * s, (row_offset + n) * s
+        slots = torch.arange(lo, hi, dtype=I32, device=dev).reshape(n, s)
+        floor_l = floor0[lo:hi].reshape(n, s)
 
         st = unpack_status(own0)
         present = is_known(own0) & node_alive[:, None]
@@ -415,17 +423,24 @@ class CompressedSim:
         fold = refresh_due & (own0 == floor_l)
         own = torch.where(refresh_due, new_val, own0)
         floor_l = torch.where(fold, new_val, floor_l)
+        if hi - lo == floor0.shape[0]:
+            floor = floor_l.reshape(-1)
+        else:
+            floor = floor0.clone()
+            floor[lo:hi] = floor_l.reshape(-1)
 
         rphase = node % kn.recover_rounds
         recover_due = ((round_idx % kn.recover_rounds) == rphase) \
             & present & (own > floor_l)
         offer = (refresh_due & ~fold) | recover_due
         offer_val = torch.where(offer, own, 0)
-        return own, floor_l.reshape(-1), offer_val, slots[:, 0]
+        return own, floor, offer_val, slots[:, 0]
 
-    def _announce(self, state, round_idx: int, now: int):
+    def _announce(self, state, round_idx: int, now: int,
+                  row_offset: int = 0):
         own, floor, offer_val, base_slot = self._announce_offers(
-            state.own, state.floor, state.node_alive, round_idx, now)
+            state.own, state.floor, state.node_alive, round_idx, now,
+            row_offset=row_offset)
         cv, cs, se, ev = self._insert_own_offers(
             state.cache_val, state.cache_slot, state.cache_sent,
             offer_val, base_slot, reset_on_hold=True)

@@ -3,6 +3,9 @@ versions and the device dispatch (see ``publish_gather.py``); the
 ``nvcc`` build lives in ``build.py``."""
 
 from sidecar_tpu_torch.ops.kernels.publish_gather import (  # noqa: F401
+    board_row_gather,
+    board_row_gather_cuda,
+    board_row_gather_torch,
     eligible_lines,
     fused_publish_gather,
     fused_publish_gather_cuda,

@@ -78,14 +78,17 @@ def build_log() -> str:
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), with the
-    ``argtypes`` of both entry points declared."""
+    ``argtypes`` of its three entry points declared."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.sidecar_publish_board.argtypes = [
             p, p, p, i, i, i, i, i, i, p, p, p, p]
         lib.sidecar_publish_board.restype = i
+        lib.sidecar_board_row_gather.argtypes = [
+            p, p, p, i, ll, i, i, p, p, p]
+        lib.sidecar_board_row_gather.restype = i
         lib.sidecar_fused_publish_gather.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p]
         lib.sidecar_fused_publish_gather.restype = i

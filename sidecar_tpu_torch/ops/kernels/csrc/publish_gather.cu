@@ -1,11 +1,15 @@
-// Publish selection of the compressed gossip round, for Hopper (sm_90a).
+// Publish selection and board row gather of the compressed gossip round,
+// for Hopper (sm_90a).
 //
-// Replaces the two TPU kernels of sidecar_tpu/ops/kernels/publish_gather.py:
+// Replaces the three TPU kernels of sidecar_tpu/ops/kernels/publish_gather.py:
 //   * publish_board_kernel         <- publish_board_pallas         (:193)
+//   * board_row_gather_kernel      <- board_row_gather_pallas      (:265)
 //   * fused_publish_gather_kernel  <- fused_publish_gather_pallas  (:371)
 // and computes exactly what their XLA twins (publish_board_xla :142,
-// fused_publish_gather_xla :355) compute: integer arithmetic only, held
-// equal with torch.equal against the port's plain PyTorch versions.
+// board_row_gather_xla :251, fused_publish_gather_xla :355) compute:
+// integer arithmetic only, held equal with torch.equal against the port's
+// plain PyTorch versions.  The board row gather is described above its
+// kernel below.
 //
 // Selection of one row of K cache lines (B = min(budget, K)):
 //   priority = eligible ? val : 0          eligible = slot >= 0 && sent < limit
@@ -166,6 +170,41 @@ __global__ void fused_publish_gather_kernel(
   }
 }
 
+// Board row gather (the node-sharded round's delivery gather).  A shard
+// holds a board block of R rows whose row 0 is global node `base` (its own
+// rows, or the whole gathered board at base 0), and serves the rows its
+// nodes sampled:
+//   pv[r, f] = bval[src[r, f] - base], ps[r, f] = bslot[src[r, f] - base]
+//   where 0 <= src[r, f] - base < R, else (0, -1) -- the merge no-op.
+// Design (a simple, correct first form): one block per request (r, f) on
+// gridDim.x (nl*F reaches 300,000 at the north star, past gridDim.y's
+// 65,535), threads stride over the K lines, so each warp reads and writes
+// 128 contiguous bytes of a row; the output index is 64-bit (nl*F*K is
+// 76.8 M at N=100,000, F=3, K=256).  An out-of-block request reads nothing.
+//
+// Bound on an H100 SXM (3.35 TB/s; no arithmetic beyond the index, so bytes
+// bound it): at N=100,000 rows, F=3, K=256 it writes 614.4 MB of pv/ps and
+// reads src (1.2 MB) plus every board row some request names once (at most
+// the 204.8 MB board; 614.4 MB if each request's row came from memory).
+// What the design does about it: coalesced row copies, nothing staged
+// through shared memory, and no read for a masked request.  Rows named by
+// several requests are read again (from L2 where they are still there);
+// 16-byte vector copies and a warp per row are later work.
+__global__ void board_row_gather_kernel(
+    const int* __restrict__ bval, const int* __restrict__ bslot,
+    const int* __restrict__ src, int rows, int k, int base,
+    int* __restrict__ pv, int* __restrict__ ps) {
+  const int64_t req = blockIdx.x;
+  const int64_t rel = static_cast<int64_t>(src[req]) - base;
+  const bool in_block = rel >= 0 && rel < rows;
+  const int64_t in = in_block ? rel * k : 0;
+  const int64_t out = req * k;
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    pv[out + j] = in_block ? bval[in + j] : 0;
+    ps[out + j] = in_block ? bslot[in + j] : -1;
+  }
+}
+
 inline unsigned threads_for(int k) { return k < 32 ? 32u : static_cast<unsigned>(k); }
 
 }  // namespace
@@ -185,6 +224,21 @@ extern "C" int sidecar_publish_board(
       static_cast<const int8_t*>(cache_sent), k, budget, limit, fanout,
       row_offset, static_cast<int*>(bval), static_cast<int*>(bslot),
       static_cast<int8_t*>(sent));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `n_req` = nl * F requests; a grid holds at most 2^31 - 1 blocks.
+extern "C" int sidecar_board_row_gather(
+    const void* bval, const void* bslot, const void* src, int rows,
+    long long n_req, int k, int base, void* pv, void* ps, void* stream) {
+  if (n_req <= 0 || k <= 0) return 0;
+  if (n_req > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const unsigned threads = k < 256 ? ((static_cast<unsigned>(k) + 31u) & ~31u) : 256u;
+  board_row_gather_kernel<<<static_cast<unsigned>(n_req), threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(bval), static_cast<const int*>(bslot),
+      static_cast<const int*>(src), rows, k, base, static_cast<int*>(pv),
+      static_cast<int*>(ps));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,8 @@
-"""The publish selection of the compressed round — plain PyTorch
-versions, the hand-written CUDA kernels' wrappers, and the dispatch
-between them.
+"""The publish selection and board row gather of the compressed round —
+plain PyTorch versions, the hand-written CUDA kernels' wrappers, and the
+dispatch between them.
 
-Two functions, each with both forms:
+Three functions, each with both forms:
 
 * ``publish_board`` — each row's top-``budget`` freshest eligible cache
   lines as a message board (``bval``/``bslot``, unselected lines zeroed
@@ -17,6 +17,12 @@ Two functions, each with both forms:
   :func:`fused_publish_gather_torch` (``fused_publish_gather_xla``);
   kernel ``fused_publish_gather_kernel`` (replaces
   ``fused_publish_gather_pallas``).
+* ``board_row_gather`` — the node-sharded round's delivery gather: from
+  a board block whose row 0 is global node ``base``, the rows of the
+  sampled peers ``src[r, f]`` (global ids), ``(0, -1)`` for a peer
+  outside the block.  Plain version :func:`board_row_gather_torch`
+  (``board_row_gather_xla``); kernel ``board_row_gather_kernel``
+  (replaces ``board_row_gather_pallas``).
 
 Dispatch is by the tensors' device and nothing else: a CUDA tensor
 launches the kernel (or the call raises), a CPU tensor takes the plain
@@ -101,6 +107,20 @@ def fused_publish_gather_torch(cache_val, cache_slot, cache_sent, src,
     bval = torch.where(staleness_mask(bval, now, stale_ticks), 0, bval)
     rows = src.to(torch.int64)
     return sent, bval[rows], bslot[rows]
+
+
+def board_row_gather_torch(bval, bslot, src, base: int = 0):
+    """``pv[r, f] = bval[src[r, f] - base]`` (and ``ps`` from ``bslot``)
+    where the row lies in the ``[R, K]`` block, else ``(0, -1)`` — the
+    reference's ``board_row_gather_xla``.  Returns ``(pv, ps)``, each
+    ``[nl, F, K]`` int32."""
+    rows_total = bval.shape[0]
+    rel = src.to(torch.int64) - base
+    in_block = ((rel >= 0) & (rel < rows_total))[:, :, None]
+    rows = torch.clamp(rel, 0, rows_total - 1)
+    pv = torch.where(in_block, bval[rows], 0)
+    ps = torch.where(in_block, bslot[rows], -1)
+    return pv, ps
 
 
 # -- CUDA wrappers ------------------------------------------------------------
@@ -203,6 +223,44 @@ def fused_publish_gather_cuda(cache_val, cache_slot, cache_sent, src,
 fused_publish_gather_cuda.launches = 0
 
 
+def board_row_gather_cuda(bval, bslot, src, base: int = 0):
+    """Launch ``board_row_gather_kernel`` (one block per request) on the
+    current stream.  Returns ``(pv, ps)``."""
+    from sidecar_tpu_torch.ops.kernels.build import load
+
+    for name, t in (("bval", bval), ("bslot", bslot), ("src", src)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.dtype != torch.int32 or t.dim() != 2:
+            raise ValueError(f"{name} must be a 2-D int32 tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != bval.device:
+            raise ValueError(f"{name} is on {t.device}, bval on "
+                             f"{bval.device}")
+    if bslot.shape != bval.shape:
+        raise ValueError(f"bslot {tuple(bslot.shape)} must match bval "
+                         f"{tuple(bval.shape)}")
+    rows_total, k = bval.shape
+    nl, f = src.shape
+    pv = torch.empty((nl, f, k), dtype=torch.int32, device=bval.device)
+    ps = torch.empty_like(pv)
+    if pv.numel() == 0:
+        return pv, ps
+    lib = load()
+    with torch.cuda.device(bval.device):
+        err = lib.sidecar_board_row_gather(
+            _ptr(bval), _ptr(bslot), _ptr(src), rows_total, nl * f, k,
+            int(base), _ptr(pv), _ptr(ps), _stream(bval))
+    _raise_on(err, "board_row_gather_kernel launch")
+    board_row_gather_cuda.launches += 1
+    return pv, ps
+
+
+board_row_gather_cuda.launches = 0
+
+
 # -- device dispatch ----------------------------------------------------------
 
 def publish_board(cache_val, cache_slot, cache_sent, **kw):
@@ -222,3 +280,11 @@ def fused_publish_gather(cache_val, cache_slot, cache_sent, src, now,
                                          src, now, **kw)
     return fused_publish_gather_torch(cache_val, cache_slot, cache_sent,
                                       src, now, **kw)
+
+
+def board_row_gather(bval, bslot, src, base: int = 0):
+    """The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if bval.is_cuda:
+        return board_row_gather_cuda(bval, bslot, src, base)
+    return board_row_gather_torch(bval, bslot, src, base)

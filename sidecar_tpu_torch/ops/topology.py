@@ -1,7 +1,8 @@
 """Cluster topologies — the numpy builders of
 ``sidecar_tpu/ops/topology.py`` (``Topology``, ``complete``, ``ring``,
 ``erdos_renyi``), copied so both packages build bit-identical graphs
-from the same seed.
+from the same seed, and the static plan of the sharded round's zoned
+board exchange (``zoned_exchange_plan``).
 
 A :class:`Topology` is a padded neighbour list ``nbrs[N, D]`` (int32,
 padded with the node's own index) plus a degree vector ``deg[N]``;
@@ -92,3 +93,96 @@ def erdos_renyi(n: int, avg_degree: float, seed: int = 0) -> Topology:
     col = np.arange(src.shape[0], dtype=np.int64) - starts[src]
     nbrs[src, col] = dst.astype(np.int32)
     return Topology(n=n, nbrs=nbrs, deg=deg, name=f"er{avg_degree:g}")
+
+
+# -- the zoned board-exchange plan --------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ZonedHop:
+    """One hop of the zoned exchange: the static per-sender-shard row
+    blocks shipped at ring offset h (shard s → shard (s-h) mod d).
+
+    ``rows[d, R]`` are each sender shard's local row ids (0-padded past
+    ``valid``); ``pos[d, nl]`` inverts them (local row → block position,
+    R for absent rows — the receiver's lookup in the pull fold)."""
+
+    rows: np.ndarray   # int32 [d, R]
+    valid: np.ndarray  # bool  [d, R]
+    pos: np.ndarray    # int32 [d, nl]
+
+    @property
+    def width(self) -> int:
+        return int(self.rows.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class ZonedExchangePlan:
+    """Static reachability tables for ``board_exchange="zoned"``: which
+    of each shard's rows the overlay can make another shard sample.
+    ``hops[h-1]`` is the block plan for ring offset h (None when no
+    ordered pair needs that offset and the hop is skipped).
+
+    ``direction="push"`` marks row r of shard s reachable into shard t
+    when some neighbour of r lives on t; ``"pull"`` (the compressed
+    twin: boards are pulled by samplers) when some node of t has r in
+    its neighbour table.  Either way the set is a static superset of
+    every cross-shard (sender, receiver) pair a round can sample, which
+    is what makes the mode give ``all_gather``'s result."""
+
+    d: int
+    nl: int
+    direction: str
+    hops: tuple  # tuple[Optional[ZonedHop]], length d-1
+
+    @property
+    def total_rows(self) -> int:
+        """Σ hop widths — the rows a shard receives each round."""
+        return sum(h.width for h in self.hops if h is not None)
+
+
+def zoned_exchange_plan(topo: Topology, d: int,
+                        direction: str = "push") -> ZonedExchangePlan:
+    """Build the static per-(sender shard, ring offset) row-block tables
+    of the zoned board exchange (see :class:`ZonedExchangePlan`).
+    Requires a neighbour-list topology: the complete graph reaches every
+    shard, which is the ``all_gather`` this mode exists to shrink."""
+    if topo.nbrs is None:
+        raise ValueError(
+            "zoned exchange requires a neighbor-list topology: the "
+            "complete graph reaches every shard (use all_gather there)")
+    if direction not in ("push", "pull"):
+        raise ValueError(f"direction must be push|pull, got {direction!r}")
+    n = topo.n
+    if n % d:
+        raise ValueError(f"n={n} must divide into {d} shards")
+    nl = n // d
+    width = topo.nbrs.shape[1]
+    edge_ok = np.arange(width)[None, :] < topo.deg[:, None]
+    src = np.repeat(np.arange(n, dtype=np.int64), width)[edge_ok.ravel()]
+    tgt = topo.nbrs.ravel().astype(np.int64)[edge_ok.ravel()]
+    if direction == "push":
+        rows_of, needed_by = src, tgt // nl
+    else:
+        rows_of, needed_by = tgt, src // nl
+    reach = np.zeros((n, d), dtype=bool)
+    reach[rows_of, needed_by] = True
+    reach[np.arange(n), np.arange(n) // nl] = False  # own shard is local
+    hops = []
+    for h in range(1, d):
+        blocks = [np.nonzero(reach[s * nl:(s + 1) * nl, (s - h) % d])[0]
+                  for s in range(d)]
+        r = max((len(b) for b in blocks), default=0)
+        if r == 0:
+            hops.append(None)
+            continue
+        rows = np.zeros((d, r), dtype=np.int32)
+        valid = np.zeros((d, r), dtype=bool)
+        pos = np.full((d, nl), r, dtype=np.int32)
+        for s, b in enumerate(blocks):
+            rows[s, :len(b)] = b
+            valid[s, :len(b)] = True
+            pos[s, b] = np.arange(len(b), dtype=np.int32)
+        hops.append(ZonedHop(rows=rows, valid=valid, pos=pos))
+    return ZonedExchangePlan(d=d, nl=nl, direction=direction,
+                             hops=tuple(hops))

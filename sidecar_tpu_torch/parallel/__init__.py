@@ -1,0 +1,11 @@
+"""The node-sharded twin of the compressed model (``sharded_compressed``)
+and its shard groups and board-exchange modes (``mesh``)."""
+
+from sidecar_tpu_torch.parallel.mesh import (  # noqa: F401
+    BOARD_EXCHANGES,
+    LocalShardGroup,
+    resolve_board_exchange,
+)
+from sidecar_tpu_torch.parallel.sharded_compressed import (  # noqa: F401
+    ShardedCompressedSim,
+)

@@ -1,0 +1,383 @@
+"""The node-axis-sharded twin of the compressed model — the port of
+``sidecar_tpu/parallel/sharded_compressed.py`` ``ShardedCompressedSim``.
+
+The node axis splits into ``d`` contiguous blocks of ``nl = N / d``
+rows.  Shard ``s`` owns rows ``[s·nl, (s+1)·nl)``: their own records,
+cache lines and board rows, and one replica of the shared floor.  Each
+round the shards publish their boards, exchange board rows in one of
+four modes (``board_exchange``), pull the rows their nodes sampled, and
+re-merge the floor replicas:
+
+* ``all_gather`` — every shard receives the whole ``[N, K]`` board;
+* ``all_to_all`` — each shard requests only the rows its nodes sampled,
+  bucketed by source shard into a fixed capacity per shard pair
+  (``a2a_slack · ceil(nl·F / d)``, at least 16); a request past its
+  bucket's capacity is a dropped pull, counted in ``state.dropped``;
+* ``ring`` — ``d − 1`` hops pass each shard's block around a ring;
+* ``zoned`` — each hop carries only the rows the overlay can make
+  another shard sample (``ops/topology.zoned_exchange_plan``).
+
+The state stays the single-device :class:`CompressedState` of global
+tensors; a shard works on its row slice of them, and its kernels run on
+that slice (a contiguous block, which the kernel wrappers accept).  The
+round (``CompressedSim._step``) is inherited: this class replaces its
+gossip-and-announce half (:meth:`_round_gossip_announce`) with the
+reference's split-phase shard body (``_gossip_shard_body``), run as
+phases over the loop of shards with the shard group's collectives
+between them:
+
+1. the ``all_to_all`` request leg (routing is index math only);
+2. each shard's board — the publish kernel at ``row_offset = r0`` —
+   through the admission gate;
+3. the own-shard early fold through the board row gather kernel at
+   ``base = r0`` (every mode but ``all_gather``);
+4. the announce's own/floor half at ``row_offset = r0``, on the shard's
+   floor replica;
+5. the exchange and the fold of the remote rows, in the reference's
+   fold order;
+6. the finalize (transmit resets, evictions) and the owner-offer insert;
+7. ``pmax`` of the floor replicas, ``psum`` of evictions and drops.
+
+The push-pull and the sweep then run on the global tensors, as in the
+reference.  With the same peers, the same loss mask and no dropped
+pull, every mode at every ``d`` ends each round in the single-device
+model's state: the line fold is a max, so the order in which groups of
+pulled rows fold does not matter.
+
+Randomness comes through the ``RoundDraws`` seam as one ``[N, F]``
+``peer_slot`` (and ``[N, F, K]`` ``keep``) per round, so with the
+port's generator this twin draws exactly what the single-device model
+draws.  The reference draws per shard (``fold_in(k_peers, shard)``);
+the tests rebuild those streams and feed them in through ``draws=``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from sidecar_tpu_torch.models.compressed import (
+    I32,
+    I64,
+    CompressedParams,
+    CompressedSim,
+)
+from sidecar_tpu_torch.models.timecfg import TimeConfig
+from sidecar_tpu_torch.ops import kernels as kernel_ops
+from sidecar_tpu_torch.ops.merge import admit_gate
+from sidecar_tpu_torch.ops.topology import Topology, zoned_exchange_plan
+from sidecar_tpu_torch.parallel.mesh import (
+    LocalShardGroup,
+    resolve_board_exchange,
+)
+
+
+def _cat(xs):
+    return xs[0] if len(xs) == 1 else torch.cat(xs)
+
+
+@dataclasses.dataclass(frozen=True)
+class A2aRoute:
+    """One shard's ``all_to_all`` requests: ``req[d, C]`` local row ids
+    per source shard, and per flat request ``[nl·F]`` its source shard
+    and row, whether it is served locally, whether it got a bucket
+    place (``valid``) and which (``rank``); ``n_dropped`` counts the
+    cross-shard requests past their bucket's capacity."""
+
+    req: torch.Tensor
+    src_shard: torch.Tensor
+    src_row: torch.Tensor
+    is_local: torch.Tensor
+    valid: torch.Tensor
+    rank: torch.Tensor
+    n_dropped: torch.Tensor
+
+
+@dataclasses.dataclass
+class _Shard:
+    """One shard's working set, carried through the phases of a round."""
+
+    index: int
+    r0: int                  # global id of the shard's row 0
+    rows: slice              # its rows of the global tensors
+    dst: torch.Tensor        # int32 [nl, F] sampled peers (global ids)
+    ok: torch.Tensor         # bool [nl, F] source and receiver alive
+    keep: Optional[torch.Tensor]   # bool [nl, F, K] loss mask, or None
+    cv0: torch.Tensor        # the pre-round cache lines …
+    cs0: torch.Tensor
+    wv: torch.Tensor         # … and the running line winners
+    ws: torch.Tensor
+    src_shard: torch.Tensor  # [nl, F] the peers' shards …
+    src_row: torch.Tensor    # … and their rows there
+    bval: Optional[torch.Tensor] = None    # gated board block [nl, K]
+    bslot: Optional[torch.Tensor] = None
+    sent: Optional[torch.Tensor] = None
+    route: Optional[A2aRoute] = None
+
+
+class ShardedCompressedSim(CompressedSim):
+    """The compressed model over ``d`` node shards (default 1).  Same
+    driver contract as :class:`CompressedSim`; ``board_exchange``
+    (default ``all_gather``), ``a2a_slack`` and ``exchange_stub`` as in
+    the reference.  The shards share one device (a
+    :class:`LocalShardGroup`)."""
+
+    def __init__(self, params: CompressedParams, topo: Topology,
+                 timecfg: TimeConfig = TimeConfig(), *, d: int = 1,
+                 board_exchange: Optional[str] = None, a2a_slack: int = 2,
+                 exchange_stub: bool = False, device="cuda",
+                 perturb=None, cut_mask=None, node_side=None, sparse=None,
+                 pipeline=None, tick_period=None, tick_phase=None):
+        super().__init__(params, topo, timecfg, device=device,
+                         fused_gather=False, perturb=perturb,
+                         cut_mask=cut_mask, node_side=node_side,
+                         sparse=sparse, pipeline=pipeline,
+                         tick_period=tick_period, tick_phase=tick_phase)
+        if board_exchange == "zoned" and topo.nbrs is None:
+            raise ValueError(
+                "board_exchange='zoned' requires a neighbor-list "
+                "topology: the complete graph reaches every shard "
+                "(use all_gather there)")
+        supported = ("all_gather", "all_to_all", "ring")
+        if topo.nbrs is not None:
+            supported += ("zoned",)
+        self.board_exchange = resolve_board_exchange(board_exchange,
+                                                     supported=supported)
+        if a2a_slack < 1:
+            raise ValueError("a2a_slack must be >= 1")
+        self.a2a_slack = a2a_slack
+        # Measurement only: skip the cross-shard exchange and fold only
+        # own-shard rows.  The trajectory is wrong by construction; the
+        # reference uses it to time the exposed exchange.
+        self._exchange_stub = exchange_stub
+        if d < 1 or params.n % d:
+            raise ValueError(f"n={params.n} must divide into d={d} shards")
+        self.d = d
+        self.group = LocalShardGroup(d)
+        nl = params.n // d
+        self._a2a_cap = max(16, -(-nl * params.fanout // d) * a2a_slack)
+
+        self._zoned_plan = None
+        self._zoned_tabs = None
+        if self.board_exchange == "zoned":
+            # Pull direction: boards are pulled by the samplers, so
+            # shard s ships row r wherever some node holds r in its
+            # neighbour table.
+            self._zoned_plan = zoned_exchange_plan(topo, d,
+                                                   direction="pull")
+            self._zoned_tabs = tuple(
+                None if h is None else tuple(
+                    torch.as_tensor(a, device=self.device)
+                    for a in (h.rows.astype("int64"), h.valid,
+                              h.pos.astype("int64")))
+                for h in self._zoned_plan.hops)
+
+        # Per-round, per-shard receive bytes of the board exchange: the
+        # int32 bval + bslot payloads each mode moves.
+        k, cap = params.cache_lines, self._a2a_cap
+        self.exchange_bytes_per_round = {
+            "all_gather": (params.n - nl) * k * 4 * 2,
+            "all_to_all": d * cap * 4 + 2 * d * cap * k * 4,
+            "ring": (d - 1) * nl * k * 4 * 2,
+            "zoned": (0 if self._zoned_plan is None
+                      else self._zoned_plan.total_rows * k * 4 * 2),
+        }[self.board_exchange]
+
+    def sync_exchange_metrics(self, state) -> int:
+        """The cumulative count of ``all_to_all`` pulls dropped at a
+        full bucket (``state.dropped``); reads one device scalar.  (The
+        reference also publishes it to its metrics registry as
+        ``parallel.exchange.overflow``; the port's registry comes with
+        ROADMAP.md Queue 1 item 7.)"""
+        return int(state.dropped)
+
+    # -- the all_to_all request routing -----------------------------------
+
+    def _a2a_route(self, dst, shard: int, nl: int) -> A2aRoute:
+        """Split each sampled peer id into (source shard, source row);
+        own-shard rows are served locally, the others are ranked within
+        their source shard's bucket by one stable sort and placed in
+        ``req`` while the rank is under the capacity ``C``."""
+        d, cap = self.d, self._a2a_cap
+        dev = dst.device
+        flat = dst.reshape(-1).to(I64)                   # [R], R = nl·F
+        src_shard = torch.div(flat, nl, rounding_mode="floor")
+        src_row = flat - src_shard * nl
+        is_local = src_shard == shard
+        src_eff = torch.where(is_local, d, src_shard)    # locals → bucket d
+        order = torch.argsort(src_eff, stable=True)
+        counts = torch.zeros(d + 1, dtype=I64, device=dev).index_add_(
+            0, src_eff, torch.ones_like(src_eff))
+        starts = torch.cumsum(counts, 0) - counts       # exclusive prefix
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(flat.numel(), dtype=I64, device=dev) \
+            - starts[src_eff[order]]
+        valid = ~is_local & (rank < cap)
+        n_dropped = (~is_local & (rank >= cap)).sum(dtype=I32)
+        # Row d of the padded buffer takes every request without a place.
+        req = torch.zeros((d + 1, cap), dtype=I32, device=dev)
+        req[torch.where(valid, src_shard, d),
+            torch.where(valid, rank, 0)] = src_row.to(I32)
+        return A2aRoute(req=req[:d], src_shard=src_shard, src_row=src_row,
+                        is_local=is_local, valid=valid, rank=rank,
+                        n_dropped=n_dropped)
+
+    # -- the shard body -----------------------------------------------------
+
+    def _open_shard(self, state, src, keep, s: int, nl: int) -> _Shard:
+        rows = slice(s * nl, (s + 1) * nl)
+        dst = src[rows]
+        alive = state.node_alive
+        src_shard = torch.div(dst, nl, rounding_mode="floor")
+        return _Shard(
+            index=s, r0=s * nl, rows=rows, dst=dst,
+            ok=alive[dst.to(I64)] & alive[rows][:, None],
+            keep=None if keep is None else keep[rows],
+            cv0=state.cache_val[rows], cs0=state.cache_slot[rows],
+            wv=state.cache_val[rows], ws=state.cache_slot[rows],
+            src_shard=src_shard, src_row=dst - src_shard * nl)
+
+    def _fold(self, x: _Shard, pv, ps, ok, now: int):
+        """Fold one group of pulled rows into shard ``x``'s winners."""
+        x.wv, x.ws = self._fold_pulled(x.cv0, x.cs0, x.wv, x.ws, pv, ps,
+                                       ok, now, keep=x.keep,
+                                       stale_filtered=True)
+
+    def _round_gossip_announce(self, state, src, keep, round_idx: int,
+                               now: int):
+        """Publish, exchange, pull and merge, then announce — shard by
+        shard, phase by phase (see the module docstring)."""
+        p, kn, g, d = self.p, self._knobs, self.group, self.d
+        nl, f, k = p.n // d, p.fanout, p.cache_lines
+        mode = self.board_exchange
+        stub = self._exchange_stub
+        tb = kn.budget_arg()
+        shards = [self._open_shard(state, src, keep, s, nl)
+                  for s in range(d)]
+
+        # 1. The all_to_all request leg: index math over the peers only.
+        a2a = mode == "all_to_all" and not stub
+        if a2a:
+            for x in shards:
+                x.route = self._a2a_route(x.dst, x.index, nl)
+            req_in = g.all_to_all([x.route.req for x in shards])
+
+        # 2. Each shard's board, gated once before it travels.
+        for x in shards:
+            block = dataclasses.replace(
+                state, cache_val=state.cache_val[x.rows],
+                cache_slot=state.cache_slot[x.rows],
+                cache_sent=state.cache_sent[x.rows])
+            bval, x.bslot, x.sent = self._publish(block, kn.limit,
+                                                  row_offset=x.r0)
+            b_own = None
+            if tb is not None:
+                # Per-origin budget: local row r is published by global
+                # node r0 + r.
+                gi = x.r0 + torch.arange(nl, dtype=I32, device=bval.device)
+                b_own = torch.div(x.bslot, p.services_per_node,
+                                  rounding_mode="floor") == gi[:, None]
+            x.bval = admit_gate(bval, now, kn.stale_ticks, kn.future_arg(),
+                                tb, b_own)
+
+        # 3. Own-shard rows fold at once.  all_gather skips this: its
+        # remote buffer is the whole board, local rows included.
+        if mode != "all_gather" or stub:
+            for x in shards:
+                pv, ps = kernel_ops.board_row_gather(x.bval, x.bslot, x.dst,
+                                                     x.r0)
+                self._fold(x, pv, ps, x.ok & (x.src_shard == x.index), now)
+
+        # 4. The announce's own/floor half, on each shard's floor replica.
+        offers = [self._announce_offers(
+            state.own[x.rows], state.floor, state.node_alive[x.rows],
+            round_idx, now, row_offset=x.r0) for x in shards]
+
+        # 5. The exchange, and the fold of the remote rows.
+        if stub:
+            pass
+        elif mode == "all_gather":
+            boards = zip(g.all_gather([x.bval for x in shards]),
+                         g.all_gather([x.bslot for x in shards]))
+            for x, (bval, bslot) in zip(shards, boards):
+                pv, ps = kernel_ops.board_row_gather(bval, bslot, x.dst, 0)
+                self._fold(x, pv, ps, x.ok, now)
+        elif a2a:
+            rows = [torch.clamp(r, 0, nl - 1).to(I64) for r in req_in]
+            resp_v = g.all_to_all([x.bval[r] for x, r in zip(shards, rows)])
+            resp_s = g.all_to_all([x.bslot[r] for x, r in zip(shards, rows)])
+            for x, rv, rs in zip(shards, resp_v, resp_s):
+                rt = x.route
+                shard = torch.where(rt.valid, rt.src_shard, 0)
+                rank = torch.where(rt.valid, rt.rank, 0)
+                on = rt.valid[:, None]
+                pv = torch.where(on, rv[shard, rank], 0).reshape(nl, f, k)
+                ps = torch.where(on, rs[shard, rank], -1).reshape(nl, f, k)
+                self._fold(x, pv, ps,
+                           x.ok & ~rt.is_local.reshape(nl, f), now)
+        elif mode == "zoned":
+            # Hop h carries each shard's statically reachable rows to
+            # shard (s - h) mod d; the receiver looks sampled rows up
+            # through the hop's pos table, and a row the plan never
+            # ships reads the appended (0, -1) pad row (its fold is
+            # masked off anyway).
+            for h in range(1, d):
+                if self._zoned_tabs[h - 1] is None:
+                    continue
+                zrows, zvalid, zpos = self._zoned_tabs[h - 1]
+                perm = [(i, (i - h) % d) for i in range(d)]
+                got_v = g.ppermute([torch.where(
+                    zvalid[x.index][:, None], x.bval[zrows[x.index]], 0)
+                    for x in shards], perm)
+                got_s = g.ppermute([torch.where(
+                    zvalid[x.index][:, None], x.bslot[zrows[x.index]], -1)
+                    for x in shards], perm)
+                for x, bv, bs in zip(shards, got_v, got_s):
+                    ss = (x.index + h) % d
+                    sel = x.src_shard == ss
+                    pos = zpos[ss][torch.where(sel, x.src_row, 0).to(I64)]
+                    bv = torch.cat([bv, bv.new_zeros((1, k))])
+                    bs = torch.cat([bs, bs.new_full((1, k), -1)])
+                    self._fold(x, bv[pos], bs[pos], x.ok & sel, now)
+        else:  # ring: d - 1 hops pass each block to shard (s - 1) mod d
+            perm = [(i, (i - 1) % d) for i in range(d)]
+            cur_v = [x.bval for x in shards]
+            cur_s = [x.bslot for x in shards]
+            for h in range(1, d):
+                cur_v = g.ppermute(cur_v, perm)
+                cur_s = g.ppermute(cur_s, perm)
+                for x, bv, bs in zip(shards, cur_v, cur_s):
+                    sel = x.src_shard == (x.index + h) % d
+                    rows_h = torch.where(sel, x.src_row, 0).to(I64)
+                    self._fold(x, bv[rows_h], bs[rows_h], x.ok & sel, now)
+
+        # 6. One batch resolution against the pre-round cache, then the
+        # owner-offer insert: the single-device op sequence.
+        own, cv, cs, se, ev = [], [], [], [], []
+        for x, (own_s, _floor_s, offer_val, base_slot) in zip(shards,
+                                                               offers):
+            changed = (x.wv != x.cv0) | (x.ws != x.cs0)
+            sent = torch.where(changed, 0, x.sent)
+            ev_merge = ((x.cs0 >= 0) & (x.ws != x.cs0)).sum(dtype=I32)
+            cv_s, cs_s, se_s, ev_ann = self._insert_own_offers(
+                x.wv, x.ws, sent, offer_val, base_slot, reset_on_hold=True)
+            own.append(own_s)
+            cv.append(cv_s)
+            cs.append(cs_s)
+            se.append(se_s)
+            ev.append(ev_merge + ev_ann.to(I32))
+
+        # 7. Re-merge the floor replicas (each announce wrote only its
+        # own slice); sum the counters.
+        floor = g.pmax([o[1] for o in offers])[0]
+        evictions = g.psum(ev)[0]
+        zero = torch.zeros((), dtype=I32, device=state.own.device)
+        dropped = g.psum([zero if x.route is None else x.route.n_dropped
+                          for x in shards])[0]
+        return dataclasses.replace(
+            state, own=_cat(own), cache_slot=_cat(cs), cache_val=_cat(cv),
+            cache_sent=_cat(se), floor=floor,
+            evictions=(state.evictions + evictions).to(I32),
+            dropped=(state.dropped + dropped).to(I32))

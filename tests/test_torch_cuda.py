@@ -1,6 +1,7 @@
 """Tests of the port that need the card: each CUDA kernel against its
-plain PyTorch version on the same CUDA tensors, and a short run on the
-card against the same run on the CPU.  Marked ``cuda``; each decides
+plain PyTorch version on the same CUDA tensors, and short runs of the
+single-device model and of the sharded twin on the card against the
+same runs on the CPU.  Marked ``cuda``; each decides
 inside a fixture whether a card is present and skips with the reason
 where none is.  ``python3 chip_smoke.py`` covers the same ground at the
 north-star shapes.
@@ -18,6 +19,7 @@ from sidecar_tpu_torch.models.compressed import (
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import topology
 from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+from sidecar_tpu_torch.parallel import ShardedCompressedSim
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +84,53 @@ def test_run_on_card_equals_cpu(card, fused):
                            draws=draws)
     b, cb = gpu.run_behind(gpu.mint(gpu.init_state(), slots, 10), 30, 5,
                            draws=draws)
+    assert torch.equal(ca, cb.cpu())
+    for name, value in convert.state_to_numpy(a).items():
+        np.testing.assert_array_equal(
+            convert.state_to_numpy(b)[name], value, err_msg=name)
+
+
+@pytest.mark.parametrize("n,k,f,rows,base,hi", [
+    (13, 16, 3, 13, 0, 18), (20, 32, 2, 5, 10, 20), (33, 8, 4, 11, 22, 38),
+    (9, 1024, 1, 4, 3, 12), (10, 64, 3, 6, 100, 100),
+    (70_000, 256, 1, 25_000, 50_000, 100_000)])
+def test_board_row_gather_kernel_equals_plain(card, n, k, f, rows, base,
+                                              hi):
+    rng = np.random.default_rng(n + k)
+    bval = torch.tensor(rng.integers(0, 1 << 20, (rows, k)),
+                        dtype=torch.int32).cuda()
+    bslot = torch.tensor(rng.integers(-1, 4 * rows, (rows, k)),
+                         dtype=torch.int32).cuda()
+    src = torch.tensor(rng.integers(0, hi, (n, f)),
+                       dtype=torch.int32).cuda()
+    got = pg.board_row_gather_cuda(bval, bslot, src, base)
+    want = pg.board_row_gather_torch(bval, bslot, src, base)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("mode", ["all_gather", "all_to_all", "ring",
+                                  "zoned"])
+@pytest.mark.parametrize("d", [1, 4])
+def test_sharded_run_on_card_equals_cpu(card, mode, d):
+    p = CompressedParams(n=512, services_per_node=10, cache_lines=256,
+                         fold_quorum=0.995, deep_sweep_every=0)
+    topo = topology.erdos_renyi(512, 8.0, seed=3)
+    t = TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=4.0)
+    cpu = ShardedCompressedSim(p, topo, t, d=d, board_exchange=mode,
+                               device="cpu")
+    gpu = ShardedCompressedSim(p, topo, t, d=d, board_exchange=mode)
+    gen = torch.Generator().manual_seed(0)
+    draws = [cpu.draw(gen, r) for r in range(1, 31)]
+    slots = np.arange(0, p.m, 97)
+    before = (pg.publish_board_cuda.launches,
+              pg.board_row_gather_cuda.launches)
+    a, ca = cpu.run_behind(cpu.mint(cpu.init_state(), slots, 10), 30, 5,
+                           draws=draws)
+    b, cb = gpu.run_behind(gpu.mint(gpu.init_state(), slots, 10), 30, 5,
+                           draws=draws)
+    assert (pg.publish_board_cuda.launches - before[0],
+            pg.board_row_gather_cuda.launches - before[1]) == (30 * d,
+                                                               30 * d)
     assert torch.equal(ca, cb.cpu())
     for name, value in convert.state_to_numpy(a).items():
         np.testing.assert_array_equal(

@@ -48,7 +48,8 @@ def test_every_port_module_is_checked():
     for expected in ("status.py", "merge.py", "ttl.py", "suspicion.py",
                      "gossip.py", "knobs.py", "topology.py",
                      "publish_gather.py", "build.py", "compressed.py",
-                     "timecfg.py", "convert.py", "chip_smoke.py"):
+                     "timecfg.py", "convert.py", "mesh.py",
+                     "sharded_compressed.py", "chip_smoke.py"):
         assert expected in names, expected
 
 

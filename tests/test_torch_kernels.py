@@ -1,10 +1,12 @@
-"""The publish kernels' plain PyTorch versions against the JAX
-reference's ``publish_board_xla``/``_pallas`` and
-``fused_publish_gather_xla``/``_pallas`` (Pallas in interpret mode on
-the CPU), at the adversarial shapes of ``tests/test_kernels.py``:
-ragged row counts, K from 8 to 1024, tie-heavy rows, rows with nothing
-eligible, tombstone-only rows, an empty cache, a row offset, a budget
-wider than the cache and a firing staleness gate.  Exact comparisons.
+"""The kernels' plain PyTorch versions against the JAX reference's
+``publish_board_xla``/``_pallas``, ``fused_publish_gather_xla``/
+``_pallas`` and ``board_row_gather_xla``/``_pallas`` (Pallas in
+interpret mode on the CPU), at the adversarial shapes of
+``tests/test_kernels.py``: ragged row counts, K from 8 to 1024,
+tie-heavy rows, rows with nothing eligible, tombstone-only rows, an
+empty cache, a row offset, a budget wider than the cache, a firing
+staleness gate, board blocks at an offset and rows outside the block.
+Exact comparisons.
 
 Also the dispatch rule: a CPU tensor takes the plain version, and the
 CUDA wrappers refuse anything that is not a CUDA tensor.
@@ -19,6 +21,8 @@ import pytest
 import torch
 
 from sidecar_tpu.ops.kernels.publish_gather import (
+    board_row_gather_pallas,
+    board_row_gather_xla,
     fused_publish_gather_pallas,
     fused_publish_gather_xla,
     publish_board_pallas,
@@ -190,6 +194,51 @@ class TestFusedGatherPlain:
         assert bool(((pv == 0) & (ps >= 0)).any())
 
 
+# (n, k, f, block rows, base, src upper bound): the cases of
+# tests/test_kernels.py (src overshooting the block on both sides), then
+# F = 1 at K = 1024, a wide base with a ragged block, and every row out
+# of block.
+ROW_GATHER_CASES = [(13, 16, 3, 13, 0, 18), (20, 32, 2, 5, 10, 20),
+                    (33, 8, 4, 11, 22, 38), (7, 128, 2, 7, 0, 12),
+                    (9, 1024, 1, 4, 3, 12), (31, 64, 3, 7, 50, 70),
+                    (10, 64, 3, 6, 100, 100)]
+
+
+def row_gather_inputs(n, k, f, blk, base, hi):
+    rng = np.random.default_rng(n * 100 + k + f)
+    bval = rng.integers(0, 1 << 20, (blk, k)).astype(np.int32)
+    bslot = rng.integers(-1, blk * 4, (blk, k)).astype(np.int32)
+    src = rng.integers(0, hi, (n, f)).astype(np.int32)
+    return bval, bslot, src, base
+
+
+class TestBoardRowGatherPlain:
+    @pytest.mark.parametrize("case", ROW_GATHER_CASES)
+    def test_matches_xla(self, case):
+        bval, bslot, src, base = row_gather_inputs(*case)
+        want = jax.jit(board_row_gather_xla)(
+            jnp.asarray(bval), jnp.asarray(bslot), jnp.asarray(src), base)
+        got = tk.board_row_gather(torch.tensor(bval), torch.tensor(bslot),
+                                  torch.tensor(src), base)
+        assert_all_equal(got, want, ("pv", "ps"))
+        # Premise of the last case: no row lies in the block.
+        if case[5] <= case[4]:
+            assert not got[0].any() and bool((got[1] == -1).all())
+
+    @pytest.mark.pallas
+    @pytest.mark.parametrize("case", ROW_GATHER_CASES[1:3])
+    def test_matches_pallas_interpret(self, case):
+        bval, bslot, src, base = row_gather_inputs(*case)
+        want = board_row_gather_pallas(jnp.asarray(bval),
+                                       jnp.asarray(bslot),
+                                       jnp.asarray(src), base,
+                                       interpret=True)
+        got = tpg.board_row_gather_torch(torch.tensor(bval),
+                                         torch.tensor(bslot),
+                                         torch.tensor(src), base)
+        assert_all_equal(got, want, ("pv", "ps"))
+
+
 class TestDispatch:
     def _cache(self):
         (cv, cs, se), _ = board_case("random-20-64")
@@ -205,8 +254,13 @@ class TestDispatch:
         assert all(torch.equal(x, y) for x, y in zip(a, b))
         src = torch.zeros((20, 3), dtype=torch.int32)
         tk.fused_publish_gather(cv, cs, se, src, 10, stale_ticks=5, **kw)
+        before += (tpg.board_row_gather_cuda.launches,)
+        a = tk.board_row_gather(cv, cs, src, 2)
+        b = tpg.board_row_gather_torch(cv, cs, src, 2)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
         assert (tpg.publish_board_cuda.launches,
-                tpg.fused_publish_gather_cuda.launches) == before
+                tpg.fused_publish_gather_cuda.launches,
+                tpg.board_row_gather_cuda.launches) == before
 
     def test_cuda_wrappers_refuse_cpu_tensors(self):
         cv, cs, se = self._cache()
@@ -217,14 +271,19 @@ class TestDispatch:
             tpg.fused_publish_gather_cuda(
                 cv, cs, se, torch.zeros((20, 3), dtype=torch.int32), 10,
                 stale_ticks=5, **kw)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tpg.board_row_gather_cuda(
+                cv, cs, torch.zeros((20, 3), dtype=torch.int32), 0)
 
     def test_kernel_source_is_present(self):
         from sidecar_tpu_torch.ops.kernels import build
 
         text = build.SOURCE.read_text()
         for sym in ("publish_board_kernel", "fused_publish_gather_kernel",
+                    "board_row_gather_kernel",
                     "extern \"C\" int sidecar_publish_board",
-                    "extern \"C\" int sidecar_fused_publish_gather"):
+                    "extern \"C\" int sidecar_fused_publish_gather",
+                    "extern \"C\" int sidecar_board_row_gather"):
             assert sym in text, sym
         assert "sm_90a" in " ".join(build.FLAGS)
         assert build.library_path().parent == build.BUILD_DIR

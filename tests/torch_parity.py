@@ -66,6 +66,42 @@ def jax_draw_seq(jsim, key, start_round: int, num_rounds: int):
             for i in range(num_rounds)]
 
 
+def jax_sharded_draws(jsim, key, start_round: int, num_rounds: int):
+    """The draws of the reference's ``ShardedCompressedSim`` ``jsim`` for
+    ``num_rounds`` rounds from ``start_round``, as the port's
+    single-stream :class:`RoundDraws`.  The reference draws per shard:
+    shard s splits ``fold_in(k_peers, s)`` into its peer and loss keys
+    and draws its ``[nl, F]`` peers and ``[nl, F, K]`` keep mask from
+    them (``parallel/sharded_compressed.py`` ``_gossip_shard``,
+    ``_sample_dst_jit``); the stride comes from ``k_pp`` as on one
+    device.  Concatenated over shards, these are the port's draws."""
+    p, d = jsim.p, jsim.d
+    nl = p.n // d
+    deg = None if jsim.topo.deg is None else np.asarray(jsim.topo.deg)
+    out = []
+    for i in range(num_rounds):
+        k = jax.random.fold_in(key, start_round + i)
+        _k_perturb, k_peers, _k_drop, k_pp = jax.random.split(k, 4)
+        slots, keeps = [], []
+        for s in range(d):
+            kp, kd = jax.random.split(jax.random.fold_in(k_peers, s))
+            if deg is None:
+                hi = p.n - 1
+            else:
+                hi = jnp.maximum(jnp.asarray(deg[s * nl:(s + 1) * nl]),
+                                 1)[:, None]
+            slots.append(np.asarray(jax.random.randint(
+                kp, (nl, p.fanout), 0, hi, dtype=jnp.int32)))
+            if p.drop_prob > 0.0:
+                keeps.append(np.asarray(jax.random.bernoulli(
+                    kd, 1.0 - p.drop_prob, (nl, p.fanout, p.cache_lines))))
+        stride = int(jax.random.randint(k_pp, (), 1, p.n, dtype=jnp.int32))
+        out.append(RoundDraws(
+            peer_slot=torch.tensor(np.concatenate(slots)), stride=stride,
+            keep=torch.tensor(np.concatenate(keeps)) if keeps else None))
+    return out
+
+
 def to_numpy_state(state) -> dict:
     """``{field: np.ndarray}`` of a JAX state."""
     return {f: np.asarray(getattr(state, f)) for f in STATE_FIELDS}
