@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py
 
-Drives the compressed model's dense lockstep round — the bench's
-north-star workload — through the port's entry points, on one device
-and over node shards, and checks it:
+Drives the port's two models through their entry points and checks
+them: the compressed model's dense lockstep round — the bench's
+north-star workload — on one device and over node shards, and the exact
+record-level model's dense round — the bench's headline ``value``
+workload — plus the scatter experiment of
+``benchmarks/pallas_scatter.py``:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — ``nvcc`` builds the kernels from
-   ``sidecar_tpu_torch/ops/kernels/csrc`` and reports registers, shared
-   memory and spills (``-Xptxas -v``);
+   ``sidecar_tpu_torch/ops/kernels/csrc`` (one ``nvcc`` per source, all
+   started together) and reports registers, shared memory and spills
+   (``-Xptxas -v``);
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
    same CUDA tensors, ``torch.equal`` on every output (integer outputs,
-   no tolerance), over adversarial shapes and the north-star shapes;
-   then each timed with CUDA events beside its bound;
+   no tolerance), over adversarial shapes and the main paths' shapes;
+   then each timed with CUDA events beside its bound and the library
+   call that computes the same function, where there is one;
 4. lockstep — n=4096, K=256, ER(8, seed 3), 50 rounds from one set of
    injected draws three ways: on the card with the fused kernel, on the
    card with the publish-only kernel, and on the CPU with the plain
@@ -29,7 +34,21 @@ and over node shards, and checks it:
    seed: each must reach ε in the same rounds with the same behind
    curve and final state as the single-device unfused run, drop no
    pull, and launch the publish and board-row-gather kernels d times a
-   round.
+   round;
+7. scatter  — ``benchmarks/pallas_scatter.py``'s experiment at its
+   shape (4,096 × 40,960, U = n·45 + m updates, ``default_rng(0)``):
+   the scatter-max kernel must equal the library scatter, then four
+   points are timed — an elementwise pass, the in-place max kernel (the
+   ceiling), the library scatter and the scatter-max kernel;
+8. exact lockstep — the exact model, ER(8, seed 3), n=1,024 × 10
+   services (the two-stage select), loss 0.1, push-pull and the sweep
+   firing, 30 rounds from one set of draws on the card and on the CPU:
+   every state field equal, the convergence curve within 1e-6;
+9. exact    — ``bench.py``'s ``value`` workload at full size: n=4,096
+   × 10 services, fanout 3, budget 15, the default ``TimeConfig``,
+   ER(8, seed 3), ``run_fast`` 200 warm rounds then 200 timed, with the
+   scatter-max kernel launched once a round; rounds/s, peak memory, the
+   device profile and each phase's device time.
 
 Each phase prints one JSON line; then the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -46,9 +65,22 @@ import sys
 import time
 
 PHASES = ("device", "build", "kernels", "lockstep", "north_star",
-          "sharded")
+          "sharded", "scatter", "exact_lockstep", "exact")
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
-KERNEL_SOURCE = "sidecar_tpu_torch/ops/kernels/csrc/publish_gather.cu"
+DEVICE = "cuda"                   # where the script makes its own tensors
+CSRC = "sidecar_tpu_torch/ops/kernels/csrc/"
+# Kernel → (source, the TPU kernel it replaces).
+KERNELS = {
+    "publish_board": ("publish_gather.cu",
+                      "sidecar_tpu/ops/kernels/publish_gather.py:193"),
+    "fused_publish_gather": ("publish_gather.cu",
+                             "sidecar_tpu/ops/kernels/publish_gather.py:371"),
+    "board_row_gather": ("publish_gather.cu",
+                         "sidecar_tpu/ops/kernels/publish_gather.py:265"),
+    "scatter_max_apply": ("scatter_max.cu",
+                          "benchmarks/pallas_scatter.py:106"),
+    "rmw_max": ("scatter_max.cu", "benchmarks/pallas_scatter.py:144"),
+}
 
 
 def emit(obj) -> None:
@@ -184,7 +216,7 @@ def row_gather_cases():
 def to_cuda(arrays):
     import torch
 
-    return [torch.as_tensor(a).cuda() for a in arrays]
+    return [torch.as_tensor(a).to(DEVICE) for a in arrays]
 
 
 def max_abs_diff(got, want) -> int:
@@ -210,9 +242,33 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def phase_kernels(ns_n: int, ns_k: int, ns_f: int):
+def device_time_ms(fn, iters: int = 20) -> float:
+    """The device time of one call of ``fn``: the summed durations of
+    the device activities ``torch.profiler`` records over ``iters``
+    calls (after 3 warm-ups), divided by ``iters``.  Unlike
+    :func:`cuda_time_ms` it leaves out the gaps where the device waits
+    for the host, which dominate a call of a few microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+    return busy / 1e3 / iters
+
+
+def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
     """Every kernel against its plain version; returns the partial
-    ``kernels`` records (times and errors)."""
+    ``kernels`` records (times and errors).  The publish and gather
+    kernels run at the north star's shapes (``ns_*``), the scatter
+    kernels at the exact model's (``ex_*``)."""
     import numpy as np
     import torch
 
@@ -345,14 +401,168 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int):
             per_request_bound_ms=per_request / PEAK_BYTES_PER_S * 1e3)
     records["board_row_gather"] = dict(rg["d=1"],
                                        max_abs_err=worst["board_row_gather"])
+    del bval, bslot, src
+    scatter_records, scatter_failures, scatter_cases = \
+        check_scatter_kernels(ex_n, ex_m)
+    records.update(scatter_records)
+    failures += scatter_failures
     emit({"phase": "kernels", "cases": len(board_cases())
-          + len(gather_cases()) + len(row_gather_cases()) + 4,
+          + len(gather_cases()) + len(row_gather_cases()) + 4
+          + scatter_cases,
           "failures": failures,
           "shape": {"n": ns_n, "k": ns_k, "f": ns_f},
+          "scatter_shape": {"n": ex_n, "m": ex_m},
           "kernels": records, "board_row_gather_shapes": rg})
     if failures:
         raise SystemExit(f"kernel parity failed: {failures}")
     return records
+
+
+# -- the scatter kernels (K4a, K4b) against their plain versions -------------
+
+def scatter_cases():
+    """(label, known, sent, rows, cols, vals, advanced) numpy cases for
+    the scatter-max apply: rows up to N and columns up to M (padding,
+    with an (r, M) entry that a flat index would alias to (r+1, 0)),
+    one cell hit four times with different values, U = 0 and U = 1."""
+    import numpy as np
+
+    cases = []
+    for n, m, u in ((16, 24, 300), (33, 130, 5000), (7, 13, 1), (7, 13, 0),
+                    (256, 2560, 40_000)):
+        rng = np.random.default_rng(n * m + u)
+        rows = rng.integers(0, n + 1, u).astype(np.int32)
+        cols = rng.integers(0, m + 1, u).astype(np.int32)
+        if u >= 16:
+            rows[:4], cols[:4] = 2, m        # (2, M) aliases (3, 0) flat
+            rows[4:8], cols[4:8] = 1, 5      # one cell, four values
+            rows[8:12], cols[8:12] = n, 3    # the padding row N
+        cases.append((f"n={n} m={m} u={u}",
+                      rng.integers(1, 1 << 20, (n, m)).astype(np.int32),
+                      rng.integers(0, 10, (n, m)).astype(np.int8), rows,
+                      cols, rng.integers(1, 1 << 22, u).astype(np.int32),
+                      rng.random(u) < 0.5))
+    return cases
+
+
+RMW_CASES = (((8, 40), 0), ((7, 13), 0), ((1, 3), 0), ((33, 100), 1),
+             ((1000, 4099), 0))
+
+
+def check_scatter_kernels(ex_n: int, ex_m: int):
+    """K4a and K4b against their plain versions (``torch.equal``) on
+    the cases above, the in-place max on whole vectors, a 1–3 element
+    tail and a misaligned buffer, and both at the exact model's shape
+    (``ex_n`` × ``ex_m``, U = n·45 + m); then each timed there beside its
+    bound, its plain version and the library call.  Returns ``(records,
+    failures, cases)``."""
+    import numpy as np
+    import torch
+
+    from sidecar_tpu_torch.ops.kernels import scatter_max as sm
+
+    worst = {"scatter_max_apply": 0, "rmw_max": 0}
+    failures = []
+
+    def check_apply(label, known, sent, rows, cols, vals, adv):
+        for with_reset in (True, False):
+            s = sent if with_reset else None
+            want = sm.scatter_max_apply_torch(
+                known.clone(), rows, cols, vals,
+                None if s is None else s.clone(), adv)
+            got = sm.scatter_max_apply_cuda(
+                known.clone(), rows, cols, vals,
+                None if s is None else s.clone(), adv)
+            torch.cuda.synchronize()
+            pairs = [(g, w) for g, w in zip(got, want) if g is not None]
+            worst["scatter_max_apply"] = max(
+                worst["scatter_max_apply"],
+                max_abs_diff(*zip(*pairs)))
+            if not all(torch.equal(g, w) for g, w in pairs):
+                failures.append(f"scatter_max_apply {label} "
+                                f"reset={with_reset}")
+
+    def check_rmw(label, known, other):
+        want = torch.maximum(known, other)
+        got = sm.rmw_max_cuda(known.clone(), other)
+        torch.cuda.synchronize()
+        worst["rmw_max"] = max(worst["rmw_max"],
+                               max_abs_diff([got], [want]))
+        if not torch.equal(got, want):
+            failures.append(f"rmw_max {label}")
+
+    for label, *arrays in scatter_cases():
+        check_apply(label, *to_cuda(arrays))
+    for shape, offset in RMW_CASES:
+        rng = np.random.default_rng(shape[1])
+        size = shape[0] * shape[1] + offset
+        known, other = (torch.as_tensor(
+            rng.integers(1, 1 << 20, size).astype(np.int32)).to(DEVICE)
+            [offset:].view(shape) for _ in range(2))
+        check_rmw(f"{shape} offset={offset}", known, other)
+
+    # The exact model's shape, made on the card.
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    u = ex_n * 45 + ex_m
+
+    def draw(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=DEVICE,
+                             dtype=dtype)
+
+    known = draw(1, 1 << 20, (ex_n, ex_m))
+    sent = draw(0, 10, (ex_n, ex_m), torch.int8)
+    rows, cols = draw(0, ex_n + 1, (u,)), draw(0, ex_m + 1, (u,))
+    vals = draw(1, 1 << 22, (u,))
+    adv = torch.rand(u, generator=gen, device=DEVICE) < 0.5
+    other = draw(1, 1 << 20, (ex_n, ex_m))
+    check_apply("exact-model shape", known, sent, rows, cols, vals, adv)
+    check_rmw("exact-model shape", known, other)
+
+    # Times, at the exact model's shape.  Bounds from these inputs: the
+    # scatter reads each triple once and each 32-byte sector of known it
+    # touches (and of sent, where it resets) once, and writes it once;
+    # the in-place max reads both buffers and writes one.
+    ok = (rows < ex_n) & (cols < ex_m)
+    flat = rows.to(torch.int64) * ex_m + cols.to(torch.int64)
+    sectors = int(torch.unique(flat[ok] // 8).numel()) + \
+        int(torch.unique(flat[ok & adv] // 32).numel())
+    apply_bytes = u * (4 + 4 + 4 + 1) + 2 * 32 * sectors
+    flat_in, vals_in = flat[ok], vals[ok]
+    k_a, s_a = known.clone(), sent.clone()
+    rec_apply = dict(
+        max_abs_err=worst["scatter_max_apply"], updates=u,
+        in_range=int(ok.sum()), sectors=sectors,
+        ms=cuda_time_ms(lambda: sm.scatter_max_apply_cuda(
+            k_a, rows, cols, vals, s_a, adv)),
+        ms_without_reset=cuda_time_ms(lambda: sm.scatter_max_apply_cuda(
+            k_a, rows, cols, vals)),
+        plain_ms=cuda_time_ms(lambda: sm.scatter_max_apply_torch(
+            k_a, rows, cols, vals, s_a, adv)),
+        library_ms=cuda_time_ms(lambda: k_a.view(-1).scatter_reduce_(
+            0, flat_in, vals_in, "amax")),
+        device_ms=device_time_ms(lambda: sm.scatter_max_apply_cuda(
+            k_a, rows, cols, vals, s_a, adv)),
+        device_ms_without_reset=device_time_ms(
+            lambda: sm.scatter_max_apply_cuda(k_a, rows, cols, vals)),
+        library_device_ms=device_time_ms(
+            lambda: k_a.view(-1).scatter_reduce_(0, flat_in, vals_in,
+                                                 "amax")),
+        bytes=apply_bytes, bound_ms=apply_bytes / PEAK_BYTES_PER_S * 1e3)
+    del k_a, s_a
+    rmw_bytes = 3 * known.numel() * 4
+    rec_rmw = dict(
+        max_abs_err=worst["rmw_max"], elements=known.numel(),
+        ms=cuda_time_ms(lambda: sm.rmw_max_cuda(known, other)),
+        plain_ms=cuda_time_ms(lambda: sm.rmw_max_torch(known, other)),
+        library_ms=cuda_time_ms(
+            lambda: torch.maximum(known, other, out=known)),
+        device_ms=device_time_ms(lambda: sm.rmw_max_cuda(known, other)),
+        library_device_ms=device_time_ms(
+            lambda: torch.maximum(known, other, out=known)),
+        bytes=rmw_bytes, bound_ms=rmw_bytes / PEAK_BYTES_PER_S * 1e3)
+    n_cases = 2 * (len(scatter_cases()) + 1) + len(RMW_CASES) + 1
+    return ({"scatter_max_apply": rec_apply, "rmw_max": rec_rmw},
+            failures, n_cases)
 
 
 # -- phase 4: three-way lockstep -----------------------------------------------
@@ -379,20 +589,28 @@ def burst(m: int, frac: float):
                               replace=False)).astype(np.int32)
 
 
-def reset_launches():
-    from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+def _wrappers():
+    from sidecar_tpu_torch.ops import kernels as k
 
-    pg.publish_board_cuda.launches = 0
-    pg.fused_publish_gather_cuda.launches = 0
-    pg.board_row_gather_cuda.launches = 0
+    return {"publish_board": k.publish_board_cuda,
+            "fused_publish_gather": k.fused_publish_gather_cuda,
+            "board_row_gather": k.board_row_gather_cuda,
+            "scatter_max_apply": k.scatter_max_apply_cuda,
+            "rmw_max": k.rmw_max_cuda}
+
+
+def reset_launches():
+    for wrapper in _wrappers().values():
+        wrapper.launches = 0
 
 
 def launches():
-    from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+    return {name: w.launches for name, w in _wrappers().items()}
 
-    return {"publish_board": pg.publish_board_cuda.launches,
-            "fused_publish_gather": pg.fused_publish_gather_cuda.launches,
-            "board_row_gather": pg.board_row_gather_cuda.launches}
+
+def expected(**counts):
+    """Every kernel's launch count: the given ones, 0 for the rest."""
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def states_equal(a, b) -> list:
@@ -436,12 +654,8 @@ def phase_lockstep(n=4096, rounds=50, every=5):
     curves_equal = all(torch.equal(runs["cpu"][1], runs[l][1])
                        for l in ("cuda_fused", "cuda_unfused"))
     ok = (not any(diffs.values()) and curves_equal
-          and counts["cuda_fused"] == {"publish_board": 0,
-                                       "fused_publish_gather": rounds,
-                                       "board_row_gather": 0}
-          and counts["cuda_unfused"] == {"publish_board": rounds,
-                                         "fused_publish_gather": 0,
-                                         "board_row_gather": 0}
+          and counts["cuda_fused"] == expected(fused_publish_gather=rounds)
+          and counts["cuda_unfused"] == expected(publish_board=rounds)
           and bool(torch.isfinite(runs["cpu"][1]).all()))
     emit({"phase": "lockstep", "n": n, "rounds": rounds, "every": every,
           "behind": runs["cpu"][1].tolist(), "field_diffs": diffs,
@@ -485,6 +699,9 @@ def run_to_eps(sim, state, generator, *, eps, max_rounds, every, thr_total,
 KERNEL_FAMILIES = (("board_row_gather_kernel", "K3 board_row_gather"),
                    ("publish_board_kernel", "K2 publish_board"),
                    ("fused_publish_gather_kernel", "K1 fused_publish_gather"),
+                   ("scatter_max_apply_kernel", "K4a scatter_max_apply"),
+                   ("rmw_max_kernel", "K4b rmw_max"),
+                   ("topk", "top-k"), ("radix", "top-k"),
                    ("index", "indexing (gathers, scatters)"),
                    ("gather", "indexing (gathers, scatters)"),
                    ("scatter", "indexing (gathers, scatters)"),
@@ -640,9 +857,7 @@ def phase_north_star(topo, graph_s, max_rounds, every, eps):
         results[label] = (final, curve, counts, (hit_total, hit_unsettled),
                           rounds)
         kernel = "fused_publish_gather" if fused else "publish_board"
-        other = "publish_board" if fused else "fused_publish_gather"
-        ok = (counts[kernel] == rounds and counts[other] == 0
-              and counts["board_row_gather"] == 0
+        ok = (counts == expected(**{kernel: rounds})
               and all(math.isfinite(b) for b in curve)
               and hit_unsettled is not None)
         emit({"phase": "north_star", "path": label, "n": p.n, "m": p.m,
@@ -710,9 +925,8 @@ def phase_sharded(topo, reference, max_rounds, every, eps):
         dropped = sim.sync_exchange_metrics(final)
         ok = (not diffs and curve == ref_curve and rounds == ref_rounds
               and (hit_total, hit_unsettled) == ref_hits and dropped == 0
-              and counts == {"publish_board": d * rounds,
-                             "fused_publish_gather": 0,
-                             "board_row_gather": d * rounds}
+              and counts == expected(publish_board=d * rounds,
+                                     board_row_gather=d * rounds)
               and all(math.isfinite(b) for b in curve))
         emit({"phase": "sharded", "board_exchange": mode, "d": d,
               "n": p.n, "m": p.m, "rounds_run": rounds,
@@ -730,12 +944,248 @@ def phase_sharded(topo, reference, max_rounds, every, eps):
     return all_counts
 
 
+# -- phase 7: the scatter experiment -----------------------------------------
+
+def phase_scatter(n=4096, spn=10, iters=20):
+    """``benchmarks/pallas_scatter.py``'s experiment on the card: its
+    inputs (``default_rng(0)``, the same draws in the same order), its
+    shape, and its four points — an elementwise pass over ``known`` (the
+    bandwidth floor), the in-place max kernel (the ceiling of any
+    in-place merge), the library scatter-max and the scatter-max
+    kernel, each an in-place update of the same buffer, 20 launches
+    after 3 warm-ups (the two scatters again under the profiler, for
+    their device time alone).  Returns the launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from sidecar_tpu_torch.ops import kernels as kernel_ops
+
+    m = n * spn
+    u = n * 3 * 15 + m                 # deliveries + announce batch
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, n, size=u, dtype=np.int32)
+    cols = rng.integers(0, m, size=u, dtype=np.int32)
+    vals = rng.integers(1, 1 << 22, size=u, dtype=np.int32)
+    other = rng.integers(1, 1 << 20, size=(n, m), dtype=np.int32)
+    k0 = rng.integers(1, 1 << 20, size=(n, m), dtype=np.int32)
+    rows, cols, vals, other, known = to_cuda((rows, cols, vals, other, k0))
+    del k0
+    flat = rows.to(torch.int64) * m + cols.to(torch.int64)
+
+    reset_launches()
+    want = known.clone()
+    want.view(-1).scatter_reduce_(0, flat, vals, "amax")
+    got, _ = kernel_ops.scatter_max_apply(known.clone(), rows, cols, vals)
+    correct = bool(torch.equal(got, want))
+    del got, want
+    points = {
+        "elementwise_pass_ms": cuda_time_ms(lambda: known.add_(1), iters),
+        "rmw_ceiling_ms": cuda_time_ms(
+            lambda: kernel_ops.rmw_max(known, other), iters),
+        "library_scatter_ms": cuda_time_ms(
+            lambda: known.view(-1).scatter_reduce_(0, flat, vals, "amax"),
+            iters),
+        "scatter_kernel_ms": cuda_time_ms(
+            lambda: kernel_ops.scatter_max_apply(known, rows, cols, vals),
+            iters),
+    }
+    device = {
+        "library_scatter_device_ms": device_time_ms(
+            lambda: known.view(-1).scatter_reduce_(0, flat, vals, "amax"),
+            iters),
+        "scatter_kernel_device_ms": device_time_ms(
+            lambda: kernel_ops.scatter_max_apply(known, rows, cols, vals),
+            iters),
+    }
+    torch.cuda.synchronize()
+    counts = launches()
+    ratio = points["library_scatter_ms"] / points["scatter_kernel_ms"]
+    ok = correct and counts == expected(
+        scatter_max_apply=1 + 2 * (iters + 3), rmw_max=iters + 3)
+    emit({"phase": "scatter", "shape": [n, m], "updates": u,
+          "buffer_mb": n * m * 4 / 1e6, "scatter_kernel_correct": correct,
+          **points, **device, "library_over_kernel": ratio,
+          "verdict": ("the kernel beats the library scatter"
+                      if ratio > 1.25 else
+                      "no meaningful win over the library scatter"),
+          "launches": counts, "ok": ok})
+    if not ok:
+        raise SystemExit("scatter phase failed")
+    return counts
+
+
+# -- phases 8 and 9: the exact model -----------------------------------------
+
+def exact_busy_time():
+    """Push-pull every 10 rounds, the sweep every 10, records expiring
+    into SUSPECT after 3 s and tombstoning 1 s later, owners refreshing
+    every 10 rounds: every phase of the round changes state in 30."""
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+
+    return TimeConfig(push_pull_interval_s=2.0, suspicion_window_s=1.0,
+                      alive_lifespan_s=3.0, refresh_interval_s=2.0)
+
+
+def phase_exact_lockstep(n=1024, rounds=30):
+    """The exact model on the card and on the CPU from one set of draws:
+    ER(8, seed 3), 10 services a node (M = 10 n, the two-stage select),
+    loss 0.1; every state field equal, the convergence curve within
+    1e-6, and the scatter-max kernel launched once a round."""
+    import torch
+
+    from sidecar_tpu_torch.models.exact import ExactSim, SimParams
+    from sidecar_tpu_torch.ops.status import SUSPECT, TOMBSTONE
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+    p = SimParams(n=n, services_per_node=10, fanout=3, budget=15,
+                  drop_prob=0.1)
+    topo = erdos_renyi(n, avg_degree=8.0, seed=3)
+    cpu = ExactSim(p, topo, exact_busy_time(), device="cpu")
+    gpu = ExactSim(p, topo, exact_busy_time())
+    gen = torch.Generator().manual_seed(1)
+    draws = [cpu.draw(gen, r) for r in range(1, rounds + 1)]
+    reset_launches()
+    card, card_conv = gpu.run(gpu.init_state(), rounds, draws=draws)
+    torch.cuda.synchronize()
+    counts = launches()
+    t0 = time.perf_counter()
+    host, host_conv = cpu.run(cpu.init_state(), rounds, draws=draws)
+    cpu_s = time.perf_counter() - t0
+    diffs = states_equal(host, card)
+    conv_err = float((host_conv - card_conv.cpu()).abs().max())
+    status = host.known & 7
+    ok = (not diffs and conv_err <= 1e-6
+          and counts == expected(scatter_max_apply=rounds)
+          and bool(torch.isfinite(host_conv).all()))
+    emit({"phase": "exact_lockstep", "n": n, "m": p.m, "rounds": rounds,
+          "conv": host_conv.tolist(), "conv_max_abs_err": conv_err,
+          "field_diffs": diffs, "launches": counts,
+          "suspect_cells": int((status == SUSPECT).sum()),
+          "tombstone_cells": int((status == TOMBSTONE).sum()),
+          "cpu_s": cpu_s, "ok": ok})
+    if not ok:
+        raise SystemExit("exact lockstep phase failed")
+
+
+def exact_breakdown(sim, state, generator, iters=5):
+    """Time of each phase of one exact round alone, on a copy of
+    ``state``: CUDA events around the calls (host gaps included) and the
+    profiler's device time (without them); the per-round share at the
+    configured cadences; beside the scatter-max kernel, the library
+    scatter-max on the same in-range triples."""
+    import torch
+
+    from sidecar_tpu_torch.models.exact import clone_state
+    from sidecar_tpu_torch.ops import gossip as g
+
+    p, kn = sim.p, sim._knobs
+    st = clone_state(state)
+    r = st.round_idx + 1
+    now = r * sim.t.round_ticks
+    d = sim.draw(generator, kn.push_pull_rounds)
+    dst = g.sample_peers(d.peer_slot, p.n, nbrs=sim._nbrs,
+                         node_alive=st.node_alive)
+    svc, msg = g.select_messages(st.known, st.sent, p.budget, kn.limit)
+    gates = dict(now_tick=now, stale_ticks=kn.stale_ticks,
+                 node_alive=st.node_alive)
+    d_rows, d_cols, d_vals, d_adv = g.prepare_deliveries(
+        st.known, dst, svc, msg, **gates)
+    a_rows, a_cols, a_vals, a_due = sim._announce_updates(
+        st.known, st.node_alive, r, now)
+    rows, cols = torch.cat([d_rows, a_rows]), torch.cat([d_cols, a_cols])
+    vals, adv = torch.cat([d_vals, a_vals]), torch.cat([d_adv, a_due])
+    ok = (rows < p.n) & (cols < p.m)
+    flat_in = (rows.to(torch.int64) * p.m + cols.to(torch.int64))[ok]
+    vals_in = vals[ok]
+    phases = {
+        "select": lambda: g.select_messages(st.known, st.sent, p.budget,
+                                            kn.limit),
+        "record_transmissions": lambda: g.record_transmissions(
+            st.sent, svc, msg, p.fanout),
+        "deliveries": lambda: g.prepare_deliveries(st.known, dst, svc, msg,
+                                                   **gates),
+        "announce": lambda: sim._announce_updates(st.known, st.node_alive,
+                                                  r, now),
+        "apply_kernel": lambda: g.apply_updates(st.known, st.sent, rows,
+                                                cols, vals, adv),
+        "push_pull": lambda: sim._push_pull(st.known, st.sent,
+                                            st.node_alive, d.pp_slot, now),
+        "sweep": lambda: sim._sweep(st.known, st.sent, now),
+    }
+    every = {"push_pull": kn.push_pull_rounds, "sweep": kn.sweep_rounds}
+    ms = {name: cuda_time_ms(fn, iters) for name, fn in phases.items()}
+    dev = {name: device_time_ms(fn, iters) for name, fn in phases.items()}
+    per_round = {name: t / every.get(name, 1) for name, t in ms.items()}
+    dev_round = {name: t / every.get(name, 1) for name, t in dev.items()}
+    library = cuda_time_ms(lambda: st.known.view(-1).scatter_reduce_(
+        0, flat_in, vals_in, "amax"), iters)
+    return {"ms_per_call": ms, "ms_per_round": per_round,
+            "sum_ms_per_round": sum(per_round.values()),
+            "device_ms_per_call": dev, "device_ms_per_round": dev_round,
+            "sum_device_ms_per_round": sum(dev_round.values()),
+            "updates": int(rows.numel()), "in_range": int(ok.sum()),
+            "advancing": int(adv.sum()),
+            "library_scatter_ms_same_triples": library}
+
+
+def phase_exact(n=4096, warm=200, timed=200):
+    """``bench.py``'s ``value`` workload (``_bench_dense``) at full size:
+    ``run_fast`` for ``warm`` rounds, then ``timed`` rounds chained from
+    the warm state (the drivers update it in place), draws from
+    ``default_generator(0)``.  Returns the launch counts of the run."""
+    import math
+
+    import torch
+
+    from sidecar_tpu_torch.models.exact import ExactSim, SimParams
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+    p = SimParams(n=n, services_per_node=10, fanout=3, budget=15)
+    t0 = time.perf_counter()
+    topo = erdos_renyi(n, avg_degree=8.0, seed=3)
+    graph_s = time.perf_counter() - t0
+    sim = ExactSim(p, topo)
+    state = sim.init_state()
+    gen = sim.default_generator(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = sim.run_fast(state, warm, generator=gen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = sim.run_fast(state, timed, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    conv = float(sim.convergence(state))
+    breakdown = exact_breakdown(sim, state, sim.default_generator(5))
+    profile = profile_rounds(sim, state)
+    ok = (counts == expected(scatter_max_apply=warm + timed)
+          and math.isfinite(conv) and 0.0 < conv <= 1.0)
+    emit({"phase": "exact", "n": n, "m": p.m, "graph_build_s": graph_s,
+          "warm_rounds": warm, "warm_s": warm_s, "rounds": timed,
+          "wall_s": wall, "rounds_per_s": timed / wall,
+          "max_memory_allocated": peak, "convergence": conv,
+          "launches": counts, "breakdown": breakdown, "profile": profile,
+          "ok": ok})
+    if not ok:
+        raise SystemExit("exact phase failed")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--n", type=int, default=100_000,
                     help="north-star node count (default 100,000)")
+    ap.add_argument("--exact-n", type=int, default=4096,
+                    help="exact-model and scatter node count (default "
+                         "4,096; the exact lockstep takes min(1,024, "
+                         "this))")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -753,17 +1203,19 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     if "build" in phases or "kernels" in phases:
         t0 = time.perf_counter()
-        lib = build.build()
-        emit({"phase": "build", "library": lib.name,
+        libs = build.build()
+        emit({"phase": "build", "libraries": {k: v.name
+                                              for k, v in libs.items()},
               "seconds": time.perf_counter() - t0,
-              "ptxas": [l.strip() for l in build.build_log().splitlines()
-                        if "ptxas" in l or "spill" in l]})
+              "ptxas": {k: [l.strip() for l in build.build_log(k).splitlines()
+                            if "ptxas" in l or "spill" in l] for k in libs}})
     records = {}
     if "kernels" in phases:
-        records = phase_kernels(args.n, 256, 3)
+        records = phase_kernels(args.n, 256, 3, args.exact_n,
+                                args.exact_n * 10)
     if "lockstep" in phases:
         phase_lockstep()
-    # The main path's runs, each with its counts set to 0 just before it
+    # The main paths' runs, each with its counts set to 0 just before it
     # and read just after.
     runs = []
     if "north_star" in phases or "sharded" in phases:
@@ -779,17 +1231,18 @@ def main(argv=None) -> int:
         runs += counts
         if "sharded" in phases:
             runs += phase_sharded(topo, reference, **NORTH_STAR_RUN)
+        del topo, reference
+    if "scatter" in phases:
+        runs.append(phase_scatter(args.exact_n))
+    if "exact_lockstep" in phases:
+        phase_exact_lockstep(min(1024, args.exact_n))
+    if "exact" in phases:
+        runs.append(phase_exact(args.exact_n))
     if records:
-        replaces = {
-            "fused_publish_gather":
-                "sidecar_tpu/ops/kernels/publish_gather.py:371",
-            "publish_board": "sidecar_tpu/ops/kernels/publish_gather.py:193",
-            "board_row_gather":
-                "sidecar_tpu/ops/kernels/publish_gather.py:265",
-        }
         emit({"kernels": [
             {"name": f"{name}_kernel", "route": "cuda",
-             "source": KERNEL_SOURCE, "replaces": replaces[name],
+             "source": CSRC + KERNELS[name][0],
+             "replaces": KERNELS[name][1],
              "launches": sum(c[name] for c in runs),
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

@@ -1,9 +1,10 @@
 """Carry state, params, time configs and graphs across from the JAX
-reference's numpy form (and back), field for field.
+reference's numpy form (and back), field for field, for both models.
 
-The reference's ``CompressedState`` is a dataclass of arrays; its numpy
-form is ``{field: np.asarray(value)}``.  Params and time configs travel
-as ``dataclasses.asdict`` of the reference dataclasses.  Nothing here
+The reference's states (``CompressedState``, the exact model's
+``SimState``) are dataclasses of arrays; their numpy form is ``{field:
+np.asarray(value)}``.  Params and time configs travel as
+``dataclasses.asdict`` of the reference dataclasses.  Nothing here
 imports the reference: a caller that has both sides converts through
 numpy.
 """
@@ -19,6 +20,7 @@ from sidecar_tpu_torch.models.compressed import (
     CompressedParams,
     CompressedState,
 )
+from sidecar_tpu_torch.models.exact import SimParams, SimState
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops.topology import Topology
 
@@ -34,42 +36,73 @@ STATE_DTYPES = {
     "dropped": torch.int32,
 }
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(CompressedState))
+# Field → dtype of the tensor fields of the exact model's SimState.
+EXACT_STATE_DTYPES = {
+    "known": torch.int32,
+    "sent": torch.int8,
+    "node_alive": torch.bool,
+}
+EXACT_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
 
 
-def state_from_numpy(arrays: dict, device="cuda") -> CompressedState:
-    """A port state from ``{field: np.ndarray}`` (every field of the
-    reference's ``CompressedState``); ``round_idx`` becomes a host int."""
-    missing = set(STATE_FIELDS) - set(arrays)
+def _state_from_numpy(cls, dtypes, arrays: dict, device):
+    fields = tuple(f.name for f in dataclasses.fields(cls))
+    missing = set(fields) - set(arrays)
     if missing:
         raise ValueError(f"missing state fields: {sorted(missing)}")
     kw = {name: torch.as_tensor(np.ascontiguousarray(arrays[name]),
                                 dtype=dtype, device=device).contiguous()
-          for name, dtype in STATE_DTYPES.items()}
-    return CompressedState(round_idx=int(np.asarray(arrays["round_idx"])),
-                           **kw)
+          for name, dtype in dtypes.items()}
+    return cls(round_idx=int(np.asarray(arrays["round_idx"])), **kw)
 
 
-def state_to_numpy(state: CompressedState) -> dict:
-    """``{field: np.ndarray}`` with the reference's dtypes (``round_idx``
-    as an int32 scalar array)."""
-    out = {name: getattr(state, name).detach().cpu().numpy()
-           for name in STATE_DTYPES}
-    out["round_idx"] = np.asarray(state.round_idx, dtype=np.int32)
+def state_from_numpy(arrays: dict, device="cuda") -> CompressedState:
+    """A compressed-model state from ``{field: np.ndarray}`` (every
+    field of the reference's ``CompressedState``); ``round_idx`` becomes
+    a host int."""
+    return _state_from_numpy(CompressedState, STATE_DTYPES, arrays, device)
+
+
+def exact_state_from_numpy(arrays: dict, device="cuda") -> SimState:
+    """An exact-model state from ``{field: np.ndarray}`` (every field of
+    the reference's exact ``SimState``); ``round_idx`` becomes a host
+    int."""
+    return _state_from_numpy(SimState, EXACT_STATE_DTYPES, arrays, device)
+
+
+def state_to_numpy(state) -> dict:
+    """``{field: np.ndarray}`` of either model's state, with the
+    reference's dtypes (``round_idx`` as an int32 scalar array)."""
+    out = {}
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        out[f.name] = (np.asarray(value, dtype=np.int32)
+                       if f.name == "round_idx"
+                       else value.detach().cpu().numpy())
     return out
 
 
 def params_from_jax_fields(fields: dict) -> CompressedParams:
-    """Port params from ``dataclasses.asdict`` of the reference's
-    ``CompressedParams``.  ``sparse_cap`` belongs to the sparse-frontier
-    round, which the port does not run yet: only its default (0) is
-    accepted."""
+    """Compressed-model params from ``dataclasses.asdict`` of the
+    reference's ``CompressedParams``."""
+    return CompressedParams(**_without_sparse_cap(fields))
+
+
+def exact_params_from_jax_fields(fields: dict) -> SimParams:
+    """Exact-model params from ``dataclasses.asdict`` of the reference's
+    exact ``SimParams``."""
+    return SimParams(**_without_sparse_cap(fields))
+
+
+def _without_sparse_cap(fields: dict) -> dict:
+    """``sparse_cap`` belongs to the sparse-frontier round, which the
+    port does not run yet: only its default (0) is accepted."""
     fields = dict(fields)
-    sparse_cap = fields.pop("sparse_cap", 0)
-    if sparse_cap:
+    if fields.pop("sparse_cap", 0):
         raise NotImplementedError(
             "sparse_cap is not ported yet: ROADMAP.md Queue 1 item 6 "
             "(execution modes: sparse-frontier round)")
-    return CompressedParams(**fields)
+    return fields
 
 
 def timecfg_from_fields(fields: dict) -> TimeConfig:

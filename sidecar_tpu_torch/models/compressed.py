@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from sidecar_tpu_torch.models import common
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import gossip as gossip_ops
 from sidecar_tpu_torch.ops import kernels as kernel_ops
@@ -68,22 +69,6 @@ _K1 = 2654435761   # Knuth multiplicative
 _K3 = 0xC2B2AE35   # murmur3 finalizer constant
 
 I32, I64 = torch.int32, torch.int64
-
-# Where each deferred constructor option is queued (ROADMAP.md, Queue 1).
-_DEFERRED = {
-    "perturb": "Queue 1 item 8 (chaos and adversary)",
-    "cut_mask": "Queue 1 item 8 (chaos and adversary)",
-    "node_side": "Queue 1 item 8 (chaos and adversary)",
-    "sparse": "Queue 1 item 6 (execution modes: sparse-frontier round)",
-    "pipeline": "Queue 1 item 6 (execution modes: pipelined round)",
-    "tick_period": "Queue 1 item 6 (execution modes: per-node tick cadence)",
-    "stagger": "Queue 1 item 6 (execution modes: staggered rounds)",
-}
-
-
-def _deferred(option: str):
-    return NotImplementedError(
-        f"{option} is not ported yet: ROADMAP.md {_DEFERRED[option]}")
 
 
 def hash_line(slot, cache_lines: int, services_per_node: int):
@@ -177,16 +162,6 @@ class CompressedParams:
         return 4 * math.ceil(math.log10(self.n + 1))
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CompressedSim runs on the GPU by default and no CUDA device "
-            "is available; pass device='cpu' to run the plain PyTorch "
-            "versions on the CPU")
-    return dev
-
-
 class CompressedSim:
     """Single-device compressed simulator (the dense lockstep round)."""
 
@@ -196,22 +171,17 @@ class CompressedSim:
                  perturb=None, cut_mask=None, node_side=None,
                  sparse=None, pipeline=None, tick_period=None,
                  tick_phase=None):
-        for name, value in (("perturb", perturb), ("cut_mask", cut_mask),
-                            ("node_side", node_side), ("sparse", sparse),
-                            ("pipeline", pipeline)):
-            if value is not None:
-                raise _deferred(name)
-        if tick_period not in (None, 1) or tick_phase not in (None, 0):
-            raise _deferred("tick_period")
-        if topo.stagger is not None and topo.stagger_period > 1:
-            raise _deferred("stagger")
+        common.reject_deferred(
+            topo, perturb=perturb, cut_mask=cut_mask, node_side=node_side,
+            sparse=sparse, pipeline=pipeline, tick_period=tick_period,
+            tick_phase=tick_phase)
         if topo.n != params.n:
             raise ValueError(
                 f"topology has {topo.n} nodes, params say {params.n}")
         self.p = params
         self.t = timecfg
         self.topo = topo
-        self.device = _resolve_device(device)
+        self.device = common.resolve_device(device, "CompressedSim")
         # Both publish kernels lie on this path: the fused kernel by
         # default, the publish-only kernel plus a gather without it.
         self.fused_gather = bool(fused_gather)
@@ -779,30 +749,14 @@ class CompressedSim:
         return gossip_ops.draw_round(
             generator, p.n, p.fanout, deg=self._deg,
             push_pull=round_idx % kn.push_pull_rounds == 0,
-            keep_prob=kn.keep_prob, cache_lines=p.cache_lines)
-
-    def _rounds(self, state, num_rounds: int, generator, draws):
-        """Yield the draws of the next ``num_rounds`` rounds: from
-        ``draws`` when given (one per round), else from ``generator``."""
-        if draws is not None:
-            draws = list(draws)
-            if len(draws) < num_rounds:
-                raise ValueError(f"{len(draws)} draws for {num_rounds} "
-                                 "rounds")
-        elif generator is None:
-            raise ValueError("pass generator= (a torch.Generator) or draws=")
-        for i in range(num_rounds):
-            if draws is not None:
-                yield draws[i]
-            else:
-                yield self.draw(generator, state.round_idx + 1 + i)
+            keep_prob=kn.keep_prob, keep_width=p.cache_lines)
 
     def step(self, state: CompressedState, *, generator=None,
              draws: Optional[RoundDraws] = None) -> CompressedState:
         """One round, from ``draws`` or from ``generator``."""
         self._check_horizon(state, 1)
         seq = None if draws is None else [draws]
-        (d,) = list(self._rounds(state, 1, generator, seq))
+        (d,) = list(common.round_draws(self, state, 1, generator, seq))
         return self._step(state, d)
 
     def run_fast(self, state: CompressedState, num_rounds: int, *,
@@ -810,7 +764,8 @@ class CompressedSim:
                  draws: Optional[Sequence[RoundDraws]] = None):
         """Run ``num_rounds`` rounds; returns the final state."""
         self._check_horizon(state, num_rounds)
-        for d in self._rounds(state, num_rounds, generator, draws):
+        for d in common.round_draws(self, state, num_rounds, generator,
+                                    draws):
             state = self._step(state, d)
         return state
 
@@ -821,8 +776,8 @@ class CompressedSim:
                 f"num_rounds={num_rounds} not divisible by every={every}")
         self._check_horizon(state, num_rounds)
         samples = []
-        for i, d in enumerate(self._rounds(state, num_rounds, generator,
-                                           draws)):
+        for i, d in enumerate(common.round_draws(self, state, num_rounds,
+                                                 generator, draws)):
             state = self._step(state, d)
             if (i + 1) % every == 0:
                 samples.append(metric(state))

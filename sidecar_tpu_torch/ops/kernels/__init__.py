@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port, with their plain PyTorch
-versions and the device dispatch (see ``publish_gather.py``); the
-``nvcc`` build lives in ``build.py``."""
+versions and the device dispatch (see ``publish_gather.py`` and
+``scatter_max.py``); the ``nvcc`` build lives in ``build.py``."""
 
 from sidecar_tpu_torch.ops.kernels.publish_gather import (  # noqa: F401
     board_row_gather,
@@ -13,4 +13,12 @@ from sidecar_tpu_torch.ops.kernels.publish_gather import (  # noqa: F401
     publish_board,
     publish_board_cuda,
     publish_board_torch,
+)
+from sidecar_tpu_torch.ops.kernels.scatter_max import (  # noqa: F401
+    rmw_max,
+    rmw_max_cuda,
+    rmw_max_torch,
+    scatter_max_apply,
+    scatter_max_apply_cuda,
+    scatter_max_apply_torch,
 )

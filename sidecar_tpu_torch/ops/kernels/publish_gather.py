@@ -41,12 +41,16 @@ are held equal with ``torch.equal``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from sidecar_tpu_torch.ops.gossip import MASK32, PHASE_MULT
+from sidecar_tpu_torch.ops.kernels.build import (
+    load,
+    ptr,
+    raise_on,
+    stream,
+)
 from sidecar_tpu_torch.ops.merge import staleness_mask
+from sidecar_tpu_torch.ops.status import MASK32, PHASE_MULT
 
 
 def eligible_lines(cache_slot, cache_sent, limit: int):
@@ -149,39 +153,23 @@ def _check_cache(cache_val, cache_slot, cache_sent, cache_lines: int):
                          f"[1, 1024], got {k}")
 
 
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(err: int, what: str):
-    if err:
-        raise RuntimeError(f"{what}: CUDA error {err} "
-                           f"({torch.cuda.get_device_name()})")
-
-
 def publish_board_cuda(cache_val, cache_slot, cache_sent, *, budget: int,
                        limit: int, fanout: int, cache_lines: int,
                        row_offset: int = 0):
     """Launch ``publish_board_kernel`` (one block per row) on the
     current stream.  Returns ``(bval, bslot, sent)``."""
-    from sidecar_tpu_torch.ops.kernels.build import load
-
     _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
-    lib = load()
+    lib = load("publish_gather")
     n, k = cache_val.shape
     bval = torch.empty_like(cache_val)
     bslot = torch.empty_like(cache_slot)
     sent = torch.empty_like(cache_sent)
     with torch.cuda.device(cache_val.device):
         err = lib.sidecar_publish_board(
-            _ptr(cache_val), _ptr(cache_slot), _ptr(cache_sent), n, k,
+            ptr(cache_val), ptr(cache_slot), ptr(cache_sent), n, k,
             min(budget, k), limit, fanout, row_offset,
-            _ptr(bval), _ptr(bslot), _ptr(sent), _stream(cache_val))
-    _raise_on(err, "publish_board_kernel launch")
+            ptr(bval), ptr(bslot), ptr(sent), stream(cache_val))
+    raise_on(err, "publish_board_kernel launch")
     publish_board_cuda.launches += 1
     return bval, bslot, sent
 
@@ -195,8 +183,6 @@ def fused_publish_gather_cuda(cache_val, cache_slot, cache_sent, src,
     """Launch ``fused_publish_gather_kernel`` (one block per (r, f) pull
     plus one per own row) on the current stream.  Returns
     ``(sent, pv, ps)``."""
-    from sidecar_tpu_torch.ops.kernels.build import load
-
     _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
     if src.dtype != torch.int32 or src.dim() != 2 or \
             src.shape[0] != cache_val.shape[0]:
@@ -204,7 +190,7 @@ def fused_publish_gather_cuda(cache_val, cache_slot, cache_sent, src,
                          f"{tuple(src.shape)}")
     if src.device != cache_val.device or not src.is_contiguous():
         raise ValueError("src must be contiguous on the cache's device")
-    lib = load()
+    lib = load("publish_gather")
     n, k = cache_val.shape
     f = src.shape[1]
     sent = torch.empty_like(cache_sent)
@@ -212,10 +198,10 @@ def fused_publish_gather_cuda(cache_val, cache_slot, cache_sent, src,
     ps = torch.empty_like(pv)
     with torch.cuda.device(cache_val.device):
         err = lib.sidecar_fused_publish_gather(
-            _ptr(cache_val), _ptr(cache_slot), _ptr(cache_sent), _ptr(src),
-            n, f, k, min(budget, k), limit, fanout, now, stale_ticks,
-            _ptr(sent), _ptr(pv), _ptr(ps), _stream(cache_val))
-    _raise_on(err, "fused_publish_gather_kernel launch")
+            ptr(cache_val), ptr(cache_slot), ptr(cache_sent),
+            ptr(src), n, f, k, min(budget, k), limit, fanout, now, stale_ticks,
+            ptr(sent), ptr(pv), ptr(ps), stream(cache_val))
+    raise_on(err, "fused_publish_gather_kernel launch")
     fused_publish_gather_cuda.launches += 1
     return sent, pv, ps
 
@@ -226,8 +212,6 @@ fused_publish_gather_cuda.launches = 0
 def board_row_gather_cuda(bval, bslot, src, base: int = 0):
     """Launch ``board_row_gather_kernel`` (one block per request) on the
     current stream.  Returns ``(pv, ps)``."""
-    from sidecar_tpu_torch.ops.kernels.build import load
-
     for name, t in (("bval", bval), ("bslot", bslot), ("src", src)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -248,12 +232,12 @@ def board_row_gather_cuda(bval, bslot, src, base: int = 0):
     ps = torch.empty_like(pv)
     if pv.numel() == 0:
         return pv, ps
-    lib = load()
+    lib = load("publish_gather")
     with torch.cuda.device(bval.device):
         err = lib.sidecar_board_row_gather(
-            _ptr(bval), _ptr(bslot), _ptr(src), rows_total, nl * f, k,
-            int(base), _ptr(pv), _ptr(ps), _stream(bval))
-    _raise_on(err, "board_row_gather_kernel launch")
+            ptr(bval), ptr(bslot), ptr(src), rows_total, nl * f,
+            k, int(base), ptr(pv), ptr(ps), stream(bval))
+    raise_on(err, "board_row_gather_kernel launch")
     board_row_gather_cuda.launches += 1
     return pv, ps
 

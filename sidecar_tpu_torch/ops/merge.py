@@ -1,6 +1,7 @@
-"""The LWW merge gates — the port of ``sidecar_tpu/ops/merge.py``
-(``staleness_mask``, ``future_mask``, ``budget_mask``, ``admit_gate``,
-``sticky_adjust``, ``apply_stickiness``).
+"""The LWW merge gates and the aligned merge — the port of
+``sidecar_tpu/ops/merge.py`` (``staleness_mask``, ``future_mask``,
+``budget_mask``, ``admit_gate``, ``sticky_adjust``, ``apply_stickiness``,
+``merge_packed``).
 
 Rule 2 of ``AddServiceEntry`` (strictly newer wins) is integer ``max``
 on packed keys; the staleness and future bounds, the per-origin budget
@@ -87,3 +88,16 @@ def apply_stickiness(pre, post):
     advanced a DRAINING ``pre`` cell to ALIVE, keep the new timestamp
     and restore DRAINING."""
     return sticky_adjust(post, pre, post > pre)
+
+
+def merge_packed(known, incoming, now_tick: int, stale_ticks: int,
+                 future_ticks=None, tomb_budget=None, own=None):
+    """Merge an aligned tensor of incoming packed records into ``known``
+    — the full-state anti-entropy merge: canonicalise (a ts == 0 key is
+    the unknown sentinel whatever its status bits), gate admission
+    (:func:`admit_gate`; ``own`` marks the sending origin's own cells),
+    take the max, and re-apply DRAINING stickiness against ``known``."""
+    incoming = torch.where(is_known(incoming), incoming, 0)
+    incoming = admit_gate(incoming, now_tick, stale_ticks, future_ticks,
+                          tomb_budget, own)
+    return apply_stickiness(known, torch.maximum(known, incoming))

@@ -27,6 +27,12 @@ STATUS_MASK = (1 << STATUS_BITS) - 1
 # Highest representable tick in a non-negative int32 packed key.
 MAX_TICK = (1 << (31 - STATUS_BITS)) - 1  # 268_435_455
 
+# Knuth's multiplicative constant — the slot-phase spreader for the
+# refresh stagger and the publish tie rotation — and the mask that keeps
+# a product's low 32 bits (uint32 arithmetic done in int64).
+PHASE_MULT = 2654435761
+MASK32 = 0xFFFFFFFF
+
 
 def _i32(x):
     if isinstance(x, torch.Tensor):

@@ -1,7 +1,7 @@
 """Tests of the port that need the card: each CUDA kernel against its
 plain PyTorch version on the same CUDA tensors, and short runs of the
-single-device model and of the sharded twin on the card against the
-same runs on the CPU.  Marked ``cuda``; each decides
+compressed model, its sharded twin and the exact model on the card
+against the same runs on the CPU.  Marked ``cuda``; each decides
 inside a fixture whether a card is present and skips with the reason
 where none is.  ``python3 chip_smoke.py`` covers the same ground at the
 north-star shapes.
@@ -16,9 +16,11 @@ from sidecar_tpu_torch.models.compressed import (
     CompressedParams,
     CompressedSim,
 )
+from sidecar_tpu_torch.models.exact import ExactSim, SimParams
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import topology
 from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+from sidecar_tpu_torch.ops.kernels import scatter_max as sm
 from sidecar_tpu_torch.parallel import ShardedCompressedSim
 
 pytestmark = pytest.mark.cuda
@@ -132,6 +134,76 @@ def test_sharded_run_on_card_equals_cpu(card, mode, d):
             pg.board_row_gather_cuda.launches - before[1]) == (30 * d,
                                                                30 * d)
     assert torch.equal(ca, cb.cpu())
+    for name, value in convert.state_to_numpy(a).items():
+        np.testing.assert_array_equal(
+            convert.state_to_numpy(b)[name], value, err_msg=name)
+
+
+@pytest.mark.parametrize("n,m,u", [(16, 24, 300), (7, 13, 1), (7, 13, 0),
+                                   (64, 5120, 20_000)])
+def test_scatter_max_apply_kernel_equals_plain(card, n, m, u):
+    """Rows up to N and columns up to M (padding, including the (r, M)
+    entry a flat index would alias to (r+1, 0)), duplicate cells with
+    different values, and the sent reset."""
+    rng = np.random.default_rng(n + m + u)
+    known = torch.tensor(rng.integers(1, 1 << 20, (n, m)),
+                         dtype=torch.int32).cuda()
+    sent = torch.tensor(rng.integers(0, 10, (n, m)), dtype=torch.int8).cuda()
+    rows = rng.integers(0, n + 1, u)
+    cols = rng.integers(0, m + 1, u)
+    if u > 8:
+        rows[:4], cols[:4] = 2, m
+        rows[4:8], cols[4:8] = 1, 5
+    rows, cols = (torch.tensor(x, dtype=torch.int32).cuda()
+                  for x in (rows, cols))
+    vals = torch.tensor(rng.integers(1, 1 << 22, u), dtype=torch.int32).cuda()
+    adv = torch.tensor(rng.random(u) < 0.5).cuda()
+    want = sm.scatter_max_apply_torch(known.clone(), rows, cols, vals,
+                                      sent.clone(), adv)
+    before = sm.scatter_max_apply_cuda.launches
+    got = sm.scatter_max_apply_cuda(known, rows, cols, vals, sent, adv)
+    torch.cuda.synchronize()
+    assert got[0] is known and got[1] is sent
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert sm.scatter_max_apply_cuda.launches - before == (1 if u else 0)
+
+
+@pytest.mark.parametrize("shape,offset", [((8, 40), 0), ((7, 13), 0),
+                                          ((1, 3), 0), ((33, 100), 1)])
+def test_rmw_max_kernel_equals_plain(card, shape, offset):
+    """Whole int4 vectors, a tail of 1-3 elements, and (offset 1) a
+    buffer that is not 16-byte aligned."""
+    rng = np.random.default_rng(shape[0])
+    n = shape[0] * shape[1]
+    known = torch.tensor(rng.integers(1, 1 << 20, n + offset),
+                         dtype=torch.int32).cuda()[offset:].view(shape)
+    other = torch.tensor(rng.integers(1, 1 << 20, n + offset),
+                         dtype=torch.int32).cuda()[offset:].view(shape)
+    want = torch.maximum(known, other)
+    got = sm.rmw_max_cuda(known, other)
+    torch.cuda.synchronize()
+    assert got is known and torch.equal(got, want)
+
+
+def test_exact_run_on_card_equals_cpu(card):
+    """20 rounds of the exact model at M = 5,120 (the two-stage select),
+    with loss, push-pull and the sweep firing, on the card and on the
+    CPU from one set of draws; K4a launches once a round."""
+    p = SimParams(n=64, services_per_node=80, drop_prob=0.1)
+    topo = topology.erdos_renyi(64, 8.0, seed=3)
+    t = TimeConfig(push_pull_interval_s=1.0, suspicion_window_s=1.0,
+                   alive_lifespan_s=3.0, refresh_interval_s=2.0)
+    cpu = ExactSim(p, topo, t, device="cpu")
+    gpu = ExactSim(p, topo, t)
+    gen = torch.Generator().manual_seed(0)
+    draws = [cpu.draw(gen, r) for r in range(1, 21)]
+    a, ca = cpu.run(cpu.init_state(), 20, draws=draws)
+    before = sm.scatter_max_apply_cuda.launches
+    b, cb = gpu.run(gpu.init_state(), 20, draws=draws)
+    torch.cuda.synchronize()
+    assert sm.scatter_max_apply_cuda.launches - before == 20
+    np.testing.assert_allclose(cb.cpu().numpy(), ca.numpy(), rtol=0,
+                               atol=1e-6)
     for name, value in convert.state_to_numpy(a).items():
         np.testing.assert_array_equal(
             convert.state_to_numpy(b)[name], value, err_msg=name)

@@ -1,8 +1,9 @@
 """Ground rules of the PyTorch port: it imports neither ``jax`` nor
 anything of ``sidecar_tpu`` (nor does ``chip_smoke.py``), its entry
-points refuse to fall back to the CPU when no GPU is present, options
-it does not port yet raise and name their ROADMAP item, and state,
-params, time configs and graphs survive the trip through ``convert``.
+points (both models) refuse to fall back to the CPU when no GPU is
+present, options it does not port yet raise and name their ROADMAP
+item, and state, params, time configs and graphs survive the trip
+through ``convert``.
 """
 
 import ast
@@ -18,6 +19,7 @@ from sidecar_tpu_torch.models.compressed import (
     CompressedParams,
     CompressedSim,
 )
+from sidecar_tpu_torch.models.exact import ExactSim, SimParams
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import topology
 
@@ -49,7 +51,8 @@ def test_every_port_module_is_checked():
                      "gossip.py", "knobs.py", "topology.py",
                      "publish_gather.py", "build.py", "compressed.py",
                      "timecfg.py", "convert.py", "mesh.py",
-                     "sharded_compressed.py", "chip_smoke.py"):
+                     "sharded_compressed.py", "chip_smoke.py", "exact.py",
+                     "scatter_max.py", "common.py"):
         assert expected in names, expected
 
 
@@ -59,11 +62,18 @@ def small_sim(**kw):
     return CompressedSim(p, topology.complete(16), TimeConfig(), **kw)
 
 
-def test_default_device_needs_a_gpu(monkeypatch):
+def small_exact(**kw):
+    p = SimParams(n=16, services_per_node=2, budget=4)
+    return ExactSim(p, topology.ring(16), TimeConfig(), **kw)
+
+
+@pytest.mark.parametrize("make", [small_sim, small_exact],
+                         ids=["compressed", "exact"])
+def test_default_device_needs_a_gpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        small_sim()
-    assert small_sim(device="cpu").device.type == "cpu"
+        make()
+    assert make(device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("option,value", [
@@ -77,6 +87,29 @@ def test_default_device_needs_a_gpu(monkeypatch):
 def test_deferred_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         small_sim(device="cpu", **{option: value})
+
+
+@pytest.mark.parametrize("option,value,item", [
+    ("perturb", lambda st, key, now: st, "item 8"),
+    ("cut_mask", np.zeros((16, 2), bool), "item 8"),
+    ("sparse", "auto", "item 6"),
+    ("pipeline", "1", "item 6"),
+    ("tick_period", 2, "item 6"),
+    ("tick_phase", 1, "item 6"),
+])
+def test_exact_deferred_options_raise(option, value, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md Queue 1 {item}"):
+        small_exact(device="cpu", **{option: value})
+
+
+def test_exact_staggered_topology_raises():
+    topo = dataclasses.replace(topology.ring(16),
+                               stagger=np.zeros(16, np.int32),
+                               stagger_period=2)
+    with pytest.raises(NotImplementedError, match="item 6.*stagger"):
+        ExactSim(SimParams(n=16, services_per_node=2), topo, TimeConfig(),
+                 device="cpu")
 
 
 def test_staggered_topology_raises():
@@ -101,6 +134,27 @@ def test_convert_round_trip():
         np.testing.assert_array_equal(value, arrays[name], err_msg=name)
     with pytest.raises(ValueError, match="missing"):
         convert.state_from_numpy({"own": arrays["own"]}, "cpu")
+
+
+def test_convert_round_trip_exact():
+    sim = small_exact(device="cpu")
+    st = sim.run_fast(sim.init_state(0.8, seed=3), 4,
+                      generator=torch.Generator().manual_seed(0))
+    arrays = convert.state_to_numpy(st)
+    assert arrays["sent"].dtype == np.int8
+    assert arrays["round_idx"].dtype == np.int32
+    back = convert.exact_state_from_numpy(arrays, "cpu")
+    assert back.round_idx == 4
+    for name, value in convert.state_to_numpy(back).items():
+        np.testing.assert_array_equal(value, arrays[name], err_msg=name)
+    with pytest.raises(ValueError, match="missing"):
+        convert.exact_state_from_numpy({"known": arrays["known"]}, "cpu")
+    p = SimParams(n=40, drop_prob=0.25, retransmit_limit=9)
+    assert convert.exact_params_from_jax_fields(
+        dict(dataclasses.asdict(p), sparse_cap=0)) == p
+    with pytest.raises(NotImplementedError, match="sparse_cap"):
+        convert.exact_params_from_jax_fields(
+            dict(dataclasses.asdict(p), sparse_cap=8))
 
 
 def test_convert_params_timecfg_topology():

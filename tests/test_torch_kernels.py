@@ -278,12 +278,13 @@ class TestDispatch:
     def test_kernel_source_is_present(self):
         from sidecar_tpu_torch.ops.kernels import build
 
-        text = build.SOURCE.read_text()
+        text = build.source_path("publish_gather").read_text()
         for sym in ("publish_board_kernel", "fused_publish_gather_kernel",
-                    "board_row_gather_kernel",
-                    "extern \"C\" int sidecar_publish_board",
-                    "extern \"C\" int sidecar_fused_publish_gather",
-                    "extern \"C\" int sidecar_board_row_gather"):
+                    "board_row_gather_kernel"):
             assert sym in text, sym
+        for name, entry_points in build.SIGNATURES.items():
+            text = build.source_path(name).read_text()
+            for fn in entry_points:
+                assert f"extern \"C\" int {fn}(" in text, (name, fn)
+            assert build.library_path(name).parent == build.BUILD_DIR
         assert "sm_90a" in " ".join(build.FLAGS)
-        assert build.library_path().parent == build.BUILD_DIR

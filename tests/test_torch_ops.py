@@ -185,9 +185,9 @@ class TestGossip:
         deg = torch.tensor(np.r_[np.zeros(4), np.arange(1, 61)] % 9,
                            dtype=torch.int32) if with_deg else None
         a = tg.draw_round(torch.Generator().manual_seed(3), n, f, deg=deg,
-                          keep_prob=0.9, cache_lines=k)
+                          keep_prob=0.9, keep_width=k)
         b = tg.draw_round(torch.Generator().manual_seed(3), n, f, deg=deg,
-                          keep_prob=0.9, cache_lines=k)
+                          keep_prob=0.9, keep_width=k)
         assert torch.equal(a.peer_slot, b.peer_slot) and a.stride == b.stride
         assert torch.equal(a.keep, b.keep) and a.keep.shape == (n, f, k)
         assert a.peer_slot.dtype == torch.int32

@@ -1,7 +1,8 @@
 """Shared helpers of the ``test_torch_*`` suites: build the JAX
 reference and the PyTorch port from the same inputs, replay the
 reference's key schedule as the port's :class:`RoundDraws`, and compare
-states field for field.
+states field for field — for the compressed model and (below) the exact
+one.
 
 The reference draws inside its round: the round key is
 ``fold_in(key, round_idx_before_step)`` and ``split(k, 4)`` gives
@@ -21,10 +22,12 @@ import numpy as np
 import torch
 
 from sidecar_tpu.models import compressed as jax_compressed
+from sidecar_tpu.models import exact as jax_exact
 from sidecar_tpu.models.timecfg import TimeConfig as JaxTimeConfig
 from sidecar_tpu.ops import topology as jax_topology
 from sidecar_tpu_torch import convert
 from sidecar_tpu_torch.models.compressed import CompressedSim
+from sidecar_tpu_torch.models.exact import ExactSim
 from sidecar_tpu_torch.ops.gossip import RoundDraws
 
 STATE_FIELDS = ("own", "cache_slot", "cache_val", "cache_sent", "floor",
@@ -147,3 +150,76 @@ def bench_burst(m: int, frac: float, seed: int = 7) -> np.ndarray:
 def er(n: int):
     """The bench's graph, ER(avg degree 8, seed 3)."""
     return jax_topology.erdos_renyi(n, avg_degree=8.0, seed=3)
+
+
+# -- the exact model ----------------------------------------------------------
+
+EXACT_STATE_FIELDS = ("known", "sent", "node_alive", "round_idx")
+
+
+def jax_exact_draws(key, round_idx: int, *, n: int, fanout: int, budget: int,
+                    deg=None, keep_prob: float = 1.0) -> RoundDraws:
+    """The reference exact model's draws for the round taken from
+    ``round_idx`` (``models/exact.py`` ``_step``): ``split(fold_in(key,
+    r), 4)`` gives ``(k_perturb, k_peers, k_drop, k_pp)``; the peers are
+    ``randint`` ``[N, F]`` from ``k_peers``, the loss ``bernoulli``
+    ``[N, F, B]`` from ``k_drop`` and the push-pull partner ``randint``
+    ``[N, 1]`` from ``k_pp`` (drawn every round; the port reads it on
+    push-pull rounds)."""
+    k = jax.random.fold_in(key, round_idx)
+    _k_perturb, k_peers, k_drop, k_pp = jax.random.split(k, 4)
+    if deg is None:
+        hi = n - 1
+    else:
+        hi = jnp.maximum(jnp.asarray(deg), 1)[:, None]
+    slot = jax.random.randint(k_peers, (n, fanout), 0, hi, dtype=jnp.int32)
+    pp = jax.random.randint(k_pp, (n, 1), 0, hi, dtype=jnp.int32)
+    keep = None
+    if keep_prob < 1.0:
+        keep = torch.tensor(np.asarray(jax.random.bernoulli(
+            k_drop, keep_prob, (n, fanout, budget))))
+    return RoundDraws(peer_slot=torch.tensor(np.asarray(slot)), stride=0,
+                      keep=keep, pp_slot=torch.tensor(np.asarray(pp)))
+
+
+def jax_exact_draw_seq(jsim, key, start_round: int, num_rounds: int):
+    """The reference exact sim ``jsim``'s draws for ``num_rounds`` rounds
+    from ``start_round``."""
+    p = jsim.p
+    return [jax_exact_draws(key, start_round + i, n=p.n, fanout=p.fanout,
+                            budget=min(p.budget, p.m), deg=jsim.topo.deg,
+                            keep_prob=1.0 - p.drop_prob)
+            for i in range(num_rounds)]
+
+
+def exact_port_pair(params_kw: dict, topo, time_kw: dict):
+    """The reference ``ExactSim`` and the port's (on the CPU) built from
+    the same params, time config and graph."""
+    jp = jax_exact.SimParams(**params_kw)
+    jt = JaxTimeConfig(**time_kw)
+    jsim = jax_exact.ExactSim(jp, topo, jt)
+    tsim = ExactSim(
+        convert.exact_params_from_jax_fields(dataclasses.asdict(jp)),
+        convert.topology_from_numpy(topo.n, topo.nbrs, topo.deg, topo.name),
+        convert.timecfg_from_fields(dataclasses.asdict(jt)), device="cpu")
+    return jsim, tsim
+
+
+def exact_to_numpy(state) -> dict:
+    """``{field: np.ndarray}`` of a JAX exact-model state."""
+    return {f: np.asarray(getattr(state, f)) for f in EXACT_STATE_FIELDS}
+
+
+def exact_port_state(jax_state):
+    """The port's copy of a JAX exact-model state, on the CPU."""
+    return convert.exact_state_from_numpy(exact_to_numpy(jax_state), "cpu")
+
+
+def assert_exact_states_equal(jax_state, port_state, ctx: str = ""):
+    got = convert.state_to_numpy(port_state)
+    want = exact_to_numpy(jax_state)
+    for f in EXACT_STATE_FIELDS:
+        np.testing.assert_array_equal(got[f], want[f],
+                                      err_msg=f"{ctx} field {f}")
+        assert got[f].dtype == want[f].dtype, (ctx, f, got[f].dtype,
+                                               want[f].dtype)
