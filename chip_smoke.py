@@ -19,7 +19,13 @@ workload — plus the scatter experiment of
    same CUDA tensors, ``torch.equal`` on every output (integer outputs,
    no tolerance), over adversarial shapes and the main paths' shapes;
    then each timed with CUDA events beside its bound and the library
-   call that computes the same function, where there is one;
+   call that computes the same function, where there is one; the
+   scatter-max kernel and the library scatter also device-only, warm
+   and after an L2 flush, in both orders; and the host µs per call of
+   the scatter-max and row-gather wrappers beside the library calls';
+   then (``row_gather_windows``) the row-gather kernel built with each
+   of seven row windows, each held against its plain version and timed
+   at the sharded north star's shapes;
 4. lockstep — n=4096, K=256, ER(8, seed 3), 50 rounds from one set of
    injected draws three ways: on the card with the fused kernel, on the
    card with the publish-only kernel, and on the CPU with the plain
@@ -39,7 +45,9 @@ workload — plus the scatter experiment of
    shape (4,096 × 40,960, U = n·45 + m updates, ``default_rng(0)``):
    the scatter-max kernel must equal the library scatter, then four
    points are timed — an elementwise pass, the in-place max kernel (the
-   ceiling), the library scatter and the scatter-max kernel;
+   ceiling), the library scatter and the scatter-max kernel — and the
+   two scatters device-only, warm and after an L2 flush, in both
+   orders;
 8. exact lockstep — the exact model, ER(8, seed 3), n=1,024 × 10
    services (the two-stage select), loss 0.1, push-pull and the sweep
    firing, 30 rounds from one set of draws on the card and on the CPU:
@@ -64,8 +72,11 @@ import subprocess
 import sys
 import time
 
-PHASES = ("device", "build", "kernels", "lockstep", "north_star",
-          "sharded", "scatter", "exact_lockstep", "exact")
+PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
+          "north_star", "sharded", "scatter", "exact_lockstep", "exact")
+# Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
+# bval and bslot a row); the kernel ships with 1,536 (3 MiB).
+ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 DEVICE = "cuda"                   # where the script makes its own tensors
 CSRC = "sidecar_tpu_torch/ops/kernels/csrc/"
@@ -191,7 +202,11 @@ def gather_cases():
 def row_gather_cases():
     """(label, bval, bslot, src, base) for board_row_gather: ragged
     request counts, blocks at an offset with src overshooting them on
-    both sides, every row out of block, K from 8 to 1024, F = 1."""
+    both sides, every row out of block, K from 1 to 1024 (K = 1, 2 and 6
+    take the scalar path, K = 1024 copies a row in chunks), F = 1, every
+    request naming one row, a block at an offset named with duplicates,
+    and request counts that are not a multiple of the warps in a
+    block."""
     import numpy as np
 
     cases = []
@@ -199,7 +214,11 @@ def row_gather_cases():
             (13, 16, 3, 13, 0, 18), (20, 32, 2, 5, 10, 20),
             (33, 8, 4, 11, 22, 38), (7, 128, 2, 7, 0, 12),
             (9, 1024, 1, 4, 3, 12), (31, 64, 3, 7, 50, 70),
-            (1000, 256, 3, 1000, 0, 1000), (777, 256, 1, 250, 500, 1000)):
+            (1000, 256, 3, 1000, 0, 1000), (777, 256, 1, 250, 500, 1000),
+            (37, 1, 3, 9, 4, 15), (29, 2, 3, 12, 0, 14),
+            (41, 4, 3, 10, 5, 17), (23, 6, 1, 8, 2, 12),
+            (301, 1024, 3, 200, 0, 260), (50_001, 256, 3, 30_000, 10_000,
+                                          45_000)):
         rng = np.random.default_rng(n * 100 + k + f)
         cases.append((f"n={n} k={k} f={f} rows={rows} base={base}",
                       rng.integers(0, 1 << 20, (rows, k)).astype(np.int32),
@@ -210,6 +229,18 @@ def row_gather_cases():
                   rng.integers(0, 99, (6, 64)).astype(np.int32),
                   rng.integers(-1, 24, (6, 64)).astype(np.int32),
                   rng.integers(0, 100, (10, 3)).astype(np.int32), 100))
+    for n, k in ((43, 4), (100_000, 256)):
+        rng = np.random.default_rng(n + k)
+        cases.append((f"every request names row 7, n={n} k={k}",
+                      rng.integers(0, 1 << 20, (16, k)).astype(np.int32),
+                      rng.integers(-1, 64, (16, k)).astype(np.int32),
+                      np.full((n, 3), 7 + 40, np.int32), 40))
+    rng = np.random.default_rng(6)
+    src = rng.integers(60, 75, (123, 3)).astype(np.int32)
+    src[::5] = 66                                   # duplicates of one row
+    cases.append(("block at an offset, duplicates",
+                  rng.integers(0, 1 << 20, (12, 32)).astype(np.int32),
+                  rng.integers(-1, 48, (12, 32)).astype(np.int32), src, 62))
     return cases
 
 
@@ -242,12 +273,29 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_time_ms(fn, iters: int = 20) -> float:
+PAIRED_REPS = 5
+
+
+def paired_ms(fns, reps: int = PAIRED_REPS, iters: int = 20) -> dict:
+    """The median over ``reps`` turns of :func:`cuda_time_ms` for each
+    function of ``fns`` (name → function), the order reversed every
+    other turn: where the host's launch time sets the number, drift of
+    the host's speed during the run then weighs on each alike."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for turn in range(reps):
+        for name in names if turn % 2 == 0 else names[::-1]:
+            times[name].append(cuda_time_ms(fns[name], iters))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+
+def device_time_ms(fn, iters: int = 20):
     """The device time of one call of ``fn``: the summed durations of
     the device activities ``torch.profiler`` records over ``iters``
-    calls (after 3 warm-ups), divided by ``iters``.  Unlike
-    :func:`cuda_time_ms` it leaves out the gaps where the device waits
-    for the host, which dominate a call of a few microseconds."""
+    calls (after 3 warm-ups), divided by ``iters``; None where it
+    recorded none (it sometimes misses a call of a few microseconds
+    whole).  Unlike :func:`cuda_time_ms` it leaves out the gaps where
+    the device waits for the host, which dominate such a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -261,7 +309,148 @@ def device_time_ms(fn, iters: int = 20) -> float:
         torch.cuda.synchronize()
     busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
                if e.device_type == DeviceType.CUDA)
-    return busy / 1e3 / iters
+    return busy / 1e3 / iters if busy else None
+
+
+L2_FLUSH_BYTES = 256 << 20        # five times the H100's 50 MB L2
+SPIN_CYCLES = 200_000             # ~0.1 ms of device time on an H100
+HOST_CALLS = 1000
+
+
+def device_event_ms(fn, before=None, iters: int = 20) -> float:
+    """The device time of one call of ``fn``: the median over ``iters``
+    calls (after 3 warm-ups) of CUDA events recorded right around it,
+    each call queued behind device work — ``before()`` where given (an
+    L2 flush, a restore of the input), else a spin of the device — so
+    the device reaches the first event only once the host has queued
+    the call, and the host's launch time stays out of the window.
+    ``before`` itself is not timed."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        if before is not None:
+            before()
+        else:
+            torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in pairs)
+    return times[len(times) // 2]
+
+
+def waited_ms(fn, before, iters: int = 20) -> float:
+    """As a caller waits for one call of ``fn`` on fresh input: the
+    median over ``iters`` calls (after 3 warm-ups) of CUDA events right
+    around it, each call made once ``before()`` (a restore of the input)
+    has finished and the device is idle, so the window holds the host's
+    launch of the call and its device time.  ``before`` is not timed."""
+    import torch
+
+    for _ in range(3):
+        before()
+        fn()
+    times = []
+    for _ in range(iters):
+        before()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def l2_flush():
+    """A function that writes a 256 MB buffer, evicting the L2."""
+    import torch
+
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEVICE)
+    return lambda: buf.fill_(1)
+
+
+def scatter_device_times(kernel, library, flush, iters: int = 20):
+    """Device-only ms of the scatter-max kernel and of the library
+    scatter on the same data, warm and after an L2 flush, in both
+    orders (kernel first, then library first)."""
+    out = {}
+    for order in (("kernel", "library"), ("library", "kernel")):
+        fns = {"kernel": kernel, "library": library}
+        out["_then_".join(order)] = {
+            name: {"warm_ms": device_event_ms(fns[name], None, iters),
+                   "l2_cold_ms": device_event_ms(fns[name], flush, iters)}
+            for name in order}
+    return out
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host µs per call of ``fn``: ``time.perf_counter`` over ``calls``
+    calls with no synchronize among them.  The callers pass small
+    inputs, so the device never holds the host back and this is the
+    launch path's own cost."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def host_times():
+    """Host µs per call of the K4a and K3 wrappers beside one library
+    call each (``scatter_reduce_``; the unmasked ``index_select`` pair),
+    on small inputs: 4,096 in-range triples into 64 × 640, and 192
+    requests into a 256 × 256 board."""
+    import numpy as np
+    import torch
+
+    from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+    from sidecar_tpu_torch.ops.kernels import scatter_max as sm
+
+    rng = np.random.default_rng(9)
+    n, m, u = 64, 640, 4096
+    known, rows, cols, vals, sent, adv = to_cuda((
+        rng.integers(1, 1 << 20, (n, m)).astype(np.int32),
+        rng.integers(0, n, u).astype(np.int32),
+        rng.integers(0, m, u).astype(np.int32),
+        rng.integers(1, 1 << 22, u).astype(np.int32),
+        rng.integers(0, 10, (n, m)).astype(np.int8), rng.random(u) < 0.5))
+    flat = rows.to(torch.int64) * m + cols.to(torch.int64)
+    bval, bslot, src = to_cuda((
+        rng.integers(0, 1 << 20, (256, 256)).astype(np.int32),
+        rng.integers(-1, 1024, (256, 256)).astype(np.int32),
+        rng.integers(0, 256, (64, 3)).astype(np.int32)))
+    idx = src.to(torch.int64).reshape(-1)
+    return {
+        "scatter_max_apply_us": host_us(lambda: sm.scatter_max_apply_cuda(
+            known, rows, cols, vals, sent, adv)),
+        "scatter_max_apply_without_reset_us": host_us(
+            lambda: sm.scatter_max_apply_cuda(known, rows, cols, vals)),
+        "scatter_reduce_us": host_us(lambda: known.view(-1).scatter_reduce_(
+            0, flat, vals, "amax")),
+        "board_row_gather_us": host_us(lambda: pg.board_row_gather_cuda(
+            bval, bslot, src, 0)),
+        "index_select_pair_us": host_us(lambda: (
+            torch.index_select(bval, 0, idx),
+            torch.index_select(bslot, 0, idx))),
+    }
 
 
 def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
@@ -323,8 +512,7 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
     del got, want
     torch.cuda.synchronize()
 
-    for label, bval, bslot, src_c, base in row_gather_cases():
-        bv, bs, sr = to_cuda((bval, bslot, src_c))
+    def check_row_gather(label, bv, bs, sr, base):
         got = pg.board_row_gather_cuda(bv, bs, sr, base)
         want = pg.board_row_gather_torch(bv, bs, sr, base)
         torch.cuda.synchronize()
@@ -332,6 +520,16 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
                                         max_abs_diff(got, want))
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             failures.append(f"board_row_gather {label}")
+
+    for label, bval, bslot, src_c, base in row_gather_cases():
+        check_row_gather(label, *to_cuda((bval, bslot, src_c)), base)
+    # A board one int32 past a 16-byte boundary: the scalar path at K=256.
+    rng = np.random.default_rng(203)
+    bv, bs = (torch.as_tensor(rng.integers(-1, 1 << 20, 150 * 256 + 1)
+                              .astype(np.int32)).to(DEVICE)[1:].view(150, 256)
+              for _ in range(2))
+    (sr,) = to_cuda((rng.integers(0, 190, (203, 3)).astype(np.int32),))
+    check_row_gather("misaligned board k=256", bv, bs, sr, 20)
 
     line = ns_n * ns_k
     board_bytes = line * (4 + 4 + 1) * 2
@@ -399,20 +597,26 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
             bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
             per_request_bytes=per_request,
             per_request_bound_ms=per_request / PEAK_BYTES_PER_S * 1e3)
+        # Faster than a copy per request could be: rows named again did
+        # not all come from device memory again.
+        rg[label]["under_per_request_bound"] = \
+            rg[label]["ms"] < rg[label]["per_request_bound_ms"]
     records["board_row_gather"] = dict(rg["d=1"],
                                        max_abs_err=worst["board_row_gather"])
     del bval, bslot, src
     scatter_records, scatter_failures, scatter_cases = \
         check_scatter_kernels(ex_n, ex_m)
+    host = host_times()
     records.update(scatter_records)
     failures += scatter_failures
     emit({"phase": "kernels", "cases": len(board_cases())
-          + len(gather_cases()) + len(row_gather_cases()) + 4
+          + len(gather_cases()) + len(row_gather_cases()) + 5
           + scatter_cases,
           "failures": failures,
           "shape": {"n": ns_n, "k": ns_k, "f": ns_f},
           "scatter_shape": {"n": ex_n, "m": ex_m},
-          "kernels": records, "board_row_gather_shapes": rg})
+          "kernels": records, "board_row_gather_shapes": rg,
+          "host_us_per_call": host})
     if failures:
         raise SystemExit(f"kernel parity failed: {failures}")
     return records
@@ -424,12 +628,17 @@ def scatter_cases():
     """(label, known, sent, rows, cols, vals, advanced) numpy cases for
     the scatter-max apply: rows up to N and columns up to M (padding,
     with an (r, M) entry that a flat index would alias to (r+1, 0)),
-    one cell hit four times with different values, U = 0 and U = 1."""
+    one cell hit four times with different values, U = 0 and U = 1, a
+    U that leaves a scalar tail after the int4 vectors, and values that
+    advance no cell or every cell they reach."""
     import numpy as np
 
     cases = []
-    for n, m, u in ((16, 24, 300), (33, 130, 5000), (7, 13, 1), (7, 13, 0),
-                    (256, 2560, 40_000)):
+    for n, m, u, regime in ((16, 24, 300, "mixed"), (33, 130, 5000, "mixed"),
+                            (7, 13, 1, "mixed"), (7, 13, 0, "mixed"),
+                            (256, 2560, 40_000, "mixed"),
+                            (45, 77, 4099, "mixed"), (64, 640, 8000, "none"),
+                            (64, 640, 8003, "all")):
         rng = np.random.default_rng(n * m + u)
         rows = rng.integers(0, n + 1, u).astype(np.int32)
         cols = rng.integers(0, m + 1, u).astype(np.int32)
@@ -437,10 +646,14 @@ def scatter_cases():
             rows[:4], cols[:4] = 2, m        # (2, M) aliases (3, 0) flat
             rows[4:8], cols[4:8] = 1, 5      # one cell, four values
             rows[8:12], cols[8:12] = n, 3    # the padding row N
-        cases.append((f"n={n} m={m} u={u}",
-                      rng.integers(1, 1 << 20, (n, m)).astype(np.int32),
+        known_lo, vals_lo, vals_hi = {"mixed": (1, 1, 1 << 22),
+                                      "none": (1 << 21, 1, 1 << 21),
+                                      "all": (1, 1 << 21, 1 << 22)}[regime]
+        cases.append((f"n={n} m={m} u={u} {regime} advance",
+                      rng.integers(known_lo, known_lo + (1 << 20),
+                                   (n, m)).astype(np.int32),
                       rng.integers(0, 10, (n, m)).astype(np.int8), rows,
-                      cols, rng.integers(1, 1 << 22, u).astype(np.int32),
+                      cols, rng.integers(vals_lo, vals_hi, u).astype(np.int32),
                       rng.random(u) < 0.5))
     return cases
 
@@ -493,6 +706,12 @@ def check_scatter_kernels(ex_n: int, ex_m: int):
 
     for label, *arrays in scatter_cases():
         check_apply(label, *to_cuda(arrays))
+    # Triples one element past a 16-byte boundary: the scalar path.
+    label, known, sent, rows, cols, vals, adv = scatter_cases()[4]
+    rows, cols, vals = (torch.as_tensor(np.concatenate(
+        [np.zeros(1, np.int32), a])).to(DEVICE)[1:] for a in (rows, cols, vals))
+    check_apply(f"{label} misaligned", *to_cuda((known, sent)), rows, cols,
+                vals, *to_cuda((adv,)))
     for shape, offset in RMW_CASES:
         rng = np.random.default_rng(shape[1])
         size = shape[0] * shape[1] + offset
@@ -529,17 +748,20 @@ def check_scatter_kernels(ex_n: int, ex_m: int):
     apply_bytes = u * (4 + 4 + 4 + 1) + 2 * 32 * sectors
     flat_in, vals_in = flat[ok], vals[ok]
     k_a, s_a = known.clone(), sent.clone()
+    # The kernel with and without the reset and the library scatter (no
+    # reset: no single call does both) in turns, medians.
+    event = paired_ms({
+        "ms": lambda: sm.scatter_max_apply_cuda(k_a, rows, cols, vals, s_a,
+                                                adv),
+        "ms_without_reset": lambda: sm.scatter_max_apply_cuda(
+            k_a, rows, cols, vals),
+        "library_ms": lambda: k_a.view(-1).scatter_reduce_(
+            0, flat_in, vals_in, "amax")})
     rec_apply = dict(
         max_abs_err=worst["scatter_max_apply"], updates=u,
-        in_range=int(ok.sum()), sectors=sectors,
-        ms=cuda_time_ms(lambda: sm.scatter_max_apply_cuda(
-            k_a, rows, cols, vals, s_a, adv)),
-        ms_without_reset=cuda_time_ms(lambda: sm.scatter_max_apply_cuda(
-            k_a, rows, cols, vals)),
+        in_range=int(ok.sum()), sectors=sectors, **event,
         plain_ms=cuda_time_ms(lambda: sm.scatter_max_apply_torch(
             k_a, rows, cols, vals, s_a, adv)),
-        library_ms=cuda_time_ms(lambda: k_a.view(-1).scatter_reduce_(
-            0, flat_in, vals_in, "amax")),
         device_ms=device_time_ms(lambda: sm.scatter_max_apply_cuda(
             k_a, rows, cols, vals, s_a, adv)),
         device_ms_without_reset=device_time_ms(
@@ -548,7 +770,34 @@ def check_scatter_kernels(ex_n: int, ex_m: int):
             lambda: k_a.view(-1).scatter_reduce_(0, flat_in, vals_in,
                                                  "amax")),
         bytes=apply_bytes, bound_ms=apply_bytes / PEAK_BYTES_PER_S * 1e3)
-    del k_a, s_a
+    # Device-only times, warm and after an L2 flush, in both orders; and
+    # after a restore of known (also a 671 MB pass that evicts the L2),
+    # where every triple that reaches a cell advances it again.
+    flush = l2_flush()
+    kernel = lambda: sm.scatter_max_apply_cuda(k_a, rows, cols, vals)
+    library = lambda: k_a.view(-1).scatter_reduce_(0, flat_in, vals_in,
+                                                   "amax")
+    restore = lambda: k_a.copy_(known)
+    rec_apply.update(
+        device_only=scatter_device_times(kernel, library, flush),
+        device_only_with_reset={
+            "warm_ms": device_event_ms(lambda: sm.scatter_max_apply_cuda(
+                k_a, rows, cols, vals, s_a, adv)),
+            "l2_cold_ms": device_event_ms(lambda: sm.scatter_max_apply_cuda(
+                k_a, rows, cols, vals, s_a, adv), flush)},
+        device_only_after_restore={"kernel_ms": device_event_ms(
+            kernel, restore), "library_ms": device_event_ms(library, restore)},
+        # As a caller waits, one call at a time on the restored input.
+        waited_after_restore={
+            "kernel_ms": waited_ms(kernel, restore),
+            "kernel_with_reset_ms": waited_ms(
+                lambda: sm.scatter_max_apply_cuda(k_a, rows, cols, vals, s_a,
+                                                  adv),
+                lambda: (k_a.copy_(known), s_a.copy_(sent))),
+            "library_ms": waited_ms(library, restore)},
+        advancing_after_restore=int((vals[ok] > known.view(-1)[flat_in])
+                                    .sum()))
+    del k_a, s_a, flush
     rmw_bytes = 3 * known.numel() * 4
     rec_rmw = dict(
         max_abs_err=worst["rmw_max"], elements=known.numel(),
@@ -560,7 +809,7 @@ def check_scatter_kernels(ex_n: int, ex_m: int):
         library_device_ms=device_time_ms(
             lambda: torch.maximum(known, other, out=known)),
         bytes=rmw_bytes, bound_ms=rmw_bytes / PEAK_BYTES_PER_S * 1e3)
-    n_cases = 2 * (len(scatter_cases()) + 1) + len(RMW_CASES) + 1
+    n_cases = 2 * (len(scatter_cases()) + 2) + len(RMW_CASES) + 1
     return ({"scatter_max_apply": rec_apply, "rmw_max": rec_rmw},
             failures, n_cases)
 
@@ -953,8 +1202,9 @@ def phase_scatter(n=4096, spn=10, iters=20):
     bandwidth floor), the in-place max kernel (the ceiling of any
     in-place merge), the library scatter-max and the scatter-max
     kernel, each an in-place update of the same buffer, 20 launches
-    after 3 warm-ups (the two scatters again under the profiler, for
-    their device time alone).  Returns the launch counts of the run."""
+    after 3 warm-ups.  Returns the launch counts of that run; after it
+    the two scatters are timed again in turns and device-only,
+    uncounted."""
     import numpy as np
     import torch
 
@@ -978,6 +1228,8 @@ def phase_scatter(n=4096, spn=10, iters=20):
     got, _ = kernel_ops.scatter_max_apply(known.clone(), rows, cols, vals)
     correct = bool(torch.equal(got, want))
     del got, want
+    # The experiment's four points, each once, as the reference times
+    # them: the counted run.
     points = {
         "elementwise_pass_ms": cuda_time_ms(lambda: known.add_(1), iters),
         "rmw_ceiling_ms": cuda_time_ms(
@@ -989,22 +1241,28 @@ def phase_scatter(n=4096, spn=10, iters=20):
             lambda: kernel_ops.scatter_max_apply(known, rows, cols, vals),
             iters),
     }
-    device = {
-        "library_scatter_device_ms": device_time_ms(
-            lambda: known.view(-1).scatter_reduce_(0, flat, vals, "amax"),
-            iters),
-        "scatter_kernel_device_ms": device_time_ms(
-            lambda: kernel_ops.scatter_max_apply(known, rows, cols, vals),
-            iters),
-    }
     torch.cuda.synchronize()
     counts = launches()
-    ratio = points["library_scatter_ms"] / points["scatter_kernel_ms"]
+    # Measurements beyond the experiment, after its counts are read: the
+    # two scatters in turns (medians), and with CUDA events around each
+    # call alone, warm and after an L2 flush, in both orders.  (On an
+    # H100 the profiler's sum for the same call in this phase ranged from
+    # 0 to 0.013 ms between runs; the events do not vary so.)
+    library = lambda: known.view(-1).scatter_reduce_(0, flat, vals, "amax")
+    kernel = lambda: kernel_ops.scatter_max_apply(known, rows, cols, vals)
+    turns = paired_ms({"library_scatter_ms": library,
+                       "scatter_kernel_ms": kernel}, iters=iters)
+    device = {"device_only": scatter_device_times(kernel, library,
+                                                  l2_flush(), iters)}
+    torch.cuda.synchronize()
+    ratio = turns["library_scatter_ms"] / turns["scatter_kernel_ms"]
+    # One parity launch, then 3 warm-ups and ``iters`` timed calls.
     ok = correct and counts == expected(
-        scatter_max_apply=1 + 2 * (iters + 3), rmw_max=iters + 3)
+        scatter_max_apply=1 + iters + 3, rmw_max=iters + 3)
     emit({"phase": "scatter", "shape": [n, m], "updates": u,
           "buffer_mb": n * m * 4 / 1e6, "scatter_kernel_correct": correct,
-          **points, **device, "library_over_kernel": ratio,
+          **points, "in_turns": turns, **device,
+          "library_over_kernel": ratio,
           "verdict": ("the kernel beats the library scatter"
                       if ratio > 1.25 else
                       "no meaningful win over the library scatter"),
@@ -1116,13 +1374,15 @@ def exact_breakdown(sim, state, generator, iters=5):
     ms = {name: cuda_time_ms(fn, iters) for name, fn in phases.items()}
     dev = {name: device_time_ms(fn, iters) for name, fn in phases.items()}
     per_round = {name: t / every.get(name, 1) for name, t in ms.items()}
-    dev_round = {name: t / every.get(name, 1) for name, t in dev.items()}
+    dev_round = {name: t / every.get(name, 1) for name, t in dev.items()
+                 if t is not None}
     library = cuda_time_ms(lambda: st.known.view(-1).scatter_reduce_(
         0, flat_in, vals_in, "amax"), iters)
     return {"ms_per_call": ms, "ms_per_round": per_round,
             "sum_ms_per_round": sum(per_round.values()),
             "device_ms_per_call": dev, "device_ms_per_round": dev_round,
             "sum_device_ms_per_round": sum(dev_round.values()),
+            "device_not_measured": [k for k, t in dev.items() if t is None],
             "updates": int(rows.numel()), "in_range": int(ok.sum()),
             "advancing": int(adv.sum()),
             "library_scatter_ms_same_triples": library}
@@ -1176,6 +1436,81 @@ def phase_exact(n=4096, warm=200, timed=200):
     return counts
 
 
+def row_gather_variants(k: int = 256) -> dict:
+    """Rows a pass → the ``(source, macro definitions)`` build of the
+    row-gather kernel with that window."""
+    return {w: ("publish_gather",
+                (f"-DSIDECAR_ROW_GATHER_WINDOW_BYTES={w * 2 * k * 4}",))
+            for w in ROW_GATHER_WINDOWS}
+
+
+def phase_row_gather_windows(n: int, k: int = 256, f: int = 3,
+                              iters: int = 20):
+    """The row-gather kernel built with each window of
+    ``ROW_GATHER_WINDOWS`` (one ``nvcc`` each, started with the build
+    phase's), held against its plain version and timed at the sharded
+    north star's shapes on a random board and uniform peers: d=1 (the
+    whole board), d=4 (shard 2's own block at base 2·nl) and
+    all_gather's d=4 (the whole board, shard 2's requests); beside the
+    unmasked ``index_select`` pair.  Launches the entry points directly:
+    no wrapper's count moves."""
+    import torch
+
+    from sidecar_tpu_torch.ops.kernels import build
+    from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+
+    variants = row_gather_variants(k)
+    t0 = time.perf_counter()
+    build.build((), list(variants.values()))
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    bval = torch.randint(0, 1 << 20, (n, k), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    bslot = torch.randint(-1, 1 << 20, (n, k), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    src = torch.randint(0, n, (n, f), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    nl = n // 4
+    blk = slice(2 * nl, 3 * nl)
+    shapes = {"d=1": (bval, bslot, src, 0),
+              "d=4": (bval[blk], bslot[blk], src[blk], 2 * nl),
+              "all_gather d=4": (bval, bslot, src[blk], 0)}
+    failures = []
+    times = {}
+    for label, (bv, bs, sr, base) in shapes.items():
+        want = pg.board_row_gather_torch(bv, bs, sr, base)
+        flat = torch.clamp(sr.to(torch.int64) - base, 0,
+                           bv.shape[0] - 1).reshape(-1)
+        row = {"index_select_pair_ms": cuda_time_ms(lambda: (
+            torch.index_select(bv, 0, flat),
+            torch.index_select(bs, 0, flat)), iters)}
+        pv = bv.new_empty((sr.shape[0], f, k))
+        ps = torch.empty_like(pv)
+        for w, variant in variants.items():
+            entry = build.load(*variant).sidecar_board_row_gather
+
+            def call():
+                build.launch("board_row_gather_kernel launch", entry,
+                             bv.get_device(), bv.data_ptr(), bs.data_ptr(),
+                             sr.data_ptr(), bv.shape[0], sr.numel(), k,
+                             base, pv.data_ptr(), ps.data_ptr())
+
+            pv.fill_(7)
+            ps.fill_(7)
+            call()
+            torch.cuda.synchronize()
+            if not (torch.equal(pv, want[0]) and torch.equal(ps, want[1])):
+                failures.append(f"window {w} {label}")
+            row[f"window_{w}_ms"] = cuda_time_ms(call, iters)
+        times[label] = row
+        del want, pv, ps
+    emit({"phase": "row_gather_windows", "n": n, "k": k, "f": f,
+          "build_seconds": build_s, "rows_per_window": ROW_GATHER_WINDOWS,
+          "times": times, "failures": failures, "ok": not failures})
+    if failures:
+        raise SystemExit(f"row-gather window sweep failed: {failures}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1203,7 +1538,9 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     if "build" in phases or "kernels" in phases:
         t0 = time.perf_counter()
-        libs = build.build()
+        # The window sweep's builds start with the rest.
+        libs = build.build(variants=list(row_gather_variants().values())
+                           if "row_gather_windows" in phases else ())
         emit({"phase": "build", "libraries": {k: v.name
                                               for k, v in libs.items()},
               "seconds": time.perf_counter() - t0,
@@ -1213,6 +1550,8 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         records = phase_kernels(args.n, 256, 3, args.exact_n,
                                 args.exact_n * 10)
+    if "row_gather_windows" in phases:
+        phase_row_gather_windows(args.n)
     if "lockstep" in phases:
         phase_lockstep()
     # The main paths' runs, each with its counts set to 0 just before it

@@ -73,36 +73,41 @@ def source_path(name: str) -> pathlib.Path:
     return CSRC / f"{name}.cu"
 
 
-def library_path(name: str) -> pathlib.Path:
+def library_path(name: str, defines=()) -> pathlib.Path:
+    """Where ``name`` built with the macro definitions ``defines`` (such
+    as ``("-DX=1",)``) lies."""
     digest = hashlib.sha256(source_path(name).read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(FLAGS + tuple(defines)).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(names=tuple(SIGNATURES)) -> dict:
+def build(names=tuple(SIGNATURES), variants=()) -> dict:
     """Compile the libraries not built yet, one ``nvcc`` per source, all
-    started together; returns ``{name: path}``.  ``nvcc``'s report
-    (``-Xptxas -v``: registers, shared memory, spills per kernel) is
-    kept beside each library as ``<library>.log``."""
+    started together; returns ``{name: path}``.  ``variants`` adds
+    ``(name, defines)`` builds of a source with macro definitions,
+    started with the rest (their paths: :func:`library_path`).
+    ``nvcc``'s report (``-Xptxas -v``: registers, shared memory, spills
+    per kernel) is kept beside each library as ``<library>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name in names:
-        out = library_path(name)
+    running = []
+    for name, defines in [(n, ()) for n in names] + list(variants):
+        out = library_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), str(source_path(name))]
-        running[name] = (cmd, tmp, subprocess.Popen(
+        cmd = [nvcc_path(), *FLAGS, *defines, "-o", str(tmp),
+               str(source_path(name))]
+        running.append((cmd, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+            text=True)))
     failed = []
-    for name, (cmd, tmp, proc) in running.items():
+    for cmd, out, tmp, proc in running:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{log}")
             continue
-        out = library_path(name)
         out.with_suffix(".so.log").write_text(log)
         os.replace(tmp, out)
     if failed:
@@ -115,29 +120,40 @@ def build_log(name: str) -> str:
     return library_path(name).with_suffix(".so.log").read_text()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (built on first use), with the
-    ``argtypes`` of its entry points declared."""
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build((name,))[name]))
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library ``name`` (built with ``defines`` on first
+    use), with the ``argtypes`` of its entry points declared."""
+    key = (name, tuple(defines)) if defines else name
+    if key not in _libs:
+        build((), [(name, tuple(defines))])
+        lib = ctypes.CDLL(str(library_path(name, defines)))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _I
-        _libs[name] = lib
-    return _libs[name]
+        _libs[key] = lib
+    return _libs[key]
 
 
 # -- launch helpers shared by the wrappers ------------------------------------
+#
+# On the paths of small kernels (the exact round, the sharded round at
+# d=4) a wrapper's host time is what a launch costs.  So the wrappers
+# compare ``get_device()`` integers rather than ``torch.device`` objects
+# in their checks, hand ctypes plain integers for pointers (the declared
+# c_void_p argtypes convert them), pass the current stream's raw handle
+# without building a ``torch.cuda.Stream``, and switch the current device
+# only where it is not the tensors' (:func:`launch`).
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
-
-def stream(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def raise_on(err: int, what: str):
+def launch(what: str, fn, index: int, *args) -> None:
+    """Call the entry point ``fn(*args, stream)`` with CUDA device
+    ``index`` current and the raw handle of its current stream; raise if
+    the launch reports an error."""
+    if torch._C._cuda_getDevice() == index:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{what}: CUDA error {err} "
-                           f"({torch.cuda.get_device_name()})")
+                           f"({torch.cuda.get_device_name(index)})")

@@ -176,33 +176,102 @@ __global__ void fused_publish_gather_kernel(
 // nodes sampled:
 //   pv[r, f] = bval[src[r, f] - base], ps[r, f] = bslot[src[r, f] - base]
 //   where 0 <= src[r, f] - base < R, else (0, -1) -- the merge no-op.
-// Design (a simple, correct first form): one block per request (r, f) on
-// gridDim.x (nl*F reaches 300,000 at the north star, past gridDim.y's
-// 65,535), threads stride over the K lines, so each warp reads and writes
-// 128 contiguous bytes of a row; the output index is 64-bit (nl*F*K is
-// 76.8 M at N=100,000, F=3, K=256).  An out-of-block request reads nothing.
 //
 // Bound on an H100 SXM (3.35 TB/s; no arithmetic beyond the index, so bytes
 // bound it): at N=100,000 rows, F=3, K=256 it writes 614.4 MB of pv/ps and
-// reads src (1.2 MB) plus every board row some request names once (at most
-// the 204.8 MB board; 614.4 MB if each request's row came from memory).
-// What the design does about it: coalesced row copies, nothing staged
-// through shared memory, and no read for a masked request.  Rows named by
-// several requests are read again (from L2 where they are still there);
-// 16-byte vector copies and a warp per row are later work.
-__global__ void board_row_gather_kernel(
-    const int* __restrict__ bval, const int* __restrict__ bslot,
-    const int* __restrict__ src, int rows, int k, int base,
-    int* __restrict__ pv, int* __restrict__ ps) {
-  const int64_t req = blockIdx.x;
-  const int64_t rel = static_cast<int64_t>(src[req]) - base;
-  const bool in_block = rel >= 0 && rel < rows;
-  const int64_t in = in_block ? rel * k : 0;
-  const int64_t out = req * k;
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    pv[out + j] = in_block ? bval[in + j] : 0;
-    ps[out + j] = in_block ? bslot[in + j] : -1;
+// reads src (1.2 MB) plus every board row some request names, once: 95-98 %
+// of the 204.8 MB board at d=1 (ER(8): each named row named ~3 times),
+// 0.24 ms.  A copy per request reads 614.4 MB instead (0.37 ms): the board
+// is 4x the 50 MB L2, so in request order a row named again has left the
+// L2 and is read again from HBM.
+//
+// Design: one ordinary launch whose blocks walk the board in windows of
+// rows, so that the requests naming a row meet while the row is in the L2.
+// Block b takes pass p = b / chunks and the chunk of 256 consecutive
+// requests c = b % chunks; pass p copies only the requests of its chunk
+// whose row lies in window p, [p * W, (p + 1) * W) with W rows of 3 MiB of
+// bval and bslot (W = 1,536 at K = 256).  Blocks start in about the order of
+// their index, so the blocks in flight name rows of one or a few windows:
+// a row comes from HBM once and its other requests find it in the L2.
+// Each warp loads its 32 requests' src (one coalesced load), and copies
+// its requests in the window one after another, the whole warp on one row:
+// 16-byte int4 loads and stores where K % 4 == 0 and the four buffers are
+// 16-byte aligned (K = 256: two int4 of bval and two of bslot a lane),
+// int32 otherwise.  Pass 0 also writes (0, -1) to the out-of-block requests
+// and reads nothing for them.  The passes re-read src from the L2 (1.2 MB
+// a pass); no scratch, no atomics, no grid-wide sync.  The output index is
+// 64-bit (nl*F*K is 76.8 M at N=100,000, F=3, K=256).
+constexpr int kGatherThreads = 256;   // one chunk: 8 warps x 32 requests
+// chip_smoke.py's row_gather_windows phase builds the kernel with other
+// windows (-DSIDECAR_ROW_GATHER_WINDOW_BYTES=...) and times each.
+#ifndef SIDECAR_ROW_GATHER_WINDOW_BYTES
+#define SIDECAR_ROW_GATHER_WINDOW_BYTES (3LL << 20)
+#endif
+constexpr long long kWindowBytes = SIDECAR_ROW_GATHER_WINDOW_BYTES;
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename T> __device__ __forceinline__ T splat(int x);
+template <> __device__ __forceinline__ int splat<int>(int x) { return x; }
+template <> __device__ __forceinline__ int4 splat<int4>(int x) {
+  return make_int4(x, x, x, x);
+}
+
+// T is the unit of a copy (int4, or int on the scalar path); `e` the row
+// width in units; `window` the rows of a pass; `chunks` the request chunks.
+template <typename T>
+__global__ void __launch_bounds__(kGatherThreads) board_row_gather_kernel(
+    const T* __restrict__ bval, const T* __restrict__ bslot,
+    const int* __restrict__ src, int rows, int n_req, int e, int base,
+    int window, int chunks, T* __restrict__ pv, T* __restrict__ ps) {
+  const unsigned lane = threadIdx.x & 31u;
+  const int pass = blockIdx.x / chunks;
+  const int chunk = blockIdx.x - pass * chunks;
+  const int64_t lo = static_cast<int64_t>(pass) * window;
+  const int64_t first = static_cast<int64_t>(chunk) * kGatherThreads +
+                        (threadIdx.x & ~31u);
+  const int64_t i = first + lane;
+  int row = -1;        // -1: out of block
+  bool mine = false;   // this pass copies request i
+  if (i < n_req) {
+    const int64_t rel = static_cast<int64_t>(src[i]) - base;
+    const bool in_block = rel >= 0 && rel < rows;
+    row = in_block ? static_cast<int>(rel) : -1;
+    mine = in_block ? rel >= lo && rel < lo + window : pass == 0;
   }
+  for (unsigned todo = __ballot_sync(kFull, mine); todo; todo &= todo - 1) {
+    const int t = __ffs(todo) - 1;
+    const int r = __shfl_sync(kFull, row, t);
+    const int64_t out = (first + t) * e;
+    const int64_t in = static_cast<int64_t>(r) * e;
+    for (int x = static_cast<int>(lane); x < e; x += 32) {
+      pv[out + x] = r >= 0 ? bval[in + x] : splat<T>(0);
+      ps[out + x] = r >= 0 ? bslot[in + x] : splat<T>(-1);
+    }
+  }
+}
+
+template <typename T>
+int launch_row_gather(const void* bval, const void* bslot, const void* src,
+                      int rows, int n_req, int e, int base, void* pv,
+                      void* ps, cudaStream_t stream) {
+  const long long chunks = (n_req + kGatherThreads - 1LL) / kGatherThreads;
+  const long long row_bytes = 2LL * e * static_cast<long long>(sizeof(T));
+  long long window = kWindowBytes / row_bytes;
+  if (window < 1) window = 1;
+  if (window > rows) window = rows > 0 ? rows : 1;
+  // At most 2^31 - 1 blocks: widen the window where the passes would not fit.
+  const long long max_passes = 0x7fffffffLL / chunks;
+  if ((rows + window - 1) / window > max_passes) {
+    window = (rows + max_passes - 1) / max_passes;
+  }
+  const long long passes = rows > 0 ? (rows + window - 1) / window : 1;
+  board_row_gather_kernel<T><<<static_cast<unsigned>(passes * chunks),
+                               kGatherThreads, 0, stream>>>(
+      static_cast<const T*>(bval), static_cast<const T*>(bslot),
+      static_cast<const int*>(src), rows, n_req, e, base,
+      static_cast<int>(window), static_cast<int>(chunks),
+      static_cast<T*>(pv), static_cast<T*>(ps));
+  return static_cast<int>(cudaGetLastError());
 }
 
 inline unsigned threads_for(int k) { return k < 32 ? 32u : static_cast<unsigned>(k); }
@@ -227,19 +296,27 @@ extern "C" int sidecar_publish_board(
   return static_cast<int>(cudaGetLastError());
 }
 
-// `n_req` = nl * F requests; a grid holds at most 2^31 - 1 blocks.
+// `n_req` = nl * F requests.  The int4 path takes K % 4 == 0 with bval,
+// bslot, pv and ps 16-byte aligned; the int32 path the rest.
 extern "C" int sidecar_board_row_gather(
     const void* bval, const void* bslot, const void* src, int rows,
     long long n_req, int k, int base, void* pv, void* ps, void* stream) {
   if (n_req <= 0 || k <= 0) return 0;
-  if (n_req > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const unsigned threads = k < 256 ? ((static_cast<unsigned>(k) + 31u) & ~31u) : 256u;
-  board_row_gather_kernel<<<static_cast<unsigned>(n_req), threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(bval), static_cast<const int*>(bslot),
-      static_cast<const int*>(src), rows, k, base, static_cast<int*>(pv),
-      static_cast<int*>(ps));
-  return static_cast<int>(cudaGetLastError());
+  if (n_req > 0x7fffffffLL || rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uintptr_t bufs = reinterpret_cast<uintptr_t>(bval) |
+                         reinterpret_cast<uintptr_t>(bslot) |
+                         reinterpret_cast<uintptr_t>(pv) |
+                         reinterpret_cast<uintptr_t>(ps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = static_cast<int>(n_req);
+  if (k % 4 == 0 && (bufs & 15u) == 0) {
+    return launch_row_gather<int4>(bval, bslot, src, rows, n, k / 4, base,
+                                   pv, ps, s);
+  }
+  return launch_row_gather<int>(bval, bslot, src, rows, n, k, base, pv, ps,
+                                s);
 }
 
 extern "C" int sidecar_fused_publish_gather(

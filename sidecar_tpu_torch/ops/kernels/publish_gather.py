@@ -43,12 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from sidecar_tpu_torch.ops.kernels.build import (
-    load,
-    ptr,
-    raise_on,
-    stream,
-)
+from sidecar_tpu_torch.ops.kernels.build import launch, load
 from sidecar_tpu_torch.ops.merge import staleness_mask
 from sidecar_tpu_torch.ops.status import MASK32, PHASE_MULT
 
@@ -130,6 +125,7 @@ def board_row_gather_torch(bval, bslot, src, base: int = 0):
 # -- CUDA wrappers ------------------------------------------------------------
 
 def _check_cache(cache_val, cache_slot, cache_sent, cache_lines: int):
+    index = cache_val.get_device()
     for name, t, dtype in (("cache_val", cache_val, torch.int32),
                            ("cache_slot", cache_slot, torch.int32),
                            ("cache_sent", cache_sent, torch.int8)):
@@ -137,12 +133,12 @@ def _check_cache(cache_val, cache_slot, cache_sent, cache_lines: int):
             raise ValueError(f"{name} must be a CUDA tensor")
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-        if t.dim() != 2 or tuple(t.shape) != tuple(cache_val.shape):
+        if t.dim() != 2 or t.shape != cache_val.shape:
             raise ValueError(f"{name} must be [N, K] like cache_val, "
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != cache_val.device:
+        if t.get_device() != index:
             raise ValueError(f"{name} is on {t.device}, "
                              f"cache_val on {cache_val.device}")
     k = cache_val.shape[1]
@@ -151,6 +147,7 @@ def _check_cache(cache_val, cache_slot, cache_sent, cache_lines: int):
     if k < 1 or k > 1024 or k & (k - 1):
         raise ValueError(f"cache_lines must be a power of two in "
                          f"[1, 1024], got {k}")
+    return index
 
 
 def publish_board_cuda(cache_val, cache_slot, cache_sent, *, budget: int,
@@ -158,18 +155,16 @@ def publish_board_cuda(cache_val, cache_slot, cache_sent, *, budget: int,
                        row_offset: int = 0):
     """Launch ``publish_board_kernel`` (one block per row) on the
     current stream.  Returns ``(bval, bslot, sent)``."""
-    _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
-    lib = load("publish_gather")
+    index = _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
     n, k = cache_val.shape
     bval = torch.empty_like(cache_val)
     bslot = torch.empty_like(cache_slot)
     sent = torch.empty_like(cache_sent)
-    with torch.cuda.device(cache_val.device):
-        err = lib.sidecar_publish_board(
-            ptr(cache_val), ptr(cache_slot), ptr(cache_sent), n, k,
-            min(budget, k), limit, fanout, row_offset,
-            ptr(bval), ptr(bslot), ptr(sent), stream(cache_val))
-    raise_on(err, "publish_board_kernel launch")
+    launch("publish_board_kernel launch",
+           load("publish_gather").sidecar_publish_board, index,
+           cache_val.data_ptr(), cache_slot.data_ptr(),
+           cache_sent.data_ptr(), n, k, min(budget, k), limit, fanout,
+           row_offset, bval.data_ptr(), bslot.data_ptr(), sent.data_ptr())
     publish_board_cuda.launches += 1
     return bval, bslot, sent
 
@@ -183,25 +178,24 @@ def fused_publish_gather_cuda(cache_val, cache_slot, cache_sent, src,
     """Launch ``fused_publish_gather_kernel`` (one block per (r, f) pull
     plus one per own row) on the current stream.  Returns
     ``(sent, pv, ps)``."""
-    _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
+    index = _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
     if src.dtype != torch.int32 or src.dim() != 2 or \
             src.shape[0] != cache_val.shape[0]:
         raise ValueError(f"src must be int32 [N, F], got {src.dtype} "
                          f"{tuple(src.shape)}")
-    if src.device != cache_val.device or not src.is_contiguous():
+    if src.get_device() != index or not src.is_contiguous():
         raise ValueError("src must be contiguous on the cache's device")
-    lib = load("publish_gather")
     n, k = cache_val.shape
     f = src.shape[1]
     sent = torch.empty_like(cache_sent)
-    pv = torch.empty((n, f, k), dtype=torch.int32, device=cache_val.device)
+    pv = cache_val.new_empty((n, f, k))
     ps = torch.empty_like(pv)
-    with torch.cuda.device(cache_val.device):
-        err = lib.sidecar_fused_publish_gather(
-            ptr(cache_val), ptr(cache_slot), ptr(cache_sent),
-            ptr(src), n, f, k, min(budget, k), limit, fanout, now, stale_ticks,
-            ptr(sent), ptr(pv), ptr(ps), stream(cache_val))
-    raise_on(err, "fused_publish_gather_kernel launch")
+    launch("fused_publish_gather_kernel launch",
+           load("publish_gather").sidecar_fused_publish_gather, index,
+           cache_val.data_ptr(), cache_slot.data_ptr(),
+           cache_sent.data_ptr(), src.data_ptr(), n, f, k, min(budget, k),
+           limit, fanout, now, stale_ticks, sent.data_ptr(), pv.data_ptr(),
+           ps.data_ptr())
     fused_publish_gather_cuda.launches += 1
     return sent, pv, ps
 
@@ -210,8 +204,10 @@ fused_publish_gather_cuda.launches = 0
 
 
 def board_row_gather_cuda(bval, bslot, src, base: int = 0):
-    """Launch ``board_row_gather_kernel`` (one block per request) on the
-    current stream.  Returns ``(pv, ps)``."""
+    """Launch ``board_row_gather_kernel`` (blocks in passes over windows
+    of board rows, so that each named row comes from device memory once)
+    on the current stream.  Returns ``(pv, ps)``."""
+    index = bval.get_device()
     for name, t in (("bval", bval), ("bslot", bslot), ("src", src)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -220,7 +216,7 @@ def board_row_gather_cuda(bval, bslot, src, base: int = 0):
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != bval.device:
+        if t.get_device() != index:
             raise ValueError(f"{name} is on {t.device}, bval on "
                              f"{bval.device}")
     if bslot.shape != bval.shape:
@@ -228,16 +224,14 @@ def board_row_gather_cuda(bval, bslot, src, base: int = 0):
                          f"{tuple(bval.shape)}")
     rows_total, k = bval.shape
     nl, f = src.shape
-    pv = torch.empty((nl, f, k), dtype=torch.int32, device=bval.device)
-    ps = torch.empty_like(pv)
+    pv = bval.new_empty((nl, f, k))
+    ps = bval.new_empty((nl, f, k))
     if pv.numel() == 0:
         return pv, ps
-    lib = load("publish_gather")
-    with torch.cuda.device(bval.device):
-        err = lib.sidecar_board_row_gather(
-            ptr(bval), ptr(bslot), ptr(src), rows_total, nl * f,
-            k, int(base), ptr(pv), ptr(ps), stream(bval))
-    raise_on(err, "board_row_gather_kernel launch")
+    launch("board_row_gather_kernel launch",
+           load("publish_gather").sidecar_board_row_gather, index,
+           bval.data_ptr(), bslot.data_ptr(), src.data_ptr(), rows_total,
+           nl * f, k, int(base), pv.data_ptr(), ps.data_ptr())
     board_row_gather_cuda.launches += 1
     return pv, ps
 

@@ -27,12 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from sidecar_tpu_torch.ops.kernels.build import (
-    load,
-    ptr,
-    raise_on,
-    stream,
-)
+from sidecar_tpu_torch.ops.kernels.build import launch, load
 
 
 def _in_range(known, rows, cols):
@@ -63,7 +58,7 @@ def rmw_max_torch(known, other):
 
 # -- CUDA wrappers ------------------------------------------------------------
 
-def _check(name, t, dtype, dim, device):
+def _check(name, t, dtype, dim, index):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if t.dtype != dtype or t.dim() != dim:
@@ -71,41 +66,40 @@ def _check(name, t, dtype, dim, device):
                          f"{t.dim()}-D {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, known on {device}")
+    if t.get_device() != index:
+        raise ValueError(f"{name} is on {t.device}, known on cuda:{index}")
 
 
 def scatter_max_apply_cuda(known, rows, cols, vals, sent=None,
                            advanced=None):
-    """Launch ``scatter_max_apply_kernel`` (one thread per triple,
+    """Launch ``scatter_max_apply_kernel`` (four triples a thread,
     grid-stride) on the current stream.  Returns ``(known, sent)``."""
-    _check("known", known, torch.int32, 2, known.device)
+    index = known.get_device()
+    _check("known", known, torch.int32, 2, index)
     u = rows.shape[0] if rows.dim() == 1 else -1
     for name, t, dtype in (("rows", rows, torch.int32),
                            ("cols", cols, torch.int32),
                            ("vals", vals, torch.int32)):
-        _check(name, t, dtype, 1, known.device)
+        _check(name, t, dtype, 1, index)
         if t.shape[0] != u:
             raise ValueError(f"{name} has {t.shape[0]} entries, rows {u}")
     if sent is not None:
-        _check("sent", sent, torch.int8, 2, known.device)
+        _check("sent", sent, torch.int8, 2, index)
         if sent.shape != known.shape:
             raise ValueError(f"sent {tuple(sent.shape)} must match known "
                              f"{tuple(known.shape)}")
-        _check("advanced", advanced, torch.bool, 1, known.device)
+        _check("advanced", advanced, torch.bool, 1, index)
         if advanced.shape[0] != u:
             raise ValueError(f"advanced has {advanced.shape[0]} entries, "
                              f"rows {u}")
     if u == 0:
         return known, sent
     n, m = known.shape
-    lib = load("scatter_max")
-    with torch.cuda.device(known.device):
-        err = lib.sidecar_scatter_max_apply(
-            ptr(known), None if sent is None else ptr(sent), ptr(rows),
-            ptr(cols), ptr(vals), None if sent is None else ptr(advanced),
-            u, n, m, stream(known))
-    raise_on(err, "scatter_max_apply_kernel launch")
+    launch("scatter_max_apply_kernel launch",
+           load("scatter_max").sidecar_scatter_max_apply, index,
+           known.data_ptr(), None if sent is None else sent.data_ptr(),
+           rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+           None if sent is None else advanced.data_ptr(), u, n, m)
     scatter_max_apply_cuda.launches += 1
     return known, sent
 
@@ -116,18 +110,16 @@ scatter_max_apply_cuda.launches = 0
 def rmw_max_cuda(known, other):
     """Launch ``rmw_max_kernel`` (16-byte vectors, grid-stride) on the
     current stream.  Returns ``known``."""
-    _check("known", known, torch.int32, known.dim(), known.device)
-    _check("other", other, torch.int32, known.dim(), known.device)
+    index = known.get_device()
+    _check("known", known, torch.int32, known.dim(), index)
+    _check("other", other, torch.int32, known.dim(), index)
     if other.shape != known.shape:
         raise ValueError(f"other {tuple(other.shape)} must match known "
                          f"{tuple(known.shape)}")
     if known.numel() == 0:
         return known
-    lib = load("scatter_max")
-    with torch.cuda.device(known.device):
-        err = lib.sidecar_rmw_max(ptr(known), ptr(other), known.numel(),
-                                  stream(known))
-    raise_on(err, "rmw_max_kernel launch")
+    launch("rmw_max_kernel launch", load("scatter_max").sidecar_rmw_max,
+           index, known.data_ptr(), other.data_ptr(), known.numel())
     rmw_max_cuda.launches += 1
     return known
 

@@ -95,9 +95,14 @@ def test_run_on_card_equals_cpu(card, fused):
 @pytest.mark.parametrize("n,k,f,rows,base,hi", [
     (13, 16, 3, 13, 0, 18), (20, 32, 2, 5, 10, 20), (33, 8, 4, 11, 22, 38),
     (9, 1024, 1, 4, 3, 12), (10, 64, 3, 6, 100, 100),
-    (70_000, 256, 1, 25_000, 50_000, 100_000)])
+    (70_000, 256, 1, 25_000, 50_000, 100_000), (37, 1, 3, 9, 4, 15),
+    (29, 2, 3, 12, 0, 14), (41, 4, 3, 10, 5, 17), (43, 4, 3, 16, 0, 1),
+    (23, 6, 1, 8, 2, 12), (101, 1024, 3, 60, 0, 80)])
 def test_board_row_gather_kernel_equals_plain(card, n, k, f, rows, base,
                                               hi):
+    """Also K = 1, 2 and 6 (the scalar path), K = 4, K = 1024 (a row
+    copied in chunks), every request naming row 0 (hi = 1), and request
+    counts that are not a multiple of the 8 warps of a block."""
     rng = np.random.default_rng(n + k)
     bval = torch.tensor(rng.integers(0, 1 << 20, (rows, k)),
                         dtype=torch.int32).cuda()
@@ -107,6 +112,22 @@ def test_board_row_gather_kernel_equals_plain(card, n, k, f, rows, base,
                        dtype=torch.int32).cuda()
     got = pg.board_row_gather_cuda(bval, bslot, src, base)
     want = pg.board_row_gather_torch(bval, bslot, src, base)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_board_row_gather_kernel_misaligned_and_duplicates(card):
+    """A board one int32 past a 16-byte boundary (the scalar path at
+    K = 256), and a block at an offset named with many duplicates."""
+    rng = np.random.default_rng(3)
+    rows, k = 40, 256
+    bval, bslot = (torch.tensor(rng.integers(-1, 1 << 20, rows * k + 1),
+                                dtype=torch.int32).cuda()[1:].view(rows, k)
+                   for _ in range(2))
+    src = rng.integers(10, 60, (77, 3))
+    src[::4] = 33
+    src = torch.tensor(src, dtype=torch.int32).cuda()
+    got = pg.board_row_gather_cuda(bval, bslot, src, 12)
+    want = pg.board_row_gather_torch(bval, bslot, src, 12)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -166,6 +187,65 @@ def test_scatter_max_apply_kernel_equals_plain(card, n, m, u):
     assert got[0] is known and got[1] is sent
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert sm.scatter_max_apply_cuda.launches - before == (1 if u else 0)
+
+
+@pytest.mark.parametrize("regime", ["none", "all"])
+@pytest.mark.parametrize("u,offset", [(4000, 0), (4003, 0), (4000, 1)])
+def test_scatter_max_apply_kernel_none_or_all_advance(card, regime, u,
+                                                      offset):
+    """Values that advance no cell they reach (every atomic skipped) or
+    every one; whole int4 vectors of triples, a scalar tail of 3, and
+    (offset 1) triples that are not 16-byte aligned."""
+    rng = np.random.default_rng(u + offset)
+    n, m = 32, 320
+    lo = 1 << 21 if regime == "none" else 1
+    known = torch.tensor(rng.integers(lo, lo + (1 << 20), (n, m)),
+                         dtype=torch.int32).cuda()
+    sent = torch.tensor(rng.integers(0, 10, (n, m)), dtype=torch.int8).cuda()
+    vlo, vhi = (1, 1 << 21) if regime == "none" else (1 << 21, 1 << 22)
+    rows, cols, vals = (
+        torch.tensor(np.concatenate([np.zeros(offset), x]),
+                     dtype=torch.int32).cuda()[offset:]
+        for x in (rng.integers(0, n + 1, u), rng.integers(0, m + 1, u),
+                  rng.integers(vlo, vhi, u)))
+    adv = torch.tensor(rng.random(u) < 0.5).cuda()
+    want = sm.scatter_max_apply_torch(known.clone(), rows, cols, vals,
+                                      sent.clone(), adv)
+    got = sm.scatter_max_apply_cuda(known.clone(), rows, cols, vals,
+                                    sent.clone(), adv)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(want[0], known) == (regime == "none")
+
+
+def test_wrappers_keep_their_messages(card):
+    """The wrappers raise their own messages, one check per tensor."""
+    known = torch.zeros((4, 8), dtype=torch.int32, device="cuda")
+    sent = torch.zeros((4, 8), dtype=torch.int8, device="cuda")
+    idx = torch.zeros(5, dtype=torch.int32, device="cuda")
+    adv = torch.zeros(5, dtype=torch.bool, device="cuda")
+    cases = [
+        ((known, idx.long(), idx, idx), "rows must be a 1-D torch.int32"),
+        ((known, idx, torch.zeros((5, 2), dtype=torch.int32,
+                                  device="cuda")[:, 0], idx),
+         "cols must be contiguous"),
+        ((known, idx, idx, idx[:4]), "vals has 4 entries, rows 5"),
+        ((known, idx, idx, idx, sent[:2], adv), r"sent \(2, 8\) must match"),
+        ((known, idx, idx, idx, sent, adv[:3]), "advanced has 3 entries"),
+    ]
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            sm.scatter_max_apply_cuda(*args)
+    src = torch.zeros((3, 2), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="bval must be a 2-D int32"):
+        pg.board_row_gather_cuda(known.long(), known, src)
+    with pytest.raises(ValueError, match=r"bslot \(4, 4\) must match"):
+        pg.board_row_gather_cuda(known, known[:, :4].contiguous(), src)
+    with pytest.raises(ValueError, match="cache_lines must be a power"):
+        pg.publish_board_cuda(known[:, :6].contiguous(),
+                              known[:, :6].contiguous(), sent[:, :6]
+                              .contiguous(), budget=2, limit=3, fanout=1,
+                              cache_lines=6)
 
 
 @pytest.mark.parametrize("shape,offset", [((8, 40), 0), ((7, 13), 0),

@@ -196,12 +196,15 @@ class TestFusedGatherPlain:
 
 # (n, k, f, block rows, base, src upper bound): the cases of
 # tests/test_kernels.py (src overshooting the block on both sides), then
-# F = 1 at K = 1024, a wide base with a ragged block, and every row out
-# of block.
+# F = 1 at K = 1024, a wide base with a ragged block, every row out of
+# block, K = 1, 2 and 4 (the CUDA kernel's scalar path and its narrowest
+# int4 row), and every request naming row 0 (src upper bound 1).
 ROW_GATHER_CASES = [(13, 16, 3, 13, 0, 18), (20, 32, 2, 5, 10, 20),
                     (33, 8, 4, 11, 22, 38), (7, 128, 2, 7, 0, 12),
                     (9, 1024, 1, 4, 3, 12), (31, 64, 3, 7, 50, 70),
-                    (10, 64, 3, 6, 100, 100)]
+                    (10, 64, 3, 6, 100, 100), (37, 1, 3, 9, 4, 15),
+                    (29, 2, 3, 12, 0, 14), (41, 4, 3, 10, 5, 17),
+                    (43, 4, 3, 16, 0, 1)]
 
 
 def row_gather_inputs(n, k, f, blk, base, hi):
@@ -221,9 +224,12 @@ class TestBoardRowGatherPlain:
         got = tk.board_row_gather(torch.tensor(bval), torch.tensor(bslot),
                                   torch.tensor(src), base)
         assert_all_equal(got, want, ("pv", "ps"))
-        # Premise of the last case: no row lies in the block.
+        # Premise of the all-out-of-block case: no row lies in the block;
+        # of the one-row case: every request names row 0.
         if case[5] <= case[4]:
             assert not got[0].any() and bool((got[1] == -1).all())
+        if case[5] == 1:
+            assert bool((got[0] == got[0][:1, :1]).all())
 
     @pytest.mark.pallas
     @pytest.mark.parametrize("case", ROW_GATHER_CASES[1:3])
