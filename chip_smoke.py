@@ -19,13 +19,18 @@ workload — plus the scatter experiment of
    same CUDA tensors, ``torch.equal`` on every output (integer outputs,
    no tolerance), over adversarial shapes and the main paths' shapes;
    then each timed with CUDA events beside its bound and the library
-   call that computes the same function, where there is one; the
+   call that computes the same function, where there is one (the
+   scatter-max and in-place max kernels in alternating turns with
+   theirs); the publish kernel also at the d=4 shard's shape; the
    scatter-max kernel and the library scatter also device-only, warm
    and after an L2 flush, in both orders; and the host µs per call of
    the scatter-max and row-gather wrappers beside the library calls';
    then (``row_gather_windows``) the row-gather kernel built with each
    of seven row windows, each held against its plain version and timed
-   at the sharded north star's shapes;
+   at the sharded north star's shapes; then (``kernel_forms``) the
+   publish kernel built with 4, 8 and 16 warps a block and the in-place
+   max kernel in each of its forms, each held against its plain version
+   and timed in turns;
 4. lockstep — n=4096, K=256, ER(8, seed 3), 50 rounds from one set of
    injected draws three ways: on the card with the fused kernel, on the
    card with the publish-only kernel, and on the CPU with the plain
@@ -34,7 +39,9 @@ workload — plus the scatter experiment of
    bench's 0.1 % burst, ``run_behind(every=25)`` until the behind count
    crosses ε=1e-4 of the unsettled set (at most 600 rounds), once with
    each kernel; the two runs must agree and each kernel's launch count
-   must equal the rounds run;
+   must equal the rounds run; then the publish kernel on the unfused
+   run's cache at round 100 and at its end, held against its plain
+   version and timed;
 6. sharded  — the same run through the node-sharded twin in every
    board-exchange mode at d ∈ {1, 4} shards, from the same generator
    seed: each must reach ε in the same rounds with the same behind
@@ -45,9 +52,10 @@ workload — plus the scatter experiment of
    shape (4,096 × 40,960, U = n·45 + m updates, ``default_rng(0)``):
    the scatter-max kernel must equal the library scatter, then four
    points are timed — an elementwise pass, the in-place max kernel (the
-   ceiling), the library scatter and the scatter-max kernel — and the
-   two scatters device-only, warm and after an L2 flush, in both
-   orders;
+   ceiling), the library scatter and the scatter-max kernel — and then
+   the two scatters, and the in-place max kernel with
+   ``torch.maximum(…, out=known)``, in alternating turns and
+   device-only, warm and after an L2 flush, in both orders;
 8. exact lockstep — the exact model, ER(8, seed 3), n=1,024 × 10
    services (the two-stage select), loss 0.1, push-pull and the sweep
    firing, 30 rounds from one set of draws on the card and on the CPU:
@@ -72,11 +80,22 @@ import subprocess
 import sys
 import time
 
-PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
-          "north_star", "sharded", "scatter", "exact_lockstep", "exact")
+PHASES = ("device", "build", "kernels", "row_gather_windows",
+          "kernel_forms", "lockstep", "north_star", "sharded", "scatter",
+          "exact_lockstep", "exact")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
+# Rows (warps) a block of the publish kernel; it ships with 8.
+PUBLISH_WARPS = (4, 8, 16)
+# Forms of the in-place max kernel: label → (threads a block, int4 of each
+# buffer a thread, evict-first hints, block cap of a grid-stride loop or
+# 0 for one tile a block).  The first is a grid-stride loop over 32
+# blocks an SM, one int4 a trip.
+RMW_FORMS = {"grid-stride 256 x1": (256, 1, 0, 132 * 32),
+             **{f"tile {t} x{u}{' cs' if cs else ''}": (t, u, cs, 0)
+                for t in (128, 256, 512) for u in (2, 4, 8)
+                for cs in (0, 1)}}
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 DEVICE = "cuda"                   # where the script makes its own tensors
 CSRC = "sidecar_tpu_torch/ops/kernels/csrc/"
@@ -165,6 +184,35 @@ def board_cases():
     rng = np.random.default_rng(4)
     cases.append(("budget > K", random_cache(rng, 9, 8),
                   dict(budget=64, limit=6, fanout=2)))
+    # The warp-per-row kernel's own corners: K below a warp, budget 1 and
+    # budget K, rows with exactly B and B - 1 positive priorities (the
+    # t = 0 shortcut's edge), priorities with bit 30 set, every line tied,
+    # and a row_offset above 2^30.
+    for k, budget in ((1, 1), (2, 2), (4, 1), (32, 32), (256, 1)):
+        rng = np.random.default_rng(40 + k)
+        cases.append((f"k={k} budget={budget}",
+                      random_cache(rng, 37, k, occupancy=0.9),
+                      dict(budget=budget, limit=6, fanout=3, row_offset=5)))
+    for short in (0, 1):
+        rng = np.random.default_rng(50 + short)
+        cv, cs, se = (np.zeros((64, 256), np.int32),
+                      np.full((64, 256), -1, np.int32),
+                      np.zeros((64, 256), np.int8))
+        for r in range(64):
+            cols = rng.choice(256, 15 - short, replace=False)
+            cv[r, cols] = rng.integers(1, 40, cols.size) << 3
+            cs[r, cols] = rng.integers(0, 512, cols.size)
+        cases.append((f"{15 - short} positive of B=15", (cv, cs, se),
+                      dict(budget=15, limit=6, fanout=3)))
+    rng = np.random.default_rng(52)
+    cv, cs, se = random_cache(rng, 33, 256)
+    cases.append(("bit 30 set", (np.where(cs >= 0, cv | (1 << 30), 0)
+                                 .astype(np.int32), cs, se),
+                  dict(budget=15, limit=6, fanout=3)))
+    rng = np.random.default_rng(53)
+    cases.append(("every line tied", random_cache(
+        rng, 33, 256, occupancy=1.0, tie_value=40, sent_ceiling=1),
+        dict(budget=15, limit=6, fanout=3, row_offset=(1 << 30) + 12345)))
     return cases
 
 
@@ -255,6 +303,86 @@ def max_abs_diff(got, want) -> int:
 
     return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                if g.numel() else 0 for g, w in zip(got, want))
+
+
+def ptxas_report(log: str, kernel: str) -> list:
+    """Registers and spills of each instantiation of ``kernel`` in
+    ``nvcc -Xptxas -v``'s report ``log``, with its integer and bool
+    template arguments (``[8, 1]`` for ``<8, true>``)."""
+    import re
+
+    out, name, spills = [], None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            spills = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = {"spill_stores": int(m.group(1)),
+                      "spill_loads": int(m.group(2))}
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            args = re.search(kernel + r"I(.*)EEv", name)
+            out.append({"template": [int(x) for x in re.findall(
+                r"L[a-z](\d+)E", args.group(1))] if args else [],
+                        "registers": int(m.group(1)), **spills})
+            name = None
+    return out
+
+
+def board_search_stats(cv, cs, se, budget: int, limit: int) -> dict:
+    """How the publish kernel's threshold search goes on a cache: the
+    share of rows with fewer than B positive priorities (t = 0, no
+    search) and the mean bit-search steps of the others (the bit length
+    of the row's largest priority)."""
+    import torch
+
+    from sidecar_tpu_torch.ops.kernels.publish_gather import eligible_lines
+
+    pri = torch.where(eligible_lines(cs, se, limit), cv, 0)
+    zero = (pri > 0).sum(dim=1) < min(budget, cv.shape[1])
+    top = pri.max(dim=1).values[~zero]
+    steps = sum(((top >> b) > 0).to(torch.int64) for b in range(31))
+    return {"t0_share": float(zero.to(torch.float64).mean()),
+            "mean_search_steps": float(steps.to(torch.float64).mean())
+            if top.numel() else 0.0}
+
+
+def check_board(label, cache, kw, failures) -> int:
+    """The publish kernel against its plain version on one cache
+    (``torch.equal`` on every output; ``label`` joins ``failures`` where
+    they differ); returns the largest difference."""
+    import torch
+
+    from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+
+    got = pg.publish_board_cuda(*cache, **kw)
+    want = pg.publish_board_torch(*cache, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        failures.append(f"publish_board {label}")
+    return max_abs_diff(got, want)
+
+
+def board_point(label, cache, bkw, failures, iters: int = 20) -> dict:
+    """The publish kernel on one cache: :func:`check_board`, then timed
+    beside its bound (9 B read and 9 B written a line), with
+    :func:`board_search_stats`."""
+    from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+
+    err = check_board(label, cache, bkw, failures)
+    nbytes = cache[0].numel() * 18
+    return dict(rows=cache[0].shape[0],
+                row_offset=bkw.get("row_offset", 0), max_abs_err=err,
+                ms=cuda_time_ms(lambda: pg.publish_board_cuda(*cache, **bkw),
+                                iters),
+                bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                **board_search_stats(*cache, bkw["budget"], bkw["limit"]))
 
 
 def cuda_time_ms(fn, iters: int = 20) -> float:
@@ -381,10 +509,10 @@ def l2_flush():
     return lambda: buf.fill_(1)
 
 
-def scatter_device_times(kernel, library, flush, iters: int = 20):
-    """Device-only ms of the scatter-max kernel and of the library
-    scatter on the same data, warm and after an L2 flush, in both
-    orders (kernel first, then library first)."""
+def device_times_both_orders(kernel, library, flush, iters: int = 20):
+    """Device-only ms of a kernel and of the library call that computes
+    the same function on the same data, warm and after an L2 flush, in
+    both orders (kernel first, then library first)."""
     out = {}
     for order in (("kernel", "library"), ("library", "kernel")):
         fns = {"kernel": kernel, "library": library}
@@ -466,16 +594,20 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
     worst = {"publish_board": 0, "fused_publish_gather": 0,
              "board_row_gather": 0}
     failures = []
-    for label, cache, kw in board_cases():
-        cv, cs, se = to_cuda(cache)
-        k = cv.shape[1]
-        got = pg.publish_board_cuda(cv, cs, se, cache_lines=k, **kw)
-        want = pg.publish_board_torch(cv, cs, se, cache_lines=k, **kw)
-        torch.cuda.synchronize()
-        err = max_abs_diff(got, want)
-        worst["publish_board"] = max(worst["publish_board"], err)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            failures.append(f"publish_board {label}")
+    # Each case, and a cache whose three buffers start one element past
+    # an aligned address: the publish kernel's scalar path at K = 256.
+    rng = np.random.default_rng(54)
+    misaligned = [torch.as_tensor(np.concatenate(
+        [a.reshape(-1)[:1], a.reshape(-1)])).to(DEVICE)[1:].view(a.shape)
+        for a in random_cache(rng, 45, 256)]
+    for label, cache, kw in board_cases() + [
+            ("misaligned cache k=256", misaligned,
+             dict(budget=15, limit=6, fanout=3, row_offset=9))]:
+        cache = to_cuda(cache)
+        worst["publish_board"] = max(worst["publish_board"], check_board(
+            label, cache, dict(kw, cache_lines=cache[0].shape[1]),
+            failures))
+    del misaligned
     for label, cache, src, now, kw in gather_cases():
         cv, cs, se, sr = to_cuda((*cache, src))
         k = cv.shape[1]
@@ -497,12 +629,8 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
     bkw = dict(budget=15, limit=20, fanout=ns_f, cache_lines=ns_k)
     gkw = dict(bkw, stale_ticks=10_860_000)
     now = 1 << 22
-    got = pg.publish_board_cuda(cv, cs, se, **bkw)
-    want = pg.publish_board_torch(cv, cs, se, **bkw)
-    worst["publish_board"] = max(worst["publish_board"],
-                                 max_abs_diff(got, want))
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        failures.append("publish_board north-star shape")
+    worst["publish_board"] = max(worst["publish_board"], check_board(
+        "north-star shape", (cv, cs, se), bkw, failures))
     got = pg.fused_publish_gather_cuda(cv, cs, se, src, now, **gkw)
     want = pg.fused_publish_gather_torch(cv, cs, se, src, now, **gkw)
     worst["fused_publish_gather"] = max(worst["fused_publish_gather"],
@@ -553,14 +681,24 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
                              plain_ms=plain_ms,
                              bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
                              bytes=nbytes, library_ms=None)
+    records["publish_board"].update(board_search_stats(
+        cv, cs, se, bkw["budget"], bkw["limit"]))
+    # The publish kernel at the d=4 shard's shape: shard 2's rows, at
+    # row_offset 2·nl.
+    nl = ns_n // 4
+    blk = slice(2 * nl, 3 * nl)
+    board_points = {"d=4 shard": board_point(
+        "d=4 shard", (cv[blk], cs[blk], se[blk]),
+        dict(bkw, row_offset=2 * nl), failures)}
+    worst["publish_board"] = max(worst["publish_board"],
+                                 board_points["d=4 shard"]["max_abs_err"])
+    records["publish_board"]["max_abs_err"] = worst["publish_board"]
 
     # The board row gather at the sharded north star's two shapes, on a
     # published board: d=1 (all_gather: the whole board at base 0) and
     # d=4 (shard 2's own block at base 2·nl, its rows' sampled peers).
     bval, bslot, _ = pg.publish_board_cuda(cv, cs, se, **bkw)
     del cv, cs, se
-    nl = ns_n // 4
-    blk = slice(2 * nl, 3 * nl)
     shapes = {"d=1": (bval, bslot, src, 0),
               "d=4": (bval[blk], bslot[blk], src[blk], 2 * nl)}
     rg = {}
@@ -610,13 +748,13 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
     records.update(scatter_records)
     failures += scatter_failures
     emit({"phase": "kernels", "cases": len(board_cases())
-          + len(gather_cases()) + len(row_gather_cases()) + 5
+          + len(gather_cases()) + len(row_gather_cases()) + 7
           + scatter_cases,
           "failures": failures,
           "shape": {"n": ns_n, "k": ns_k, "f": ns_f},
           "scatter_shape": {"n": ex_n, "m": ex_m},
-          "kernels": records, "board_row_gather_shapes": rg,
-          "host_us_per_call": host})
+          "kernels": records, "publish_board_points": board_points,
+          "board_row_gather_shapes": rg, "host_us_per_call": host})
     if failures:
         raise SystemExit(f"kernel parity failed: {failures}")
     return records
@@ -779,7 +917,7 @@ def check_scatter_kernels(ex_n: int, ex_m: int):
                                                    "amax")
     restore = lambda: k_a.copy_(known)
     rec_apply.update(
-        device_only=scatter_device_times(kernel, library, flush),
+        device_only=device_times_both_orders(kernel, library, flush),
         device_only_with_reset={
             "warm_ms": device_event_ms(lambda: sm.scatter_max_apply_cuda(
                 k_a, rows, cols, vals, s_a, adv)),
@@ -801,10 +939,11 @@ def check_scatter_kernels(ex_n: int, ex_m: int):
     rmw_bytes = 3 * known.numel() * 4
     rec_rmw = dict(
         max_abs_err=worst["rmw_max"], elements=known.numel(),
-        ms=cuda_time_ms(lambda: sm.rmw_max_cuda(known, other)),
+        # The kernel and the library call in turns, medians.
+        **paired_ms({"ms": lambda: sm.rmw_max_cuda(known, other),
+                     "library_ms": lambda: torch.maximum(known, other,
+                                                         out=known)}),
         plain_ms=cuda_time_ms(lambda: sm.rmw_max_torch(known, other)),
-        library_ms=cuda_time_ms(
-            lambda: torch.maximum(known, other, out=known)),
         device_ms=device_time_ms(lambda: sm.rmw_max_cuda(known, other)),
         library_device_ms=device_time_ms(
             lambda: torch.maximum(known, other, out=known)),
@@ -916,13 +1055,15 @@ def phase_lockstep(n=4096, rounds=50, every=5):
 # -- phase 5: the north star -----------------------------------------------------
 
 def run_to_eps(sim, state, generator, *, eps, max_rounds, every, thr_total,
-               thr_unsettled):
+               thr_unsettled, keep=()):
     """``run_behind`` in chunks of ``every`` rounds until the behind
-    count crosses the unsettled-set threshold (or ``max_rounds``)."""
+    count crosses the unsettled-set threshold (or ``max_rounds``).  The
+    states after the rounds in ``keep`` (multiples of ``every``) are
+    returned too, in ``kept``."""
     import torch
 
     curve, hit_total, hit_unsettled, rounds = [], None, None, 0
-    first = None
+    first, kept = None, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while rounds < max_rounds:
@@ -930,6 +1071,8 @@ def run_to_eps(sim, state, generator, *, eps, max_rounds, every, thr_total,
                                        generator=generator)
         rounds += every
         first = state if first is None else first
+        if rounds in keep:
+            kept[rounds] = state
         b = float(behind[-1])
         curve.append(b)
         if hit_total is None and b <= thr_total:
@@ -939,7 +1082,7 @@ def run_to_eps(sim, state, generator, *, eps, max_rounds, every, thr_total,
             break
     torch.cuda.synchronize()
     return state, first, curve, hit_total, hit_unsettled, rounds, \
-        time.perf_counter() - t0
+        time.perf_counter() - t0, kept
 
 
 # Coarse kernel families of a profiled round: the first key found in
@@ -1058,6 +1201,9 @@ def phase_breakdown(sim, state, generator, iters=5):
 
 
 NORTH_STAR_RUN = dict(max_rounds=600, every=25, eps=1e-4)
+# Rounds of the unfused north-star run whose cache the publish kernel is
+# timed on, besides the run's end.
+REAL_CACHE_ROUNDS = (100,)
 
 
 def north_star_thresholds(p, slots, eps):
@@ -1093,14 +1239,29 @@ def phase_north_star(topo, graph_s, max_rounds, every, eps):
         warm = launches()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        final, first, curve, hit_total, hit_unsettled, rounds, wall = \
+        final, first, curve, hit_total, hit_unsettled, rounds, wall, kept = \
             run_to_eps(sim, state, sim.default_generator(0), eps=eps,
-                       max_rounds=max_rounds, every=every, **thr)
+                       max_rounds=max_rounds, every=every,
+                       keep=REAL_CACHE_ROUNDS, **thr)
         counts = launches()
-        breakdown = None
+        breakdown, real_caches, failures = None, None, []
         if fused:
             breakdown = phase_breakdown(sim, first,
                                         sim.default_generator(5))
+        else:
+            # The publish kernel on the run's own caches, as the round
+            # calls it; uncounted (the counts are read).
+            bkw = dict(budget=min(p.budget, p.cache_lines),
+                       limit=sim._knobs.limit, fanout=p.fanout,
+                       cache_lines=p.cache_lines)
+            caches = {f"round {r}": kept[r] for r in sorted(kept)}
+            caches[f"end (round {rounds})"] = final
+            real_caches = {label: board_point(
+                f"{label} cache", (st.cache_val, st.cache_slot,
+                                   st.cache_sent), bkw, failures)
+                for label, st in caches.items()}
+            del caches
+        kept.clear()
         profile = profile_rounds(sim, first)
         label = "fused" if fused else "unfused"
         results[label] = (final, curve, counts, (hit_total, hit_unsettled),
@@ -1108,7 +1269,7 @@ def phase_north_star(topo, graph_s, max_rounds, every, eps):
         kernel = "fused_publish_gather" if fused else "publish_board"
         ok = (counts == expected(**{kernel: rounds})
               and all(math.isfinite(b) for b in curve)
-              and hit_unsettled is not None)
+              and hit_unsettled is not None and not failures)
         emit({"phase": "north_star", "path": label, "n": p.n, "m": p.m,
               "cache_lines": p.cache_lines, "burst": len(slots),
               "graph_build_s": graph_s, "rounds_run": rounds,
@@ -1119,7 +1280,9 @@ def phase_north_star(topo, graph_s, max_rounds, every, eps):
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "warmup_launches": warm, "launches": counts,
               "breakdown_after_first_sample": breakdown,
-              "profile_after_first_sample": profile, "ok": ok})
+              "profile_after_first_sample": profile,
+              "publish_board_on_run_caches": real_caches,
+              "failures": failures, "ok": ok})
         if not ok:
             raise SystemExit(f"north-star phase failed ({label})")
     diffs = states_equal(results["fused"][0], results["unfused"][0])
@@ -1164,7 +1327,7 @@ def phase_sharded(topo, reference, max_rounds, every, eps):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        final, first, curve, hit_total, hit_unsettled, rounds, wall = \
+        final, first, curve, hit_total, hit_unsettled, rounds, wall, _ = \
             run_to_eps(sim, state, sim.default_generator(0), eps=eps,
                        max_rounds=max_rounds, every=every, **thr)
         counts = launches()
@@ -1203,8 +1366,9 @@ def phase_scatter(n=4096, spn=10, iters=20):
     in-place merge), the library scatter-max and the scatter-max
     kernel, each an in-place update of the same buffer, 20 launches
     after 3 warm-ups.  Returns the launch counts of that run; after it
-    the two scatters are timed again in turns and device-only,
-    uncounted."""
+    the two scatters, and the in-place max kernel with
+    ``torch.maximum(…, out=known)``, are timed again in turns and
+    device-only, uncounted."""
     import numpy as np
     import torch
 
@@ -1252,9 +1416,22 @@ def phase_scatter(n=4096, spn=10, iters=20):
     kernel = lambda: kernel_ops.scatter_max_apply(known, rows, cols, vals)
     turns = paired_ms({"library_scatter_ms": library,
                        "scatter_kernel_ms": kernel}, iters=iters)
-    device = {"device_only": scatter_device_times(kernel, library,
-                                                  l2_flush(), iters)}
+    flush = l2_flush()
+    device = {"device_only": device_times_both_orders(kernel, library, flush,
+                                                      iters)}
+    # The in-place max kernel and torch.maximum(…, out=known) alike.
+    rmw = lambda: kernel_ops.rmw_max(known, other)
+    rmw_library = lambda: torch.maximum(known, other, out=known)
+    rmw_turns = paired_ms({"rmw_kernel_ms": rmw,
+                           "library_max_ms": rmw_library}, iters=iters)
+    rmw_device = device_times_both_orders(rmw, rmw_library, flush, iters)
     torch.cuda.synchronize()
+    rmw_at_or_below = {
+        "in_turns": rmw_turns["rmw_kernel_ms"]
+        <= rmw_turns["library_max_ms"],
+        **{f"{order} {when}": t["kernel"][when] <= t["library"][when]
+           for order, t in rmw_device.items()
+           for when in ("warm_ms", "l2_cold_ms")}}
     ratio = turns["library_scatter_ms"] / turns["scatter_kernel_ms"]
     # One parity launch, then 3 warm-ups and ``iters`` timed calls.
     ok = correct and counts == expected(
@@ -1262,6 +1439,8 @@ def phase_scatter(n=4096, spn=10, iters=20):
     emit({"phase": "scatter", "shape": [n, m], "updates": u,
           "buffer_mb": n * m * 4 / 1e6, "scatter_kernel_correct": correct,
           **points, "in_turns": turns, **device,
+          "rmw_max_in_turns": rmw_turns, "rmw_max_device_only": rmw_device,
+          "rmw_max_at_or_below_library": rmw_at_or_below,
           "library_over_kernel": ratio,
           "verdict": ("the kernel beats the library scatter"
                       if ratio > 1.25 else
@@ -1511,6 +1690,112 @@ def phase_row_gather_windows(n: int, k: int = 256, f: int = 3,
         raise SystemExit(f"row-gather window sweep failed: {failures}")
 
 
+def kernel_form_variants() -> dict:
+    """``("publish_board", warps)`` and ``("rmw_max", label)`` → the
+    ``(source, macro definitions)`` build of that form."""
+    forms = {("publish_board", w): (
+        "publish_gather", (f"-DSIDECAR_PUBLISH_WARPS={w}",))
+        for w in PUBLISH_WARPS}
+    for label, (threads, unroll, cs, cap) in RMW_FORMS.items():
+        forms[("rmw_max", label)] = ("scatter_max", (
+            f"-DSIDECAR_RMW_THREADS={threads}",
+            f"-DSIDECAR_RMW_UNROLL={unroll}",
+            f"-DSIDECAR_RMW_STREAMING={cs}",
+            f"-DSIDECAR_RMW_MAX_BLOCKS={cap}"))
+    return forms
+
+
+def phase_kernel_forms(ns_n: int, ex_n: int, ex_m: int, k: int = 256,
+                       iters: int = 20):
+    """The publish kernel built with each of ``PUBLISH_WARPS`` warps a
+    block, on the kernels phase's north-star cache, and the in-place max
+    kernel in each form of ``RMW_FORMS``, at the exact model's shape
+    beside ``torch.maximum(…, out=known)``: each held against its plain
+    version (``torch.equal``), then all of one kernel timed in turns
+    (medians of 5), and each max form also device-only, warm and after
+    an L2 flush.  Launches the entry points directly: no wrapper's count
+    moves.  Each build's registers and spills come from ``-Xptxas -v``."""
+    import numpy as np
+    import torch
+
+    from sidecar_tpu_torch.ops.kernels import build
+    from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+
+    variants = kernel_form_variants()
+    t0 = time.perf_counter()
+    build.build((), list(variants.values()))
+    build_s = time.perf_counter() - t0
+    failures = []
+    index = torch.cuda.current_device()
+
+    cv, cs, se = to_cuda(random_cache(np.random.default_rng(20), ns_n, k))
+    bkw = dict(budget=15, limit=20, fanout=3)
+    want = pg.publish_board_torch(cv, cs, se, cache_lines=k, **bkw)
+    outs = [torch.empty_like(t) for t in (cv, cs, se)]
+    board_calls = {}
+    for (kind, warps), variant in variants.items():
+        if kind != "publish_board":
+            continue
+        entry = build.load(*variant).sidecar_publish_board
+        board_calls[f"warps_{warps}_ms"] = (
+            lambda entry=entry: build.launch(
+                "publish_board_kernel launch", entry, index, cv.data_ptr(),
+                cs.data_ptr(), se.data_ptr(), ns_n, k, bkw["budget"],
+                bkw["limit"], bkw["fanout"], 0, *(o.data_ptr()
+                                                  for o in outs)))
+        for o in outs:
+            o.fill_(7)
+        board_calls[f"warps_{warps}_ms"]()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+            failures.append(f"publish_board warps={warps}")
+    board = {"times": paired_ms(board_calls, iters=iters),
+             "ptxas": {w: ptxas_report(build.build_log(*variants[
+                 ("publish_board", w)]), "publish_board_kernel")
+                       for w in PUBLISH_WARPS}}
+    del cv, cs, se, want, outs
+
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    known = torch.randint(1, 1 << 20, (ex_n, ex_m), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    other = torch.randint(1, 1 << 20, (ex_n, ex_m), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    want = torch.maximum(known, other)
+    work = known.clone()
+    rmw_calls = {"library_ms": lambda: torch.maximum(work, other, out=work)}
+    for (kind, label), variant in variants.items():
+        if kind != "rmw_max":
+            continue
+        entry = build.load(*variant).sidecar_rmw_max
+        rmw_calls[label] = (lambda entry=entry: build.launch(
+            "rmw_max_kernel launch", entry, index, work.data_ptr(),
+            other.data_ptr(), work.numel()))
+        work.copy_(known)
+        rmw_calls[label]()
+        torch.cuda.synchronize()
+        if not torch.equal(work, want):
+            failures.append(f"rmw_max form {label}")
+    del want
+    flush = l2_flush()
+    rmw = {"times": paired_ms(rmw_calls, iters=iters),
+           "device_only": {label: {
+               "warm_ms": device_event_ms(fn, None, iters),
+               "l2_cold_ms": device_event_ms(fn, flush, iters)}
+               for label, fn in rmw_calls.items()},
+           "ptxas": {label: ptxas_report(build.build_log(*variants[
+               ("rmw_max", label)]), "rmw_max_kernel")
+                     for label in RMW_FORMS}}
+    del known, other, work, flush
+    emit({"phase": "kernel_forms", "build_seconds": build_s,
+          "publish_board_warps": board, "rmw_max_forms": rmw,
+          "rmw_forms": {label: dict(zip(("threads", "unroll", "streaming",
+                                         "max_blocks"), form))
+                        for label, form in RMW_FORMS.items()},
+          "failures": failures, "ok": not failures})
+    if failures:
+        raise SystemExit(f"kernel form sweep failed: {failures}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1538,12 +1823,18 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     if "build" in phases or "kernels" in phases:
         t0 = time.perf_counter()
-        # The window sweep's builds start with the rest.
-        libs = build.build(variants=list(row_gather_variants().values())
-                           if "row_gather_windows" in phases else ())
+        # The window and form sweeps' builds start with the rest.
+        variants = []
+        if "row_gather_windows" in phases:
+            variants += row_gather_variants().values()
+        if "kernel_forms" in phases:
+            variants += kernel_form_variants().values()
+        libs = build.build(variants=variants)
         emit({"phase": "build", "libraries": {k: v.name
                                               for k, v in libs.items()},
               "seconds": time.perf_counter() - t0,
+              "publish_board_kernel": ptxas_report(
+                  build.build_log("publish_gather"), "publish_board_kernel"),
               "ptxas": {k: [l.strip() for l in build.build_log(k).splitlines()
                             if "ptxas" in l or "spill" in l] for k in libs}})
     records = {}
@@ -1552,6 +1843,8 @@ def main(argv=None) -> int:
                                 args.exact_n * 10)
     if "row_gather_windows" in phases:
         phase_row_gather_windows(args.n)
+    if "kernel_forms" in phases:
+        phase_kernel_forms(args.n, args.exact_n, args.exact_n * 10)
     if "lockstep" in phases:
         phase_lockstep()
     # The main paths' runs, each with its counts set to 0 just before it

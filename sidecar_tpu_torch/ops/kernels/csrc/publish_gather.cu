@@ -20,35 +20,57 @@
 //   is <= B - #above, rot = (uint32(gid) * 2654435761) & (K - 1)
 //   bval/bslot = selected ? (val, slot) : (0, -1)
 //   sent       = min(sent + fanout * selected, limit)          (int8)
+// Both forms below find t as the largest t with count(priority >= t) >= B,
+// greedily bit by bit, as the Pallas kernel does: no sort.
 //
-// Design (a simple, correct first form):
-//   * One block per row, max(K, 32) threads, one line per thread; threads
-//     past K carry priority 0 and only take part in the barriers.
-//   * Threshold: the 31-step greedy bit search of the Pallas kernel — the
-//     largest t with count(priority >= t) >= B, bit by bit from bit 30 —
-//     with __syncthreads_count for every count.  No sort.
-//   * Tie rank: __ballot_sync/__popc give each warp's inclusive count, a
-//     32-entry shared array the warp offsets; the count of ties left of
-//     rot is one more __syncthreads_count.
-//   * The fused kernel runs N*(F+1) blocks on gridDim.x: block b < N*F
-//     recomputes the board of peer src[b] (row read clamped to [0, N), the
-//     unclamped id seeds the rotation, as the Pallas kernel does) and
-//     writes pv/ps with the staleness gate; block N*F + r writes own row
-//     r's sent.  The [N, K] board never reaches device memory.
+// publish_board_kernel: a warp per row (warp_select_lines).
+//   * A block holds kPublishWarps warps, one row each.  Lane l holds the
+//     L = max(1, K/32) consecutive lines [L*l, L*l + L) in registers
+//     (templated on L in {1, 2, 4, 8, 16, 32}); for K < 32 the lanes at and
+//     past K carry priority 0 and write nothing.
+//   * Loads and stores are vectors where L >= 4 and the buffers are
+//     aligned: val and slot as int4 (two of each a lane at K = 256), sent
+//     as L bytes (8 at K = 256), the outputs alike.  A misaligned buffer
+//     takes the same layout with scalar accesses.
+//   * Threshold: each count of the bit search is the lane's L compares and
+//     one __reduce_add_sync; no block barrier.  The search starts at the
+//     highest set bit of the row's largest priority (__reduce_max_sync):
+//     t <= that priority, since B >= 1 lines must reach t.  Where fewer
+//     than B priorities are positive, t = 0 and no search runs.  Both give
+//     the t of the full 31-step search for every B the wrapper passes.
+//   * Tie rank: per-lane tie counts, a warp exclusive scan (__shfl_up_sync)
+//     and each line's inclusive prefix inside its lane; the ties in columns
+//     < rot are one masked count and a __reduce_add_sync.  Where every tie
+//     fits (#ties <= B - #above) no rank is needed.
+//
+// fused_publish_gather_kernel: a block per row (select_line).
+//   * max(K, 32) threads, one line per thread; threads past K carry
+//     priority 0 and only take part in the barriers.  Every count of the
+//     31-step search is a __syncthreads_count; the tie rank uses
+//     __ballot_sync/__popc per warp and a 32-entry shared array.
+//   * N*(F+1) blocks on gridDim.x: block b < N*F recomputes the board of
+//     peer src[b] (row read clamped to [0, N), the unclamped id seeds the
+//     rotation, as the Pallas kernel does) and writes pv/ps with the
+//     staleness gate; block N*F + r writes own row r's sent.  The [N, K]
+//     board never reaches device memory.
 //
 // Bound on an H100 SXM (3.35 TB/s; the work is a few integer ops per byte,
 // far below the card's operation rate, so bytes bound it):
 //   publish_board_kernel at N=100,000, K=256: reads 9 B and writes 9 B per
-//     line, ~461 MB, ~0.14 ms.
+//     line, 460.8 MB, 0.1376 ms.
 //   fused_publish_gather_kernel at N=100,000, K=256, F=3: reads the cache
 //     (230 MB) and src, writes sent (25.6 MB) and pv/ps (614 MB), ~871 MB,
 //     ~0.26 ms.
-// What the design does about it: every load and store is coalesced (thread
-// j touches line j of a contiguous row), and the fused kernel keeps the
-// board out of memory.  It still reads each peer row once per pull (F+1
-// reads of the cache in all, mostly served from L2 at this size) and pays
-// 31+ block barriers per row; cp.async/TMA for the peer rows, a warp per
-// row, and keeping a board in shared memory across F are later work.
+// What the designs do about it.  publish_board_kernel reads and writes
+// each byte once, in vector accesses, and keeps the rest on the warp: at
+// K = 256 a row is at most 31 steps of 8 compares and one warp reduction,
+// and with no block barrier the other rows' loads stay in flight while a
+// warp searches.  On an H100 it reads 0.16 ms at N = 100,000, K = 256
+// (86 % of the bound), the same at 0, 7 and 23 search steps: the
+// selection hides under the bytes.  The fused kernel keeps the board out of
+// memory, but reads each peer row once per pull (F+1 reads of the cache in
+// all, mostly served from L2 at this size) and pays 31+ block barriers per
+// row; the warp selection and selecting each row once are its next steps.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,13 +78,239 @@
 namespace {
 
 constexpr uint32_t kPhaseMult = 2654435761u;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Rows (warps) a block of publish_board_kernel.  chip_smoke.py's
+// kernel_forms phase builds the kernel with others
+// (-DSIDECAR_PUBLISH_WARPS=...) and times each.
+#ifndef SIDECAR_PUBLISH_WARPS
+#define SIDECAR_PUBLISH_WARPS 8
+#endif
+constexpr int kPublishWarps = SIDECAR_PUBLISH_WARPS;
+
+// The publish selection of one row held by a warp: lane l holds the L
+// consecutive lines [first, first + L), first = L * l, with priority 0
+// past the row's end.  Every lane of the warp must call it, with the same
+// gid, k and budget.  Returns the lane's selected lines as a bit mask
+// (bit i: line first + i).
+template <int L>
+__device__ __forceinline__ unsigned warp_select_lines(
+    const int (&priority)[L], int first, uint32_t gid, int k, int budget) {
+  static_assert(L >= 1 && L <= 32, "a lane holds 1 to 32 lines");
+  int positive = 0, largest = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    positive += priority[i] > 0;
+    largest = max(largest, priority[i]);
+  }
+  if (__reduce_add_sync(kFull, positive) < budget) {
+    // t = 0: every positive priority is above it, and none ties.
+    unsigned sel = 0;
+#pragma unroll
+    for (int i = 0; i < L; ++i) sel |= (priority[i] > 0 ? 1u : 0u) << i;
+    return sel;
+  }
+  // No bit above the largest priority's highest set bit can be in t.
+  const unsigned top = __reduce_max_sync(kFull,
+                                         static_cast<unsigned>(largest));
+  int thresh = 0;
+  for (int b = 31 - __clz(top); b >= 0; --b) {
+    const int cand = thresh | (1 << b);
+    int count = 0;
+#pragma unroll
+    for (int i = 0; i < L; ++i) count += priority[i] >= cand;
+    if (__reduce_add_sync(kFull, count) >= budget) thresh = cand;
+  }
+  unsigned above = 0, tie = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    above |= (priority[i] > thresh ? 1u : 0u) << i;
+    tie |= (priority[i] == thresh && priority[i] > 0 ? 1u : 0u) << i;
+  }
+  const int need = budget - __reduce_add_sync(kFull, __popc(above));
+  const int mine = __popc(tie);
+  const int total = __reduce_add_sync(kFull, mine);
+  if (total <= need) return above | tie;   // every tie fits
+  const int rot = static_cast<int>((gid * kPhaseMult) &
+                                   static_cast<uint32_t>(k - 1));
+  const int left = rot - first;            // this lane's lines left of rot
+  const unsigned left_mask =
+      left <= 0 ? 0u : (left >= 32 ? kFull : (1u << left) - 1u);
+  const int before_rot = __reduce_add_sync(kFull, __popc(tie & left_mask));
+  // Ties in columns < first: a warp exclusive scan of the lane counts.
+  const unsigned lane = threadIdx.x & 31u;
+  int inclusive = mine;
+#pragma unroll
+  for (unsigned d = 1; d < 32; d <<= 1) {
+    const int x = __shfl_up_sync(kFull, inclusive, d);
+    if (lane >= d) inclusive += x;
+  }
+  int prefix = inclusive - mine;
+  unsigned sel = above;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    if (!(tie >> i & 1u)) continue;
+    ++prefix;                              // inclusive count at column first+i
+    const int rank = first + i >= rot ? prefix - before_rot
+                                      : prefix + total - before_rot;
+    if (rank <= need) sel |= 1u << i;
+  }
+  return sel;
+}
+
+template <typename T> struct Vec;
+template <> struct Vec<int> { using x2 = int2; using x4 = int4; };
+template <> struct Vec<unsigned> { using x2 = uint2; using x4 = uint4; };
+
+// W 32-bit words at p in the widest accesses: 16 bytes where W % 4 == 0
+// (p 16-byte aligned), 8 where W == 2 (p 8-byte aligned), else 4.
+template <int W, typename T>
+__device__ __forceinline__ void load_words(const T* __restrict__ p,
+                                           T (&w)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c) {
+      const typename Vec<T>::x4 v =
+          reinterpret_cast<const typename Vec<T>::x4*>(p)[c];
+      w[4 * c] = v.x;
+      w[4 * c + 1] = v.y;
+      w[4 * c + 2] = v.z;
+      w[4 * c + 3] = v.w;
+    }
+  } else if constexpr (W == 2) {
+    const typename Vec<T>::x2 v =
+        *reinterpret_cast<const typename Vec<T>::x2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) w[i] = p[i];
+  }
+}
+
+template <int W, typename T>
+__device__ __forceinline__ void store_words(T* __restrict__ p,
+                                            const T (&w)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c) {
+      typename Vec<T>::x4 v;
+      v.x = w[4 * c];
+      v.y = w[4 * c + 1];
+      v.z = w[4 * c + 2];
+      v.w = w[4 * c + 3];
+      reinterpret_cast<typename Vec<T>::x4*>(p)[c] = v;
+    }
+  } else if constexpr (W == 2) {
+    typename Vec<T>::x2 v;
+    v.x = w[0];
+    v.y = w[1];
+    *reinterpret_cast<typename Vec<T>::x2*>(p) = v;
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) p[i] = w[i];
+  }
+}
+
+// L lines a lane (K = 32 L, or K < 32 with L = 1); VEC: vector accesses
+// (L >= 4, val/slot/bval/bslot 16-byte aligned, the sent buffers aligned
+// to min(L, 16) bytes).
+template <int L, bool VEC>
+__global__ void __launch_bounds__(kPublishWarps * 32) publish_board_kernel(
+    const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
+    const int8_t* __restrict__ cache_sent, int n, int k, int budget,
+    int limit, int fanout, int row_offset, int* __restrict__ bval,
+    int* __restrict__ bslot, int8_t* __restrict__ sent_out) {
+  static_assert(!VEC || L >= 4, "vector accesses need 4 lines a lane");
+  const int row = static_cast<int>(blockIdx.x) * kPublishWarps +
+                  static_cast<int>(threadIdx.x >> 5);
+  if (row >= n) return;                    // the whole warp
+  const int first = static_cast<int>(threadIdx.x & 31u) * L;
+  const bool in_row = first < k;           // false only where K < 32
+  const int64_t at = static_cast<int64_t>(row) * k + first;
+  int val[L], slot[L], sent[L];
+  if constexpr (VEC) {
+    load_words<L>(cache_val + at, val);
+    load_words<L>(cache_slot + at, slot);
+    unsigned w[L / 4];
+    load_words<L / 4>(reinterpret_cast<const unsigned*>(cache_sent + at), w);
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      sent[i] = static_cast<int8_t>(w[i / 4] >> (8 * (i % 4)));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      val[i] = in_row ? cache_val[at + i] : 0;
+      slot[i] = in_row ? cache_slot[at + i] : -1;
+      sent[i] = in_row ? cache_sent[at + i] : 0;
+    }
+  }
+  int priority[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    priority[i] = slot[i] >= 0 && sent[i] < limit ? val[i] : 0;
+  }
+  const uint32_t gid = static_cast<uint32_t>(row_offset) +
+                       static_cast<uint32_t>(row);
+  const unsigned sel = warp_select_lines<L>(priority, first, gid, k, budget);
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const bool s = sel >> i & 1u;
+    const int bumped = sent[i] + (s ? fanout : 0);
+    val[i] = s ? val[i] : 0;
+    slot[i] = s ? slot[i] : -1;
+    sent[i] = bumped < limit ? bumped : limit;
+  }
+  if constexpr (VEC) {
+    store_words<L>(bval + at, val);
+    store_words<L>(bslot + at, slot);
+    unsigned w[L / 4] = {};
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      w[i / 4] |= (static_cast<unsigned>(sent[i]) & 0xffu) << (8 * (i % 4));
+    }
+    store_words<L / 4>(reinterpret_cast<unsigned*>(sent_out + at), w);
+  } else if (in_row) {
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      bval[at + i] = val[i];
+      bslot[at + i] = slot[i];
+      sent_out[at + i] = static_cast<int8_t>(sent[i]);
+    }
+  }
+}
+
+template <int L>
+int launch_publish_board(const void* cache_val, const void* cache_slot,
+                         const void* cache_sent, int n, int k, int budget,
+                         int limit, int fanout, int row_offset, void* bval,
+                         void* bslot, void* sent, bool vec,
+                         cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((n + kPublishWarps - 1) / kPublishWarps);
+  auto run = [&](auto kernel) {
+    kernel<<<blocks, kPublishWarps * 32, 0, stream>>>(
+        static_cast<const int*>(cache_val),
+        static_cast<const int*>(cache_slot),
+        static_cast<const int8_t*>(cache_sent), n, k, budget, limit, fanout,
+        row_offset, static_cast<int*>(bval), static_cast<int*>(bslot),
+        static_cast<int8_t*>(sent));
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (L >= 4) {
+    if (vec) return run(publish_board_kernel<L, true>);
+  }
+  return run(publish_board_kernel<L, false>);
+}
 
 struct Selection {
   bool selected;
   int sent;
 };
 
-// Every thread of the block must call this (it holds block barriers).
+// The fused kernel's selection, one line a thread.  Every thread of the
+// block must call this (it holds block barriers).
 __device__ __forceinline__ Selection select_line(
     int val, int slot, int sent, bool in_row, uint32_t gid, int k,
     int budget, int limit, int fanout, int* warp_total) {
@@ -101,31 +349,6 @@ __device__ __forceinline__ Selection select_line(
   return out;
 }
 
-__global__ void publish_board_kernel(
-    const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
-    const int8_t* __restrict__ cache_sent, int k, int budget, int limit,
-    int fanout, int row_offset, int* __restrict__ bval,
-    int* __restrict__ bslot, int8_t* __restrict__ sent_out) {
-  __shared__ int warp_total[32];
-  const int j = threadIdx.x;
-  const bool in_row = j < k;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * k + j;
-  int val = 0, slot = -1, sent = 0;
-  if (in_row) {
-    val = cache_val[idx];
-    slot = cache_slot[idx];
-    sent = cache_sent[idx];
-  }
-  const uint32_t gid = static_cast<uint32_t>(
-      row_offset + static_cast<int>(blockIdx.x));
-  const Selection s = select_line(val, slot, sent, in_row, gid, k, budget,
-                                  limit, fanout, warp_total);
-  if (in_row) {
-    bval[idx] = s.selected ? val : 0;
-    bslot[idx] = s.selected ? slot : -1;
-    sent_out[idx] = static_cast<int8_t>(s.sent);
-  }
-}
 
 __global__ void fused_publish_gather_kernel(
     const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
@@ -208,7 +431,6 @@ constexpr int kGatherThreads = 256;   // one chunk: 8 warps x 32 requests
 #define SIDECAR_ROW_GATHER_WINDOW_BYTES (3LL << 20)
 #endif
 constexpr long long kWindowBytes = SIDECAR_ROW_GATHER_WINDOW_BYTES;
-constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> __device__ __forceinline__ T splat(int x);
 template <> __device__ __forceinline__ int splat<int>(int x) { return x; }
@@ -287,13 +509,32 @@ extern "C" int sidecar_publish_board(
     int n, int k, int budget, int limit, int fanout, int row_offset,
     void* bval, void* bslot, void* sent, void* stream) {
   if (n <= 0) return 0;
-  publish_board_kernel<<<static_cast<unsigned>(n), threads_for(k), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cache_val), static_cast<const int*>(cache_slot),
-      static_cast<const int8_t*>(cache_sent), k, budget, limit, fanout,
-      row_offset, static_cast<int*>(bval), static_cast<int*>(bslot),
-      static_cast<int8_t*>(sent));
-  return static_cast<int>(cudaGetLastError());
+  const int lines = k < 32 ? 1 : k / 32;   // L, lines a lane
+  const uintptr_t words = reinterpret_cast<uintptr_t>(cache_val) |
+                          reinterpret_cast<uintptr_t>(cache_slot) |
+                          reinterpret_cast<uintptr_t>(bval) |
+                          reinterpret_cast<uintptr_t>(bslot);
+  const uintptr_t bytes = reinterpret_cast<uintptr_t>(cache_sent) |
+                          reinterpret_cast<uintptr_t>(sent);
+  const uintptr_t sent_align = lines < 16 ? lines : 16;
+  const bool vec = lines >= 4 && (words & 15u) == 0 &&
+                   (bytes & (sent_align - 1)) == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (lines) {
+#define SIDECAR_PUBLISH_CASE(L)                                              \
+  case L:                                                                    \
+    return launch_publish_board<L>(cache_val, cache_slot, cache_sent, n, k,  \
+                                   budget, limit, fanout, row_offset, bval,  \
+                                   bslot, sent, vec, s);
+    SIDECAR_PUBLISH_CASE(1)
+    SIDECAR_PUBLISH_CASE(2)
+    SIDECAR_PUBLISH_CASE(4)
+    SIDECAR_PUBLISH_CASE(8)
+    SIDECAR_PUBLISH_CASE(16)
+    SIDECAR_PUBLISH_CASE(32)
+#undef SIDECAR_PUBLISH_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // `n_req` = nl * F requests.  The int4 path takes K % 4 == 0 with bval,

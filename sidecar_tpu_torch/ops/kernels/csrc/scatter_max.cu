@@ -43,10 +43,21 @@
 //
 // rmw_max_kernel: known = max(known, other), elementwise, in place, over a
 // whole buffer of `count` int32.  Bound: every element read twice and
-// written once, 12 B an element (2.01 GB at 4,096 x 40,960, ~0.60 ms);
-// nothing else.  Design: 16-byte int4 loads and stores in a grid-stride
-// loop when both buffers are 16-byte aligned, then a scalar tail for a
-// count not divisible by 4 (or the whole buffer when misaligned).
+// written once, 12 B an element (2.01 GB at 4,096 x 40,960, 0.6010 ms);
+// nothing else.  Design: both 671 MB buffers are far larger than the L2,
+// so all that matters is keeping enough bytes in flight.  Each block of
+// 512 threads takes one tile of 512 * 8 int4 of each buffer (no
+// grid-stride cap), each thread issuing its eight pairs of 16-byte loads
+// before any store: 128 KiB in flight a block.  A count not divisible by 4
+// leaves a scalar tail, and a misaligned buffer takes the scalar loop
+// whole.  chip_smoke.py's kernel_forms phase builds other forms
+// (-DSIDECAR_RMW_THREADS, -DSIDECAR_RMW_UNROLL; -DSIDECAR_RMW_STREAMING=1,
+// the evict-first __ldcs/__stcs; -DSIDECAR_RMW_MAX_BLOCKS, a grid-stride
+// loop over at most that many blocks, as in the grid-stride form of
+// 132 * 32 blocks with one int4 a trip) and times each beside torch.maximum(...,
+// out=known).  On an H100 the grid-stride form was 3 % slower than the
+// library call; every tile form was within 0.3 % of it; the evict-first
+// hints cost 3 % after an L2 flush and gained nothing warm.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -121,29 +132,76 @@ __global__ void scatter_max_apply_kernel(
   }
 }
 
-__global__ void rmw_max_kernel(int* __restrict__ known,
-                               const int* __restrict__ other,
-                               long long count, bool vec) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+#ifndef SIDECAR_RMW_THREADS
+#define SIDECAR_RMW_THREADS 512
+#endif
+#ifndef SIDECAR_RMW_UNROLL
+#define SIDECAR_RMW_UNROLL 8
+#endif
+#ifndef SIDECAR_RMW_STREAMING
+#define SIDECAR_RMW_STREAMING 0
+#endif
+#ifndef SIDECAR_RMW_MAX_BLOCKS
+#define SIDECAR_RMW_MAX_BLOCKS 0
+#endif
+constexpr unsigned kRmwThreads = SIDECAR_RMW_THREADS;
+constexpr int kRmwUnroll = SIDECAR_RMW_UNROLL;
+constexpr bool kRmwStreaming = SIDECAR_RMW_STREAMING != 0;
+constexpr long long kRmwMaxBlocks = SIDECAR_RMW_MAX_BLOCKS;   // 0: no cap
+constexpr long long kRmwTile = static_cast<long long>(kRmwThreads) *
+                               kRmwUnroll;                    // int4 a block
+
+__device__ __forceinline__ int4 rmw_load(const int4* p) {
+  if constexpr (kRmwStreaming) return __ldcs(p);
+  return *p;
+}
+
+__device__ __forceinline__ void rmw_store(int4* p, int4 v) {
+  if constexpr (kRmwStreaming) {
+    __stcs(p, v);
+  } else {
+    *p = v;
+  }
+}
+
+__global__ void __launch_bounds__(kRmwThreads) rmw_max_kernel(
+    int* __restrict__ known, const int* __restrict__ other, long long count,
+    bool vec) {
   long long tail = 0;
   if (vec) {
     const long long count4 = count / 4;
+    const long long tiles = (count4 + kRmwTile - 1) / kRmwTile;
     int4* k4 = reinterpret_cast<int4*>(known);
     const int4* o4 = reinterpret_cast<const int4*>(other);
-    for (long long j = first; j < count4; j += stride) {
-      int4 a = k4[j];
-      const int4 b = o4[j];
-      a.x = max(a.x, b.x);
-      a.y = max(a.y, b.y);
-      a.z = max(a.z, b.z);
-      a.w = max(a.w, b.w);
-      k4[j] = a;
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const long long first = tile * kRmwTile + threadIdx.x;
+      int4 a[kRmwUnroll], b[kRmwUnroll];
+#pragma unroll
+      for (int u = 0; u < kRmwUnroll; ++u) {
+        const long long j = first + u * static_cast<long long>(kRmwThreads);
+        if (j < count4) {
+          a[u] = rmw_load(k4 + j);
+          b[u] = rmw_load(o4 + j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRmwUnroll; ++u) {
+        const long long j = first + u * static_cast<long long>(kRmwThreads);
+        if (j < count4) {
+          a[u].x = max(a[u].x, b[u].x);
+          a[u].y = max(a[u].y, b[u].y);
+          a[u].z = max(a[u].z, b[u].z);
+          a[u].w = max(a[u].w, b[u].w);
+          rmw_store(k4 + j, a[u]);
+        }
+      }
     }
     tail = count4 * 4;
   }
-  for (long long j = tail + first; j < count; j += stride) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long j = tail + static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       j < count; j += stride) {
     known[j] = max(known[j], other[j]);
   }
 }
@@ -187,7 +245,15 @@ extern "C" int sidecar_rmw_max(void* known, const void* other,
   if (count <= 0) return 0;
   const bool vec = ((reinterpret_cast<uintptr_t>(known) |
                      reinterpret_cast<uintptr_t>(other)) & 15u) == 0;
-  rmw_max_kernel<<<blocks_for(vec ? count / 4 : count), kThreads, 0,
+  // One tile a block (at most kRmwMaxBlocks blocks, grid-stride, where
+  // set); a misaligned buffer's scalar loop over at most kMaxBlocks.
+  long long blocks = vec ? (count / 4 + kRmwTile - 1) / kRmwTile
+                         : (count + kRmwThreads - 1) / kRmwThreads;
+  if (kRmwMaxBlocks > 0 && blocks > kRmwMaxBlocks) blocks = kRmwMaxBlocks;
+  if (!vec && blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  rmw_max_kernel<<<static_cast<unsigned>(blocks), kRmwThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(known), static_cast<const int*>(other), count, vec);
   return static_cast<int>(cudaGetLastError());

@@ -153,8 +153,8 @@ def _check_cache(cache_val, cache_slot, cache_sent, cache_lines: int):
 def publish_board_cuda(cache_val, cache_slot, cache_sent, *, budget: int,
                        limit: int, fanout: int, cache_lines: int,
                        row_offset: int = 0):
-    """Launch ``publish_board_kernel`` (one block per row) on the
-    current stream.  Returns ``(bval, bslot, sent)``."""
+    """Launch ``publish_board_kernel`` (a warp per row, eight rows a
+    block) on the current stream.  Returns ``(bval, bslot, sent)``."""
     index = _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
     n, k = cache_val.shape
     bval = torch.empty_like(cache_val)

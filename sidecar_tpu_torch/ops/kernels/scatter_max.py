@@ -108,8 +108,8 @@ scatter_max_apply_cuda.launches = 0
 
 
 def rmw_max_cuda(known, other):
-    """Launch ``rmw_max_kernel`` (16-byte vectors, grid-stride) on the
-    current stream.  Returns ``known``."""
+    """Launch ``rmw_max_kernel`` (a tile of 512 × 8 16-byte vectors of
+    each buffer a block) on the current stream.  Returns ``known``."""
     index = known.get_device()
     _check("known", known, torch.int32, known.dim(), index)
     _check("other", other, torch.int32, known.dim(), index)

@@ -57,6 +57,63 @@ def test_publish_board_kernel_equals_plain(card, n, k, ties):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def corner_cache(rng, case, n, k):
+    """(cache triple on the card, kwargs) of one corner of the
+    warp-per-row publish kernel; "misaligned" starts all three buffers
+    one element past an aligned address (the scalar path)."""
+    budget, row_offset = min(15, k), 3
+    cv, cs, se = (t.cpu().numpy() for t in cache(rng, n, k))
+    if case in ("budget-1", "budget-k"):
+        budget = 1 if case == "budget-1" else k
+    elif case in ("exactly-b", "b-minus-1"):
+        positive = budget - (case == "b-minus-1")
+        cv, cs = np.zeros_like(cv), np.full_like(cs, -1)
+        for r in range(n):
+            cols = rng.choice(k, positive, replace=False)
+            cv[r, cols] = rng.integers(1, 40, positive) << 3
+            cs[r, cols] = rng.integers(0, 8 * n, positive)
+    elif case == "bit30":
+        cv = np.where(cs >= 0, cv | (1 << 30), 0)
+    elif case == "all-tied":
+        cv, cs = np.full_like(cv, 40 << 3), np.arange(n * k).reshape(n, k)
+        se = np.zeros_like(se)
+    elif case == "high-offset":
+        row_offset = (1 << 30) + 12345
+        cv, se = np.where(cs >= 0, 5 << 3, 0), np.zeros_like(se)
+    arrays = [torch.tensor(cv, dtype=torch.int32),
+              torch.tensor(cs, dtype=torch.int32),
+              torch.tensor(se, dtype=torch.int8)]
+    if case == "misaligned":
+        arrays = [torch.cat([t.reshape(-1)[:1], t.reshape(-1)]).cuda()[1:]
+                  .view(n, k) for t in arrays]
+    else:
+        arrays = [t.cuda() for t in arrays]
+    return arrays, dict(budget=budget, limit=6, fanout=3, cache_lines=k,
+                        row_offset=row_offset)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 32, 256, 1024])
+@pytest.mark.parametrize("case", ["budget-1", "budget-k", "exactly-b",
+                                  "b-minus-1", "bit30", "all-tied",
+                                  "high-offset", "misaligned"])
+def test_publish_board_kernel_corners(card, k, case):
+    """The warp-per-row kernel's corners: K below, at and above a warp
+    (1, 2 or 4 lines a lane take the scalar path; 8 and 32 the
+    vectors), budget 1 and budget K, rows with exactly B and B - 1
+    positive priorities (the t = 0 shortcut's edge), bit 30 set, every
+    line tied, a row_offset above 2^30 (gid · 2654435761 wraps mod
+    2^32), and buffers one element past an aligned address."""
+    rng = np.random.default_rng(k)
+    (cv, cs, se), kw = corner_cache(rng, case, 40, k)
+    if case == "misaligned":
+        assert cv.data_ptr() % 16 and se.data_ptr() % 2
+    before = pg.publish_board_cuda.launches
+    got = pg.publish_board_cuda(cv, cs, se, **kw)
+    want = pg.publish_board_torch(cv, cs, se, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert pg.publish_board_cuda.launches - before == 1
+
+
 @pytest.mark.parametrize("n,k,f", [(20, 16, 3), (33, 64, 2), (7, 8, 4),
                                    (50, 1024, 3)])
 def test_fused_gather_kernel_equals_plain(card, n, k, f):
@@ -246,6 +303,31 @@ def test_wrappers_keep_their_messages(card):
                               known[:, :6].contiguous(), sent[:, :6]
                               .contiguous(), budget=2, limit=3, fanout=1,
                               cache_lines=6)
+
+
+# int32 elements in one tile of the in-place max kernel's forms: 4 a
+# vector × threads × vectors a thread (the shipped 512 × 8, and 128 × 2 and
+# 256 × 4).
+RMW_TILES = (4 * 512 * 8, 4 * 128 * 2, 4 * 256 * 4)
+
+
+@pytest.mark.parametrize("count", [1, 3, 4, 5]
+                         + [3 * t + d for t in RMW_TILES for d in (-1, 1)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rmw_max_kernel_counts(card, count, offset):
+    """Counts with no whole vector, one, one and a tail, and a tail of
+    one or three on either side of a whole number of tiles; aligned and
+    (offset 1) misaligned buffers."""
+    rng = np.random.default_rng(count + offset)
+    known, other = (torch.tensor(rng.integers(-9, 1 << 20, count + offset),
+                                 dtype=torch.int32).cuda()[offset:]
+                    for _ in range(2))
+    want = torch.maximum(known, other)
+    before = sm.rmw_max_cuda.launches
+    got = sm.rmw_max_cuda(known, other)
+    torch.cuda.synchronize()
+    assert got is known and torch.equal(got, want)
+    assert sm.rmw_max_cuda.launches - before == 1
 
 
 @pytest.mark.parametrize("shape,offset", [((8, 40), 0), ((7, 13), 0),

@@ -92,13 +92,44 @@ def board_case(name):
     if name == "budget-over-k":
         rng = np.random.default_rng(4)
         return random_cache(rng, 9, 8), dict(budget=64, limit=6, fanout=2)
+    # The corners of the card's warp-per-row kernel: K below a warp,
+    # budget 1 and budget K, rows with exactly B and B - 1 positive
+    # priorities, bit 30 set, every line tied at a row_offset above 2^30.
+    if name.startswith("k") and "-budget" in name:
+        k, budget = (int(x) for x in name[1:].split("-budget"))
+        rng = np.random.default_rng(40 + k)
+        return random_cache(rng, 37, k, occupancy=0.9), \
+            dict(budget=budget, limit=6, fanout=3, row_offset=5)
+    if name in ("exactly-b", "b-minus-1"):
+        positive = 15 if name == "exactly-b" else 14
+        rng = np.random.default_rng(positive)
+        cv = np.zeros((24, 256), np.int32)
+        cs = np.full((24, 256), -1, np.int32)
+        for r in range(24):
+            cols = rng.choice(256, positive, replace=False)
+            cv[r, cols] = (rng.integers(1, 40, positive) << 3) | ALIVE
+            cs[r, cols] = rng.integers(0, 512, positive)
+        return (cv, cs, np.zeros((24, 256), np.int8)), \
+            dict(budget=15, limit=6, fanout=3)
+    if name == "bit30":
+        rng = np.random.default_rng(52)
+        cv, cs, se = random_cache(rng, 17, 256)
+        return (np.where(cs >= 0, cv | (1 << 30), 0).astype(np.int32), cs,
+                se), dict(budget=15, limit=6, fanout=3)
+    if name == "all-tied-high-offset":
+        rng = np.random.default_rng(53)
+        return random_cache(rng, 17, 256, occupancy=1.0, tie_value=40,
+                            sent_ceiling=1), \
+            dict(budget=15, limit=6, fanout=3, row_offset=(1 << 30) + 12345)
     raise KeyError(name)
 
 
 BOARD_CASES = ["random-7-8", "random-20-64", "random-33-16",
                "random-64-256", "random-130-32",
                "tie-heavy", "tie-heavy-1024", "all-ineligible",
-               "tombstone-only", "empty", "row-offset", "budget-over-k"]
+               "tombstone-only", "empty", "row-offset", "budget-over-k",
+               "k1-budget1", "k2-budget2", "k4-budget1", "exactly-b",
+               "b-minus-1", "bit30", "all-tied-high-offset"]
 
 
 def assert_all_equal(got, want, names):
