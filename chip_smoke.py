@@ -27,10 +27,7 @@ workload — plus the scatter experiment of
    the scatter-max and row-gather wrappers beside the library calls';
    then (``row_gather_windows``) the row-gather kernel built with each
    of seven row windows, each held against its plain version and timed
-   at the sharded north star's shapes; then (``kernel_forms``) the
-   publish kernel built with 4, 8 and 16 warps a block and the in-place
-   max kernel in each of its forms, each held against its plain version
-   and timed in turns;
+   at the sharded north star's shapes;
 4. lockstep — n=4096, K=256, ER(8, seed 3), 50 rounds from one set of
    injected draws three ways: on the card with the fused kernel, on the
    card with the publish-only kernel, and on the CPU with the plain
@@ -80,22 +77,11 @@ import subprocess
 import sys
 import time
 
-PHASES = ("device", "build", "kernels", "row_gather_windows",
-          "kernel_forms", "lockstep", "north_star", "sharded", "scatter",
-          "exact_lockstep", "exact")
+PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
+          "north_star", "sharded", "scatter", "exact_lockstep", "exact")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
-# Rows (warps) a block of the publish kernel; it ships with 8.
-PUBLISH_WARPS = (4, 8, 16)
-# Forms of the in-place max kernel: label → (threads a block, int4 of each
-# buffer a thread, evict-first hints, block cap of a grid-stride loop or
-# 0 for one tile a block).  The first is a grid-stride loop over 32
-# blocks an SM, one int4 a trip.
-RMW_FORMS = {"grid-stride 256 x1": (256, 1, 0, 132 * 32),
-             **{f"tile {t} x{u}{' cs' if cs else ''}": (t, u, cs, 0)
-                for t in (128, 256, 512) for u in (2, 4, 8)
-                for cs in (0, 1)}}
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 DEVICE = "cuda"                   # where the script makes its own tensors
 CSRC = "sidecar_tpu_torch/ops/kernels/csrc/"
@@ -1690,112 +1676,6 @@ def phase_row_gather_windows(n: int, k: int = 256, f: int = 3,
         raise SystemExit(f"row-gather window sweep failed: {failures}")
 
 
-def kernel_form_variants() -> dict:
-    """``("publish_board", warps)`` and ``("rmw_max", label)`` → the
-    ``(source, macro definitions)`` build of that form."""
-    forms = {("publish_board", w): (
-        "publish_gather", (f"-DSIDECAR_PUBLISH_WARPS={w}",))
-        for w in PUBLISH_WARPS}
-    for label, (threads, unroll, cs, cap) in RMW_FORMS.items():
-        forms[("rmw_max", label)] = ("scatter_max", (
-            f"-DSIDECAR_RMW_THREADS={threads}",
-            f"-DSIDECAR_RMW_UNROLL={unroll}",
-            f"-DSIDECAR_RMW_STREAMING={cs}",
-            f"-DSIDECAR_RMW_MAX_BLOCKS={cap}"))
-    return forms
-
-
-def phase_kernel_forms(ns_n: int, ex_n: int, ex_m: int, k: int = 256,
-                       iters: int = 20):
-    """The publish kernel built with each of ``PUBLISH_WARPS`` warps a
-    block, on the kernels phase's north-star cache, and the in-place max
-    kernel in each form of ``RMW_FORMS``, at the exact model's shape
-    beside ``torch.maximum(…, out=known)``: each held against its plain
-    version (``torch.equal``), then all of one kernel timed in turns
-    (medians of 5), and each max form also device-only, warm and after
-    an L2 flush.  Launches the entry points directly: no wrapper's count
-    moves.  Each build's registers and spills come from ``-Xptxas -v``."""
-    import numpy as np
-    import torch
-
-    from sidecar_tpu_torch.ops.kernels import build
-    from sidecar_tpu_torch.ops.kernels import publish_gather as pg
-
-    variants = kernel_form_variants()
-    t0 = time.perf_counter()
-    build.build((), list(variants.values()))
-    build_s = time.perf_counter() - t0
-    failures = []
-    index = torch.cuda.current_device()
-
-    cv, cs, se = to_cuda(random_cache(np.random.default_rng(20), ns_n, k))
-    bkw = dict(budget=15, limit=20, fanout=3)
-    want = pg.publish_board_torch(cv, cs, se, cache_lines=k, **bkw)
-    outs = [torch.empty_like(t) for t in (cv, cs, se)]
-    board_calls = {}
-    for (kind, warps), variant in variants.items():
-        if kind != "publish_board":
-            continue
-        entry = build.load(*variant).sidecar_publish_board
-        board_calls[f"warps_{warps}_ms"] = (
-            lambda entry=entry: build.launch(
-                "publish_board_kernel launch", entry, index, cv.data_ptr(),
-                cs.data_ptr(), se.data_ptr(), ns_n, k, bkw["budget"],
-                bkw["limit"], bkw["fanout"], 0, *(o.data_ptr()
-                                                  for o in outs)))
-        for o in outs:
-            o.fill_(7)
-        board_calls[f"warps_{warps}_ms"]()
-        torch.cuda.synchronize()
-        if not all(torch.equal(o, w) for o, w in zip(outs, want)):
-            failures.append(f"publish_board warps={warps}")
-    board = {"times": paired_ms(board_calls, iters=iters),
-             "ptxas": {w: ptxas_report(build.build_log(*variants[
-                 ("publish_board", w)]), "publish_board_kernel")
-                       for w in PUBLISH_WARPS}}
-    del cv, cs, se, want, outs
-
-    gen = torch.Generator(device=DEVICE).manual_seed(12)
-    known = torch.randint(1, 1 << 20, (ex_n, ex_m), generator=gen,
-                          device=DEVICE, dtype=torch.int32)
-    other = torch.randint(1, 1 << 20, (ex_n, ex_m), generator=gen,
-                          device=DEVICE, dtype=torch.int32)
-    want = torch.maximum(known, other)
-    work = known.clone()
-    rmw_calls = {"library_ms": lambda: torch.maximum(work, other, out=work)}
-    for (kind, label), variant in variants.items():
-        if kind != "rmw_max":
-            continue
-        entry = build.load(*variant).sidecar_rmw_max
-        rmw_calls[label] = (lambda entry=entry: build.launch(
-            "rmw_max_kernel launch", entry, index, work.data_ptr(),
-            other.data_ptr(), work.numel()))
-        work.copy_(known)
-        rmw_calls[label]()
-        torch.cuda.synchronize()
-        if not torch.equal(work, want):
-            failures.append(f"rmw_max form {label}")
-    del want
-    flush = l2_flush()
-    rmw = {"times": paired_ms(rmw_calls, iters=iters),
-           "device_only": {label: {
-               "warm_ms": device_event_ms(fn, None, iters),
-               "l2_cold_ms": device_event_ms(fn, flush, iters)}
-               for label, fn in rmw_calls.items()},
-           "ptxas": {label: ptxas_report(build.build_log(*variants[
-               ("rmw_max", label)]), "rmw_max_kernel")
-                     for label in RMW_FORMS}}
-    del known, other, work, flush
-    emit({"phase": "kernel_forms", "build_seconds": build_s,
-          "publish_board_warps": board, "rmw_max_forms": rmw,
-          "rmw_forms": {label: dict(zip(("threads", "unroll", "streaming",
-                                         "max_blocks"), form))
-                        for label, form in RMW_FORMS.items()},
-          "failures": failures, "ok": not failures})
-    if failures:
-        raise SystemExit(f"kernel form sweep failed: {failures}")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1823,12 +1703,9 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     if "build" in phases or "kernels" in phases:
         t0 = time.perf_counter()
-        # The window and form sweeps' builds start with the rest.
-        variants = []
-        if "row_gather_windows" in phases:
-            variants += row_gather_variants().values()
-        if "kernel_forms" in phases:
-            variants += kernel_form_variants().values()
+        # The window sweep's builds start with the rest.
+        variants = (row_gather_variants().values()
+                    if "row_gather_windows" in phases else ())
         libs = build.build(variants=variants)
         emit({"phase": "build", "libraries": {k: v.name
                                               for k, v in libs.items()},
@@ -1843,8 +1720,6 @@ def main(argv=None) -> int:
                                 args.exact_n * 10)
     if "row_gather_windows" in phases:
         phase_row_gather_windows(args.n)
-    if "kernel_forms" in phases:
-        phase_kernel_forms(args.n, args.exact_n, args.exact_n * 10)
     if "lockstep" in phases:
         phase_lockstep()
     # The main paths' runs, each with its counts set to 0 just before it

@@ -115,10 +115,9 @@ def build(names=tuple(SIGNATURES), variants=()) -> dict:
     return {name: library_path(name) for name in names}
 
 
-def build_log(name: str, defines=()) -> str:
-    """``nvcc``'s report from the build of ``name``'s current source
-    (with the macro definitions ``defines``)."""
-    return library_path(name, defines).with_suffix(".so.log").read_text()
+def build_log(name: str) -> str:
+    """``nvcc``'s report from the build of ``name``'s current source."""
+    return library_path(name).with_suffix(".so.log").read_text()
 
 
 def load(name: str, defines=()) -> ctypes.CDLL:

@@ -80,13 +80,9 @@ namespace {
 constexpr uint32_t kPhaseMult = 2654435761u;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Rows (warps) a block of publish_board_kernel.  chip_smoke.py's
-// kernel_forms phase builds the kernel with others
-// (-DSIDECAR_PUBLISH_WARPS=...) and times each.
-#ifndef SIDECAR_PUBLISH_WARPS
-#define SIDECAR_PUBLISH_WARPS 8
-#endif
-constexpr int kPublishWarps = SIDECAR_PUBLISH_WARPS;
+// Rows (warps) a block of publish_board_kernel.  4, 8 and 16 read within
+// 1 % of each other on an H100 (PERF.md).
+constexpr int kPublishWarps = 8;
 
 // The publish selection of one row held by a warp: lane l holds the L
 // consecutive lines [first, first + L), first = L * l, with priority 0

@@ -47,17 +47,14 @@
 // nothing else.  Design: both 671 MB buffers are far larger than the L2,
 // so all that matters is keeping enough bytes in flight.  Each block of
 // 512 threads takes one tile of 512 * 8 int4 of each buffer (no
-// grid-stride cap), each thread issuing its eight pairs of 16-byte loads
+// grid-stride loop), each thread issuing its eight pairs of 16-byte loads
 // before any store: 128 KiB in flight a block.  A count not divisible by 4
 // leaves a scalar tail, and a misaligned buffer takes the scalar loop
-// whole.  chip_smoke.py's kernel_forms phase builds other forms
-// (-DSIDECAR_RMW_THREADS, -DSIDECAR_RMW_UNROLL; -DSIDECAR_RMW_STREAMING=1,
-// the evict-first __ldcs/__stcs; -DSIDECAR_RMW_MAX_BLOCKS, a grid-stride
-// loop over at most that many blocks, as in the grid-stride form of
-// 132 * 32 blocks with one int4 a trip) and times each beside torch.maximum(...,
-// out=known).  On an H100 the grid-stride form was 3 % slower than the
-// library call; every tile form was within 0.3 % of it; the evict-first
-// hints cost 3 % after an L2 flush and gained nothing warm.
+// whole.  On an H100 this form is level with torch.maximum(..., out=known)
+// warm and after an L2 flush; the slice before kept a grid-stride loop
+// over 132 * 32 blocks with one int4 a trip, 3 % behind it.  The other
+// forms measured (128 and 256 threads, 2 and 4 int4 a thread, evict-first
+// __ldcs/__stcs hints, which cost 3 % after an L2 flush) are in PERF.md.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -132,37 +129,10 @@ __global__ void scatter_max_apply_kernel(
   }
 }
 
-#ifndef SIDECAR_RMW_THREADS
-#define SIDECAR_RMW_THREADS 512
-#endif
-#ifndef SIDECAR_RMW_UNROLL
-#define SIDECAR_RMW_UNROLL 8
-#endif
-#ifndef SIDECAR_RMW_STREAMING
-#define SIDECAR_RMW_STREAMING 0
-#endif
-#ifndef SIDECAR_RMW_MAX_BLOCKS
-#define SIDECAR_RMW_MAX_BLOCKS 0
-#endif
-constexpr unsigned kRmwThreads = SIDECAR_RMW_THREADS;
-constexpr int kRmwUnroll = SIDECAR_RMW_UNROLL;
-constexpr bool kRmwStreaming = SIDECAR_RMW_STREAMING != 0;
-constexpr long long kRmwMaxBlocks = SIDECAR_RMW_MAX_BLOCKS;   // 0: no cap
+constexpr unsigned kRmwThreads = 512;
+constexpr int kRmwUnroll = 8;
 constexpr long long kRmwTile = static_cast<long long>(kRmwThreads) *
                                kRmwUnroll;                    // int4 a block
-
-__device__ __forceinline__ int4 rmw_load(const int4* p) {
-  if constexpr (kRmwStreaming) return __ldcs(p);
-  return *p;
-}
-
-__device__ __forceinline__ void rmw_store(int4* p, int4 v) {
-  if constexpr (kRmwStreaming) {
-    __stcs(p, v);
-  } else {
-    *p = v;
-  }
-}
 
 __global__ void __launch_bounds__(kRmwThreads) rmw_max_kernel(
     int* __restrict__ known, const int* __restrict__ other, long long count,
@@ -170,30 +140,28 @@ __global__ void __launch_bounds__(kRmwThreads) rmw_max_kernel(
   long long tail = 0;
   if (vec) {
     const long long count4 = count / 4;
-    const long long tiles = (count4 + kRmwTile - 1) / kRmwTile;
+    const long long first =
+        static_cast<long long>(blockIdx.x) * kRmwTile + threadIdx.x;
     int4* k4 = reinterpret_cast<int4*>(known);
     const int4* o4 = reinterpret_cast<const int4*>(other);
-    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const long long first = tile * kRmwTile + threadIdx.x;
-      int4 a[kRmwUnroll], b[kRmwUnroll];
+    int4 a[kRmwUnroll], b[kRmwUnroll];
 #pragma unroll
-      for (int u = 0; u < kRmwUnroll; ++u) {
-        const long long j = first + u * static_cast<long long>(kRmwThreads);
-        if (j < count4) {
-          a[u] = rmw_load(k4 + j);
-          b[u] = rmw_load(o4 + j);
-        }
+    for (int u = 0; u < kRmwUnroll; ++u) {
+      const long long j = first + u * static_cast<long long>(kRmwThreads);
+      if (j < count4) {
+        a[u] = k4[j];
+        b[u] = o4[j];
       }
+    }
 #pragma unroll
-      for (int u = 0; u < kRmwUnroll; ++u) {
-        const long long j = first + u * static_cast<long long>(kRmwThreads);
-        if (j < count4) {
-          a[u].x = max(a[u].x, b[u].x);
-          a[u].y = max(a[u].y, b[u].y);
-          a[u].z = max(a[u].z, b[u].z);
-          a[u].w = max(a[u].w, b[u].w);
-          rmw_store(k4 + j, a[u]);
-        }
+    for (int u = 0; u < kRmwUnroll; ++u) {
+      const long long j = first + u * static_cast<long long>(kRmwThreads);
+      if (j < count4) {
+        a[u].x = max(a[u].x, b[u].x);
+        a[u].y = max(a[u].y, b[u].y);
+        a[u].z = max(a[u].z, b[u].z);
+        a[u].w = max(a[u].w, b[u].w);
+        k4[j] = a[u];
       }
     }
     tail = count4 * 4;
@@ -245,11 +213,10 @@ extern "C" int sidecar_rmw_max(void* known, const void* other,
   if (count <= 0) return 0;
   const bool vec = ((reinterpret_cast<uintptr_t>(known) |
                      reinterpret_cast<uintptr_t>(other)) & 15u) == 0;
-  // One tile a block (at most kRmwMaxBlocks blocks, grid-stride, where
-  // set); a misaligned buffer's scalar loop over at most kMaxBlocks.
+  // One tile a block; a misaligned buffer's scalar loop over at most
+  // kMaxBlocks.
   long long blocks = vec ? (count / 4 + kRmwTile - 1) / kRmwTile
                          : (count + kRmwThreads - 1) / kRmwThreads;
-  if (kRmwMaxBlocks > 0 && blocks > kRmwMaxBlocks) blocks = kRmwMaxBlocks;
   if (!vec && blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);

@@ -305,9 +305,9 @@ def test_wrappers_keep_their_messages(card):
                               cache_lines=6)
 
 
-# int32 elements in one tile of the in-place max kernel's forms: 4 a
-# vector × threads × vectors a thread (the shipped 512 × 8, and 128 × 2 and
-# 256 × 4).
+# int32 elements in one tile of the in-place max kernel, 4 a vector × 512
+# threads × 8 vectors a thread, and in a sixteenth and a quarter of one
+# (counts that end inside a tile).
 RMW_TILES = (4 * 512 * 8, 4 * 128 * 2, 4 * 256 * 4)
 
 
@@ -315,9 +315,9 @@ RMW_TILES = (4 * 512 * 8, 4 * 128 * 2, 4 * 256 * 4)
                          + [3 * t + d for t in RMW_TILES for d in (-1, 1)])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_rmw_max_kernel_counts(card, count, offset):
-    """Counts with no whole vector, one, one and a tail, and a tail of
-    one or three on either side of a whole number of tiles; aligned and
-    (offset 1) misaligned buffers."""
+    """Counts with no whole vector, one, one and a tail, and one element
+    either side of three tiles, of three sixteenths and of three quarters
+    of a tile; aligned and (offset 1) misaligned buffers."""
     rng = np.random.default_rng(count + offset)
     known, other = (torch.tensor(rng.integers(-9, 1 << 20, count + offset),
                                  dtype=torch.int32).cuda()[offset:]
