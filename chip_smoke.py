@@ -21,8 +21,12 @@ workload — plus the scatter experiment of
    then each timed with CUDA events beside its bound and the library
    call that computes the same function, where there is one (the
    scatter-max and in-place max kernels in alternating turns with
-   theirs); the publish kernel also at the d=4 shard's shape; the
-   scatter-max kernel and the library scatter also device-only, warm
+   theirs); the fused publish gather in alternating turns with the
+   unfused path's publish kernel and gather for the same outputs, with
+   uniform and with the north star's ER(8) peers, and each of its two
+   passes' device time; the publish kernel also at the d=4 shard's
+   shape; the scatter-max kernel and the library scatter also
+   device-only, warm
    and after an L2 flush, in both orders; and the host µs per call of
    the scatter-max and row-gather wrappers beside the library calls';
    then (``row_gather_windows``) the row-gather kernel built with each
@@ -36,9 +40,9 @@ workload — plus the scatter experiment of
    bench's 0.1 % burst, ``run_behind(every=25)`` until the behind count
    crosses ε=1e-4 of the unsettled set (at most 600 rounds), once with
    each kernel; the two runs must agree and each kernel's launch count
-   must equal the rounds run; then the publish kernel on the unfused
-   run's cache at round 100 and at its end, held against its plain
-   version and timed;
+   must equal the rounds run; then each path's kernel on its run's
+   cache at round 100 and at its end, held against its plain version
+   and timed (the fused one beside the unfused pair);
 6. sharded  — the same run through the node-sharded twin in every
    board-exchange mode at d ∈ {1, 4} shards, from the same generator
    seed: each must reach ε in the same rounds with the same behind
@@ -133,6 +137,20 @@ def random_cache(rng, n, k, *, occupancy=0.7, tie_value=None,
     return cv, cs.astype(np.int32), se
 
 
+def positive_rows(rng, n, k, positive):
+    """A cache triple (numpy) whose rows each hold exactly ``positive``
+    eligible lines, with small priorities."""
+    import numpy as np
+
+    cv, cs, se = (np.zeros((n, k), np.int32), np.full((n, k), -1, np.int32),
+                  np.zeros((n, k), np.int8))
+    for r in range(n):
+        cols = rng.choice(k, positive, replace=False)
+        cv[r, cols] = rng.integers(1, 40, cols.size) << 3
+        cs[r, cols] = rng.integers(0, 512, cols.size)
+    return cv, cs, se
+
+
 def board_cases():
     """(label, cache triple, kwargs) for publish_board."""
     import numpy as np
@@ -181,14 +199,8 @@ def board_cases():
                       dict(budget=budget, limit=6, fanout=3, row_offset=5)))
     for short in (0, 1):
         rng = np.random.default_rng(50 + short)
-        cv, cs, se = (np.zeros((64, 256), np.int32),
-                      np.full((64, 256), -1, np.int32),
-                      np.zeros((64, 256), np.int8))
-        for r in range(64):
-            cols = rng.choice(256, 15 - short, replace=False)
-            cv[r, cols] = rng.integers(1, 40, cols.size) << 3
-            cs[r, cols] = rng.integers(0, 512, cols.size)
-        cases.append((f"{15 - short} positive of B=15", (cv, cs, se),
+        cases.append((f"{15 - short} positive of B=15",
+                      positive_rows(rng, 64, 256, 15 - short),
                       dict(budget=15, limit=6, fanout=3)))
     rng = np.random.default_rng(52)
     cv, cs, se = random_cache(rng, 33, 256)
@@ -230,6 +242,53 @@ def gather_cases():
     src = rng.integers(0, 64, (64, 3)).astype(np.int32)
     cases.append(("tie-heavy", cache, src, 1 << 10,
                   dict(stale_ticks=1 << 20, budget=6, limit=6, fanout=3)))
+    # The two-pass kernel's corners: K from 1 to 1024 with budget 1 and
+    # budget K (K < 4 takes the gather pass's scalar path, K < 32 one mask
+    # word a row); at K = 256 rows with exactly B and B - 1 positive
+    # priorities, bit 30 set, every line tied, F = 1, a hot row that every
+    # request names, self-sends, the staleness boundary (ts one below
+    # now - stale_ticks, at it, one above, and 0; budget K publishes the
+    # stale lines too) and N over two and a half 3 MiB windows of the
+    # gather pass.  N = 43 elsewhere: not a multiple of the 8 rows a
+    # select block takes.
+    def corner(label, cache, f=3, budget=15, now=1 << 19, stale=1 << 18,
+               src=None, seed=0):
+        n = cache[0].shape[0]
+        if src is None:
+            src = np.random.default_rng(seed).integers(0, n, (n, f))
+        cases.append((label, cache, src.astype(np.int32), now,
+                      dict(stale_ticks=stale, budget=budget, limit=6,
+                           fanout=3)))
+
+    for k in (1, 2, 4, 8, 32, 256, 1024):
+        for budget in sorted({1, k}):
+            rng = np.random.default_rng(70 + k)
+            corner(f"k={k} budget={budget}",
+                   random_cache(rng, 43, k, occupancy=0.9), budget=budget,
+                   seed=k)
+    rng = np.random.default_rng(80)
+    for positive in (15, 14):
+        corner(f"{positive} positive of B=15",
+               positive_rows(rng, 43, 256, positive), seed=positive)
+    cv, cs, se = random_cache(rng, 43, 256)
+    corner("bit 30 set", (np.where(cs >= 0, cv | (1 << 30), 0)
+                          .astype(np.int32), cs, se), seed=1)
+    corner("every line tied", random_cache(rng, 43, 256, occupancy=1.0,
+                                           tie_value=40, sent_ceiling=1),
+           seed=2)
+    corner("f=1", random_cache(rng, 43, 256), f=1, seed=3)
+    corner("hot row", random_cache(rng, 43, 256),
+           src=np.full((43, 3), 7))
+    corner("self-sends", random_cache(rng, 43, 256),
+           src=np.repeat(np.arange(43)[:, None], 3, axis=1))
+    cv, cs, se = random_cache(rng, 43, 256)
+    ts = rng.choice([599, 600, 601, 0], cv.shape)
+    corner("staleness boundary",
+           (np.where(cs >= 0, (ts << 3) | rng.integers(0, 8, cv.shape), 0)
+            .astype(np.int32), cs, se), budget=256, now=1000, stale=400,
+           seed=4)
+    corner("n over 2.5 windows", random_cache(rng, 5 * 1536 // 2 + 3, 256),
+           seed=5)
     return cases
 
 
@@ -294,7 +353,8 @@ def max_abs_diff(got, want) -> int:
 def ptxas_report(log: str, kernel: str) -> list:
     """Registers and spills of each instantiation of ``kernel`` in
     ``nvcc -Xptxas -v``'s report ``log``, with its integer and bool
-    template arguments (``[8, 1]`` for ``<8, true>``)."""
+    template arguments (``[8, 1]`` for ``<8, true>``) and its mangled
+    template arguments (``4int4`` for ``<int4>``)."""
     import re
 
     out, name, spills = [], None, {}
@@ -316,6 +376,7 @@ def ptxas_report(log: str, kernel: str) -> list:
             args = re.search(kernel + r"I(.*)EEv", name)
             out.append({"template": [int(x) for x in re.findall(
                 r"L[a-z](\d+)E", args.group(1))] if args else [],
+                        "mangled_template": args.group(1) if args else "",
                         "registers": int(m.group(1)), **spills})
             name = None
     return out
@@ -371,6 +432,118 @@ def board_point(label, cache, bkw, failures, iters: int = 20) -> dict:
                 **board_search_stats(*cache, bkw["budget"], bkw["limit"]))
 
 
+def unfused_pair(cache, src, now: int, gkw):
+    """The unfused path's publish and gather for the fused kernel's
+    outputs: the publish kernel, then the gated board's rows ``src``
+    (``bval[idx]`` and ``bslot[idx]``).  Returns ``(sent, pv, ps)``."""
+    import torch
+
+    from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+    from sidecar_tpu_torch.ops.merge import staleness_mask
+
+    bkw = {k: v for k, v in gkw.items() if k != "stale_ticks"}
+    bval, bslot, sent = pg.publish_board_cuda(*cache, **bkw)
+    bval = torch.where(staleness_mask(bval, now, gkw["stale_ticks"]), 0,
+                       bval)
+    idx = src.to(torch.int64)
+    return sent, bval[idx], bslot[idx]
+
+
+def device_ms_by_kernel(fn, iters: int = 20) -> dict:
+    """Device ms a call of ``fn`` by activity name: the durations of the
+    device activities ``torch.profiler`` records over ``iters`` calls
+    (after 3 warm-ups), summed by name and divided by ``iters``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / iters
+    return out
+
+
+def fused_gather_point(label, cache, src, now: int, gkw, failures,
+                       iters: int = 20) -> dict:
+    """The fused publish gather on one cache and request set: the kernel
+    and the unfused pair (:func:`unfused_pair`) each held against the
+    plain version (``label`` joins ``failures`` where one differs), then
+    both timed in alternating turns (medians), each pass's device time
+    (profiler), and the bytes: the single-pass bound's (the cache read
+    once, src, sent and pv/ps written once) and what the two passes must
+    move on this data (the select pass: the cache, sent and the mask; the
+    gather pass: src, and of each named row its mask and the 32-byte
+    sectors of val and slot that hold a selected line, and pv/ps)."""
+    import torch
+
+    from sidecar_tpu_torch.ops.kernels import publish_gather as pg
+
+    fused = lambda: pg.fused_publish_gather_cuda(*cache, src, now, **gkw)
+    pair = lambda: unfused_pair(cache, src, now, gkw)
+    want = pg.fused_publish_gather_torch(*cache, src, now, **gkw)
+    errs = []
+    for name, fn in (("kernel", fused), ("unfused pair", pair)):
+        got = fn()
+        torch.cuda.synchronize()
+        errs.append(max_abs_diff(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            failures.append(f"fused_publish_gather {label} ({name})")
+        del got
+    n, k = cache[0].shape
+    bkw = {key: v for key, v in gkw.items() if key != "stale_ticks"}
+    selected = pg.publish_board_torch(*cache, **bkw)[1] >= 0
+    del want
+    named = torch.unique(src.reshape(-1).to(torch.int64))
+    sectors = int(selected[named].view(named.numel(), -1, min(k, 8))
+                  .any(dim=2).sum())
+    words = max(1, k // 32)
+    line = n * k
+    out_bytes = 2 * src.numel() * k * 4
+    nbytes = line * 10 + src.numel() * 4 + out_bytes
+    select_bytes = line * 10 + n * words * 4
+    gather_bytes = src.numel() * 4 + named.numel() * words * 4 + \
+        2 * sectors * min(k, 8) * 4 + out_bytes
+    turns = paired_ms({"ms": fused, "unfused_pair_ms": pair}, iters=iters)
+    passes = {}
+    for name, ms in device_ms_by_kernel(fused, iters).items():
+        key = ("select_pass_ms" if "fused_publish_select_kernel" in name
+               else "gather_pass_ms" if "fused_publish_gather_kernel" in name
+               else "other_ms")
+        passes[key] = passes.get(key, 0.0) + ms
+    return dict(rows=n, requests=src.numel(), rows_named=named.numel(),
+                selected_lines=int(selected.sum()),
+                selected_sectors_of_named_rows=sectors,
+                max_abs_err=errs[0], unfused_pair_max_abs_err=errs[1],
+                **turns, device_ms_by_pass=passes or "not measured",
+                bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                two_pass_bytes=select_bytes + gather_bytes,
+                two_pass_bound_ms=(select_bytes + gather_bytes)
+                / PEAK_BYTES_PER_S * 1e3,
+                select_pass_bound_ms=select_bytes / PEAK_BYTES_PER_S * 1e3,
+                gather_pass_bound_ms=gather_bytes / PEAK_BYTES_PER_S * 1e3)
+
+
+def er8_src(topo, seed: int = 21):
+    """Requests as the north-star round draws them: the bench's fanout
+    of peers a node from the ER(8) graph ``topo`` (``sample_peers``,
+    every node alive)."""
+    from sidecar_tpu_torch.models.compressed import CompressedSim
+    from sidecar_tpu_torch.ops import gossip as gossip_ops
+
+    sim = CompressedSim(bench_params(topo.n), topo, bench_time())
+    draws = sim.draw(sim.default_generator(seed), 1)
+    return gossip_ops.sample_peers(draws.peer_slot, topo.n, nbrs=sim._nbrs)
+
+
 def cuda_time_ms(fn, iters: int = 20) -> float:
     import torch
 
@@ -406,24 +579,12 @@ def paired_ms(fns, reps: int = PAIRED_REPS, iters: int = 20) -> dict:
 def device_time_ms(fn, iters: int = 20):
     """The device time of one call of ``fn``: the summed durations of
     the device activities ``torch.profiler`` records over ``iters``
-    calls (after 3 warm-ups), divided by ``iters``; None where it
-    recorded none (it sometimes misses a call of a few microseconds
-    whole).  Unlike :func:`cuda_time_ms` it leaves out the gaps where
-    the device waits for the host, which dominate such a call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == DeviceType.CUDA)
-    return busy / 1e3 / iters if busy else None
+    calls (after 3 warm-ups), divided by ``iters``
+    (:func:`device_ms_by_kernel`); None where it recorded none (it
+    sometimes misses a call of a few microseconds whole).  Unlike
+    :func:`cuda_time_ms` it leaves out the gaps where the device waits
+    for the host, which dominate such a call."""
+    return sum(device_ms_by_kernel(fn, iters).values()) or None
 
 
 L2_FLUSH_BYTES = 256 << 20        # five times the H100's 50 MB L2
@@ -567,11 +728,13 @@ def host_times():
     }
 
 
-def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
+def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int,
+                  topo=None):
     """Every kernel against its plain version; returns the partial
     ``kernels`` records (times and errors).  The publish and gather
-    kernels run at the north star's shapes (``ns_*``), the scatter
-    kernels at the exact model's (``ex_*``)."""
+    kernels run at the north star's shapes (``ns_*``), the fused one
+    also with the north star's ER(8) peers where ``topo`` is given, the
+    scatter kernels at the exact model's (``ex_*``)."""
     import numpy as np
     import torch
 
@@ -594,7 +757,18 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
             label, cache, dict(kw, cache_lines=cache[0].shape[1]),
             failures))
     del misaligned
-    for label, cache, src, now, kw in gather_cases():
+    # And a fused case whose four inputs start one element past an
+    # aligned address: both passes' scalar paths at K = 256.
+    rng = np.random.default_rng(55)
+    cache = random_cache(rng, 45, 256)
+    src = rng.integers(0, 45, (45, 3)).astype(np.int32)
+    misaligned = [torch.as_tensor(np.concatenate(
+        [a.reshape(-1)[:1], a.reshape(-1)])).to(DEVICE)[1:].view(a.shape)
+        for a in (*cache, src)]
+    for label, cache, src, now, kw in gather_cases() + [
+            ("misaligned inputs k=256", misaligned[:3], misaligned[3],
+             1 << 19, dict(stale_ticks=1 << 18, budget=15, limit=6,
+                           fanout=3))]:
         cv, cs, se, sr = to_cuda((*cache, src))
         k = cv.shape[1]
         got = pg.fused_publish_gather_cuda(cv, cs, se, sr, now,
@@ -617,13 +791,18 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
     now = 1 << 22
     worst["publish_board"] = max(worst["publish_board"], check_board(
         "north-star shape", (cv, cs, se), bkw, failures))
-    got = pg.fused_publish_gather_cuda(cv, cs, se, src, now, **gkw)
-    want = pg.fused_publish_gather_torch(cv, cs, se, src, now, **gkw)
-    worst["fused_publish_gather"] = max(worst["fused_publish_gather"],
-                                        max_abs_diff(got, want))
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        failures.append("fused_publish_gather north-star shape")
-    del got, want
+    # K1 with uniform peers and, where the graph is given, with the
+    # north star's ER(8) peers: parity, the unfused pair, times.
+    srcs = {"uniform": src}
+    if topo is not None:
+        srcs["er8"] = er8_src(topo)
+    fused_points = {label: fused_gather_point(
+        f"north-star shape, {label} peers", (cv, cs, se), s, now, gkw,
+        failures) for label, s in srcs.items()}
+    del srcs
+    for point in fused_points.values():
+        worst["fused_publish_gather"] = max(worst["fused_publish_gather"],
+                                            point["max_abs_err"])
     torch.cuda.synchronize()
 
     def check_row_gather(label, bv, bs, sr, base):
@@ -645,30 +824,25 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
     (sr,) = to_cuda((rng.integers(0, 190, (203, 3)).astype(np.int32),))
     check_row_gather("misaligned board k=256", bv, bs, sr, 20)
 
-    line = ns_n * ns_k
-    board_bytes = line * (4 + 4 + 1) * 2
-    fused_bytes = line * (4 + 4 + 1) + src.numel() * 4 + line * 1 + \
-        2 * line * ns_f * 4
-    times = {
-        "publish_board": (
-            cuda_time_ms(lambda: pg.publish_board_cuda(cv, cs, se, **bkw)),
-            cuda_time_ms(lambda: pg.publish_board_torch(cv, cs, se, **bkw)),
-            board_bytes),
-        "fused_publish_gather": (
-            cuda_time_ms(lambda: pg.fused_publish_gather_cuda(
-                cv, cs, se, src, now, **gkw)),
-            cuda_time_ms(lambda: pg.fused_publish_gather_torch(
-                cv, cs, se, src, now, **gkw)),
-            fused_bytes),
+    board_bytes = ns_n * ns_k * (4 + 4 + 1) * 2
+    fused = fused_points["uniform"]
+    records = {
+        "publish_board": dict(
+            ms=cuda_time_ms(lambda: pg.publish_board_cuda(cv, cs, se,
+                                                          **bkw)),
+            plain_ms=cuda_time_ms(lambda: pg.publish_board_torch(cv, cs, se,
+                                                                 **bkw)),
+            bytes=board_bytes,
+            bound_ms=board_bytes / PEAK_BYTES_PER_S * 1e3,
+            **board_search_stats(cv, cs, se, bkw["budget"], bkw["limit"])),
+        # The unfused pair is not one call: no library call computes
+        # the rotated-tie selection.
+        "fused_publish_gather": dict(fused, plain_ms=cuda_time_ms(
+            lambda: pg.fused_publish_gather_torch(cv, cs, se, src, now,
+                                                  **gkw))),
     }
-    records = {}
-    for name, (ms, plain_ms, nbytes) in times.items():
-        records[name] = dict(max_abs_err=worst[name], ms=ms,
-                             plain_ms=plain_ms,
-                             bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
-                             bytes=nbytes, library_ms=None)
-    records["publish_board"].update(board_search_stats(
-        cv, cs, se, bkw["budget"], bkw["limit"]))
+    for name, rec in records.items():
+        rec.update(max_abs_err=worst[name], library_ms=None)
     # The publish kernel at the d=4 shard's shape: shard 2's rows, at
     # row_offset 2·nl.
     nl = ns_n // 4
@@ -734,12 +908,13 @@ def phase_kernels(ns_n: int, ns_k: int, ns_f: int, ex_n: int, ex_m: int):
     records.update(scatter_records)
     failures += scatter_failures
     emit({"phase": "kernels", "cases": len(board_cases())
-          + len(gather_cases()) + len(row_gather_cases()) + 7
-          + scatter_cases,
+          + len(gather_cases()) + len(row_gather_cases()) + 8
+          + len(fused_points) + scatter_cases,
           "failures": failures,
           "shape": {"n": ns_n, "k": ns_k, "f": ns_f},
           "scatter_shape": {"n": ex_n, "m": ex_m},
           "kernels": records, "publish_board_points": board_points,
+          "fused_publish_gather_points": fused_points,
           "board_row_gather_shapes": rg, "host_us_per_call": host})
     if failures:
         raise SystemExit(f"kernel parity failed: {failures}")
@@ -1076,6 +1251,7 @@ def run_to_eps(sim, state, generator, *, eps, max_rounds, every, thr_total,
 # operation's name).
 KERNEL_FAMILIES = (("board_row_gather_kernel", "K3 board_row_gather"),
                    ("publish_board_kernel", "K2 publish_board"),
+                   ("fused_publish_select_kernel", "K1 fused_publish_gather"),
                    ("fused_publish_gather_kernel", "K1 fused_publish_gather"),
                    ("scatter_max_apply_kernel", "K4a scatter_max_apply"),
                    ("rmw_max_kernel", "K4b rmw_max"),
@@ -1187,7 +1363,7 @@ def phase_breakdown(sim, state, generator, iters=5):
 
 
 NORTH_STAR_RUN = dict(max_rounds=600, every=25, eps=1e-4)
-# Rounds of the unfused north-star run whose cache the publish kernel is
+# Rounds of each north-star run whose cache the path's publish kernel is
 # timed on, besides the run's end.
 REAL_CACHE_ROUNDS = (100,)
 
@@ -1208,6 +1384,7 @@ def phase_north_star(topo, graph_s, max_rounds, every, eps):
     import torch
 
     from sidecar_tpu_torch.models.compressed import CompressedSim
+    from sidecar_tpu_torch.ops import gossip as gossip_ops
 
     n = topo.n
     p = bench_params(n)
@@ -1230,23 +1407,34 @@ def phase_north_star(topo, graph_s, max_rounds, every, eps):
                        max_rounds=max_rounds, every=every,
                        keep=REAL_CACHE_ROUNDS, **thr)
         counts = launches()
-        breakdown, real_caches, failures = None, None, []
+        breakdown, failures = None, []
+        # The path's kernel on the run's own caches, as the round calls
+        # it (the fused one with the next round's ER(8) peers and now);
+        # uncounted (the counts are read).
+        bkw = dict(budget=min(p.budget, p.cache_lines),
+                   limit=sim._knobs.limit, fanout=p.fanout,
+                   cache_lines=p.cache_lines)
+        caches = {f"round {r}": kept[r] for r in sorted(kept)}
+        caches[f"end (round {rounds})"] = final
+        real_caches = {}
+        for cache_label, st in caches.items():
+            cache = (st.cache_val, st.cache_slot, st.cache_sent)
+            if fused:
+                r = int(st.round_idx) + 1
+                src = gossip_ops.sample_peers(
+                    sim.draw(sim.default_generator(6), r).peer_slot, p.n,
+                    nbrs=sim._nbrs, node_alive=st.node_alive)
+                real_caches[cache_label] = fused_gather_point(
+                    f"{cache_label} cache", cache, src,
+                    r * sim.t.round_ticks,
+                    dict(bkw, stale_ticks=sim._knobs.stale_ticks), failures)
+            else:
+                real_caches[cache_label] = board_point(
+                    f"{cache_label} cache", cache, bkw, failures)
+        del caches, cache
         if fused:
             breakdown = phase_breakdown(sim, first,
                                         sim.default_generator(5))
-        else:
-            # The publish kernel on the run's own caches, as the round
-            # calls it; uncounted (the counts are read).
-            bkw = dict(budget=min(p.budget, p.cache_lines),
-                       limit=sim._knobs.limit, fanout=p.fanout,
-                       cache_lines=p.cache_lines)
-            caches = {f"round {r}": kept[r] for r in sorted(kept)}
-            caches[f"end (round {rounds})"] = final
-            real_caches = {label: board_point(
-                f"{label} cache", (st.cache_val, st.cache_slot,
-                                   st.cache_sent), bkw, failures)
-                for label, st in caches.items()}
-            del caches
         kept.clear()
         profile = profile_rounds(sim, first)
         label = "fused" if fused else "unfused"
@@ -1267,7 +1455,8 @@ def phase_north_star(topo, graph_s, max_rounds, every, eps):
               "warmup_launches": warm, "launches": counts,
               "breakdown_after_first_sample": breakdown,
               "profile_after_first_sample": profile,
-              "publish_board_on_run_caches": real_caches,
+              ("fused_publish_gather_on_run_caches" if fused else
+               "publish_board_on_run_caches"): real_caches,
               "failures": failures, "ok": ok})
         if not ok:
             raise SystemExit(f"north-star phase failed ({label})")
@@ -1617,8 +1806,11 @@ def phase_row_gather_windows(n: int, k: int = 256, f: int = 3,
     north star's shapes on a random board and uniform peers: d=1 (the
     whole board), d=4 (shard 2's own block at base 2·nl) and
     all_gather's d=4 (the whole board, shard 2's requests); beside the
-    unmasked ``index_select`` pair.  Launches the entry points directly:
-    no wrapper's count moves."""
+    unmasked ``index_select`` pair.  Then the fused publish gather,
+    whose gather pass walks the same windows, at the north star's shape
+    with the same requests.  Launches the entry points directly: no
+    wrapper's count moves."""
+    import numpy as np
     import torch
 
     from sidecar_tpu_torch.ops.kernels import build
@@ -1669,6 +1861,35 @@ def phase_row_gather_windows(n: int, k: int = 256, f: int = 3,
             row[f"window_{w}_ms"] = cuda_time_ms(call, iters)
         times[label] = row
         del want, pv, ps
+    # K1's gather pass walks the same windows: the fused entry point on a
+    # random cache with the same requests, beside the shipped window.
+    rng = np.random.default_rng(22)
+    cv, cs, se = to_cuda(random_cache(rng, n, k))
+    gkw = dict(stale_ticks=10_860_000, budget=15, limit=20, fanout=f,
+               cache_lines=k)
+    now = 1 << 22
+    want = pg.fused_publish_gather_torch(cv, cs, se, src, now, **gkw)
+    mask = cv.new_empty((n, k // 32))
+    sent, pv, ps = (torch.empty_like(t) for t in want)
+    row = {}
+    for w, variant in variants.items():
+        entry = build.load(*variant).sidecar_fused_publish_gather
+
+        def call():
+            build.launch("fused publish gather launch", entry,
+                         cv.get_device(), cv.data_ptr(), cs.data_ptr(),
+                         se.data_ptr(), src.data_ptr(), n, f, k, 15, 20, f,
+                         now, gkw["stale_ticks"], mask.data_ptr(),
+                         sent.data_ptr(), pv.data_ptr(), ps.data_ptr())
+
+        pv.fill_(7)
+        call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((sent, pv, ps), want)):
+            failures.append(f"window {w} fused publish gather")
+        row[f"window_{w}_ms"] = cuda_time_ms(call, iters)
+    times["fused publish gather"] = row
+    del want, sent, pv, ps, cv, cs, se
     emit({"phase": "row_gather_windows", "n": n, "k": k, "f": f,
           "build_seconds": build_s, "rows_per_window": ROW_GATHER_WINDOWS,
           "times": times, "failures": failures, "ok": not failures})
@@ -1710,14 +1931,27 @@ def main(argv=None) -> int:
         emit({"phase": "build", "libraries": {k: v.name
                                               for k, v in libs.items()},
               "seconds": time.perf_counter() - t0,
-              "publish_board_kernel": ptxas_report(
-                  build.build_log("publish_gather"), "publish_board_kernel"),
+              **{kernel: ptxas_report(build.build_log("publish_gather"),
+                                      kernel)
+                 for kernel in ("publish_board_kernel",
+                                "fused_publish_select_kernel",
+                                "fused_publish_gather_kernel")},
               "ptxas": {k: [l.strip() for l in build.build_log(k).splitlines()
                             if "ptxas" in l or "spill" in l] for k in libs}})
+    topo = None
+    if "north_star" in phases or "sharded" in phases:
+        from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+        # One graph for the kernels' ER(8) peers and both run phases:
+        # building it bit for bit with the reference takes over a minute
+        # on the host at n=100,000.
+        t0 = time.perf_counter()
+        topo = erdos_renyi(args.n, avg_degree=8.0, seed=3)
+        graph_s = time.perf_counter() - t0
     records = {}
     if "kernels" in phases:
         records = phase_kernels(args.n, 256, 3, args.exact_n,
-                                args.exact_n * 10)
+                                args.exact_n * 10, topo)
     if "row_gather_windows" in phases:
         phase_row_gather_windows(args.n)
     if "lockstep" in phases:
@@ -1725,14 +1959,7 @@ def main(argv=None) -> int:
     # The main paths' runs, each with its counts set to 0 just before it
     # and read just after.
     runs = []
-    if "north_star" in phases or "sharded" in phases:
-        from sidecar_tpu_torch.ops.topology import erdos_renyi
-
-        # One graph for both phases: the bit-identical builder takes
-        # over a minute on the host at n=100,000.
-        t0 = time.perf_counter()
-        topo = erdos_renyi(args.n, avg_degree=8.0, seed=3)
-        graph_s = time.perf_counter() - t0
+    if topo is not None:
         counts, reference = phase_north_star(topo, graph_s,
                                              **NORTH_STAR_RUN)
         runs += counts

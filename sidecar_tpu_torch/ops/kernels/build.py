@@ -41,7 +41,8 @@ SIGNATURES = {
         "sidecar_board_row_gather": [_P, _P, _P, _I, _LL, _I, _I, _P, _P,
                                      _P],
         "sidecar_fused_publish_gather": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                         _I, _I, _I, _I, _P, _P, _P, _P],
+                                         _I, _I, _I, _I, _P, _P, _P, _P,
+                                         _P],
     },
     "scatter_max": {
         "sidecar_scatter_max_apply": [_P, _P, _P, _P, _P, _P, _LL, _I, _I,

@@ -4,7 +4,8 @@
 // Replaces the three TPU kernels of sidecar_tpu/ops/kernels/publish_gather.py:
 //   * publish_board_kernel         <- publish_board_pallas         (:193)
 //   * board_row_gather_kernel      <- board_row_gather_pallas      (:265)
-//   * fused_publish_gather_kernel  <- fused_publish_gather_pallas  (:371)
+//   * fused_publish_select_kernel, then
+//     fused_publish_gather_kernel  <- fused_publish_gather_pallas  (:371)
 // and computes exactly what their XLA twins (publish_board_xla :142,
 // board_row_gather_xla :251, fused_publish_gather_xla :355) compute:
 // integer arithmetic only, held equal with torch.equal against the port's
@@ -20,10 +21,10 @@
 //   is <= B - #above, rot = (uint32(gid) * 2654435761) & (K - 1)
 //   bval/bslot = selected ? (val, slot) : (0, -1)
 //   sent       = min(sent + fanout * selected, limit)          (int8)
-// Both forms below find t as the largest t with count(priority >= t) >= B,
-// greedily bit by bit, as the Pallas kernel does: no sort.
+// t is the largest t with count(priority >= t) >= B, found greedily bit by
+// bit, as the Pallas kernel does: no sort.
 //
-// publish_board_kernel: a warp per row (warp_select_lines).
+// Every selection is a warp per row (warp_select_lines, in publish_rows):
 //   * A block holds kPublishWarps warps, one row each.  Lane l holds the
 //     L = max(1, K/32) consecutive lines [L*l, L*l + L) in registers
 //     (templated on L in {1, 2, 4, 8, 16, 32}); for K < 32 the lanes at and
@@ -42,35 +43,46 @@
 //     and each line's inclusive prefix inside its lane; the ties in columns
 //     < rot are one masked count and a __reduce_add_sync.  Where every tie
 //     fits (#ties <= B - #above) no rank is needed.
-//
-// fused_publish_gather_kernel: a block per row (select_line).
-//   * max(K, 32) threads, one line per thread; threads past K carry
-//     priority 0 and only take part in the barriers.  Every count of the
-//     31-step search is a __syncthreads_count; the tie rank uses
-//     __ballot_sync/__popc per warp and a 32-entry shared array.
-//   * N*(F+1) blocks on gridDim.x: block b < N*F recomputes the board of
-//     peer src[b] (row read clamped to [0, N), the unclamped id seeds the
-//     rotation, as the Pallas kernel does) and writes pv/ps with the
-//     staleness gate; block N*F + r writes own row r's sent.  The [N, K]
-//     board never reaches device memory.
+// publish_board_kernel (K2) writes the board and sent.  The fused publish
+// gather (K1) is two launches of one call, in stream order:
+//   1. fused_publish_select_kernel: the same pass over every row once,
+//      writing the own rows' sent and, in place of the board, the row's
+//      selection as K bits in line order (mask, max(1, K/32) 32-bit words a
+//      row: 32 B at K = 256).
+//   2. fused_publish_gather_kernel: the board row gather's windowed walk
+//      (windowed_row_gather) over the requests src[r, f], each row clamped
+//      to [0, N): for each unit of the named row whose mask bits are set it
+//      reads cache_val/cache_slot and writes pv = gate(val), ps = slot;
+//      for the other units it writes (0, -1) and reads nothing.  gate
+//      zeroes a val whose ts = val >> 3 is in (0, now - stale_ticks); ps
+//      keeps its slot.  The rotation is seeded by the row's own id, which
+//      is src[r, f] for every peer in [0, N), the only ones sample_peers
+//      draws.
 //
 // Bound on an H100 SXM (3.35 TB/s; the work is a few integer ops per byte,
 // far below the card's operation rate, so bytes bound it):
 //   publish_board_kernel at N=100,000, K=256: reads 9 B and writes 9 B per
 //     line, 460.8 MB, 0.1376 ms.
-//   fused_publish_gather_kernel at N=100,000, K=256, F=3: reads the cache
-//     (230 MB) and src, writes sent (25.6 MB) and pv/ps (614 MB), ~871 MB,
-//     ~0.26 ms.
+//   fused publish gather at N=100,000, K=256, F=3: reads the cache once
+//     (230.4 MB) and src (1.2 MB), writes sent (25.6 MB) and pv/ps
+//     (614.4 MB): 871.6 MB, 0.2602 ms.
 // What the designs do about it.  publish_board_kernel reads and writes
 // each byte once, in vector accesses, and keeps the rest on the warp: at
 // K = 256 a row is at most 31 steps of 8 compares and one warp reduction,
 // and with no block barrier the other rows' loads stay in flight while a
 // warp searches.  On an H100 it reads 0.16 ms at N = 100,000, K = 256
 // (86 % of the bound), the same at 0, 7 and 23 search steps: the
-// selection hides under the bytes.  The fused kernel keeps the board out of
-// memory, but reads each peer row once per pull (F+1 reads of the cache in
-// all, mostly served from L2 at this size) and pays 31+ block barriers per
-// row; the warp selection and selecting each row once are its next steps.
+// selection hides under the bytes.  The fused form the two passes
+// replace, a block per (r, f) pull with a block-barrier search, selected
+// every row F+1 times and read 2.03 ms.  The two passes select each row
+// once and move 0.26 GB (select: the cache, sent and the mask) plus
+// 0.62-0.70 GB (gather: the 614.4 MB of pv/ps, and of each named row
+// only the mask and the 32-byte sectors of val and slot that hold a
+// selected line, at most B of each row's K/8, from device memory about
+// once thanks to the windows).  On an H100 they read 0.32-0.40 ms at
+// N = 100,000, K = 256, F = 3 (select 0.09-0.11, gather 0.22-0.28; the
+// gather pass's floor is the pv/ps writes, 0.22 ms where no line is
+// selected).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -80,7 +92,7 @@ namespace {
 constexpr uint32_t kPhaseMult = 2654435761u;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Rows (warps) a block of publish_board_kernel.  4, 8 and 16 read within
+// Rows (warps) a block of the publish passes.  4, 8 and 16 read within
 // 1 % of each other on an H100 (PERF.md).
 constexpr int kPublishWarps = 8;
 
@@ -208,20 +220,29 @@ __device__ __forceinline__ void store_words(T* __restrict__ p,
   }
 }
 
-// L lines a lane (K = 32 L, or K < 32 with L = 1); VEC: vector accesses
-// (L >= 4, val/slot/bval/bslot 16-byte aligned, the sent buffers aligned
-// to min(L, 16) bytes).
-template <int L, bool VEC>
-__global__ void __launch_bounds__(kPublishWarps * 32) publish_board_kernel(
+// 32-bit words of a row's selection mask.
+__host__ __device__ inline int mask_words(int k) {
+  return k < 32 ? 1 : k / 32;
+}
+
+// The publish pass, a warp per row: L lines a lane (K = 32 L, or K < 32
+// with L = 1); VEC: vector accesses (L >= 4, val/slot/bval/bslot 16-byte
+// aligned, the sent buffers aligned to min(L, 16) bytes).  BOARD: write
+// the board (bval/bslot, K2); else the row's selection mask (K1's select
+// pass).  Both write sent.
+template <int L, bool VEC, bool BOARD>
+__device__ __forceinline__ void publish_rows(
     const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
     const int8_t* __restrict__ cache_sent, int n, int k, int budget,
     int limit, int fanout, int row_offset, int* __restrict__ bval,
-    int* __restrict__ bslot, int8_t* __restrict__ sent_out) {
+    int* __restrict__ bslot, unsigned* __restrict__ mask,
+    int8_t* __restrict__ sent_out) {
   static_assert(!VEC || L >= 4, "vector accesses need 4 lines a lane");
   const int row = static_cast<int>(blockIdx.x) * kPublishWarps +
                   static_cast<int>(threadIdx.x >> 5);
   if (row >= n) return;                    // the whole warp
-  const int first = static_cast<int>(threadIdx.x & 31u) * L;
+  const unsigned lane = threadIdx.x & 31u;
+  const int first = static_cast<int>(lane) * L;
   const bool in_row = first < k;           // false only where K < 32
   const int64_t at = static_cast<int64_t>(row) * k + first;
   int val[L], slot[L], sent[L];
@@ -250,17 +271,35 @@ __global__ void __launch_bounds__(kPublishWarps * 32) publish_board_kernel(
   const uint32_t gid = static_cast<uint32_t>(row_offset) +
                        static_cast<uint32_t>(row);
   const unsigned sel = warp_select_lines<L>(priority, first, gid, k, budget);
+  if constexpr (!BOARD) {
+    // Line j is bit j % 32 of word j / 32: the 32 / L lanes of a word OR
+    // their bits together, and the first of them stores it.
+    constexpr unsigned kLanesPerWord = 32 / L;
+    unsigned word = sel << (L * (lane % kLanesPerWord));
+#pragma unroll
+    for (unsigned d = 1; d < kLanesPerWord; d <<= 1) {
+      word |= __shfl_xor_sync(kFull, word, d);
+    }
+    if (lane % kLanesPerWord == 0) {
+      mask[static_cast<int64_t>(row) * mask_words(k) +
+           lane / kLanesPerWord] = word;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < L; ++i) {
     const bool s = sel >> i & 1u;
     const int bumped = sent[i] + (s ? fanout : 0);
-    val[i] = s ? val[i] : 0;
-    slot[i] = s ? slot[i] : -1;
+    if constexpr (BOARD) {
+      val[i] = s ? val[i] : 0;
+      slot[i] = s ? slot[i] : -1;
+    }
     sent[i] = bumped < limit ? bumped : limit;
   }
   if constexpr (VEC) {
-    store_words<L>(bval + at, val);
-    store_words<L>(bslot + at, slot);
+    if constexpr (BOARD) {
+      store_words<L>(bval + at, val);
+      store_words<L>(bslot + at, slot);
+    }
     unsigned w[L / 4] = {};
 #pragma unroll
     for (int i = 0; i < L; ++i) {
@@ -270,19 +309,48 @@ __global__ void __launch_bounds__(kPublishWarps * 32) publish_board_kernel(
   } else if (in_row) {
 #pragma unroll
     for (int i = 0; i < L; ++i) {
-      bval[at + i] = val[i];
-      bslot[at + i] = slot[i];
+      if constexpr (BOARD) {
+        bval[at + i] = val[i];
+        bslot[at + i] = slot[i];
+      }
       sent_out[at + i] = static_cast<int8_t>(sent[i]);
     }
   }
 }
 
-template <int L>
-int launch_publish_board(const void* cache_val, const void* cache_slot,
-                         const void* cache_sent, int n, int k, int budget,
-                         int limit, int fanout, int row_offset, void* bval,
-                         void* bslot, void* sent, bool vec,
-                         cudaStream_t stream) {
+// The two publish passes share their arguments; each leaves alone the
+// outputs it does not write (K2: mask; K1's select pass: bval, bslot).
+template <int L, bool VEC>
+__global__ void __launch_bounds__(kPublishWarps * 32) publish_board_kernel(
+    const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
+    const int8_t* __restrict__ cache_sent, int n, int k, int budget,
+    int limit, int fanout, int row_offset, int* __restrict__ bval,
+    int* __restrict__ bslot, unsigned* __restrict__ mask,
+    int8_t* __restrict__ sent_out) {
+  publish_rows<L, VEC, true>(cache_val, cache_slot, cache_sent, n, k, budget,
+                             limit, fanout, row_offset, bval, bslot, mask,
+                             sent_out);
+}
+
+template <int L, bool VEC>
+__global__ void __launch_bounds__(kPublishWarps * 32)
+    fused_publish_select_kernel(
+        const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
+        const int8_t* __restrict__ cache_sent, int n, int k, int budget,
+        int limit, int fanout, int row_offset, int* __restrict__ bval,
+        int* __restrict__ bslot, unsigned* __restrict__ mask,
+        int8_t* __restrict__ sent_out) {
+  publish_rows<L, VEC, false>(cache_val, cache_slot, cache_sent, n, k,
+                              budget, limit, fanout, row_offset, bval, bslot,
+                              mask, sent_out);
+}
+
+template <int L, bool BOARD>
+int launch_publish(const void* cache_val, const void* cache_slot,
+                   const void* cache_sent, int n, int k, int budget,
+                   int limit, int fanout, int row_offset, void* bval,
+                   void* bslot, void* mask, void* sent, bool vec,
+                   cudaStream_t stream) {
   const unsigned blocks =
       static_cast<unsigned>((n + kPublishWarps - 1) / kPublishWarps);
   auto run = [&](auto kernel) {
@@ -291,102 +359,54 @@ int launch_publish_board(const void* cache_val, const void* cache_slot,
         static_cast<const int*>(cache_slot),
         static_cast<const int8_t*>(cache_sent), n, k, budget, limit, fanout,
         row_offset, static_cast<int*>(bval), static_cast<int*>(bslot),
-        static_cast<int8_t*>(sent));
+        static_cast<unsigned*>(mask), static_cast<int8_t*>(sent));
     return static_cast<int>(cudaGetLastError());
   };
   if constexpr (L >= 4) {
-    if (vec) return run(publish_board_kernel<L, true>);
+    if (vec) {
+      return run(BOARD ? publish_board_kernel<L, true>
+                       : fused_publish_select_kernel<L, true>);
+    }
   }
-  return run(publish_board_kernel<L, false>);
+  return run(BOARD ? publish_board_kernel<L, false>
+                   : fused_publish_select_kernel<L, false>);
 }
 
-struct Selection {
-  bool selected;
-  int sent;
-};
-
-// The fused kernel's selection, one line a thread.  Every thread of the
-// block must call this (it holds block barriers).
-__device__ __forceinline__ Selection select_line(
-    int val, int slot, int sent, bool in_row, uint32_t gid, int k,
-    int budget, int limit, int fanout, int* warp_total) {
-  const int j = threadIdx.x;
-  const bool eligible = in_row && slot >= 0 && sent < limit;
-  const int priority = eligible ? val : 0;
-
-  int thresh = 0;
-  for (int b = 30; b >= 0; --b) {
-    const int cand = thresh | (1 << b);
-    if (__syncthreads_count(priority >= cand) >= budget) thresh = cand;
+// The publish pass over n rows, with its L and access width chosen from
+// k and the buffers' alignment (bval/bslot null for the mask, mask null
+// for the board).
+template <bool BOARD>
+int launch_publish_rows(const void* cache_val, const void* cache_slot,
+                        const void* cache_sent, int n, int k, int budget,
+                        int limit, int fanout, int row_offset, void* bval,
+                        void* bslot, void* mask, void* sent,
+                        cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int lines = k < 32 ? 1 : k / 32;   // L, lines a lane
+  const uintptr_t words = reinterpret_cast<uintptr_t>(cache_val) |
+                          reinterpret_cast<uintptr_t>(cache_slot) |
+                          reinterpret_cast<uintptr_t>(bval) |
+                          reinterpret_cast<uintptr_t>(bslot);
+  const uintptr_t bytes = reinterpret_cast<uintptr_t>(cache_sent) |
+                          reinterpret_cast<uintptr_t>(sent);
+  const uintptr_t sent_align = lines < 16 ? lines : 16;
+  const bool vec = lines >= 4 && (words & 15u) == 0 &&
+                   (bytes & (sent_align - 1)) == 0;
+  switch (lines) {
+#define SIDECAR_PUBLISH_CASE(L)                                              \
+  case L:                                                                    \
+    return launch_publish<L, BOARD>(cache_val, cache_slot, cache_sent, n, k, \
+                                    budget, limit, fanout, row_offset, bval, \
+                                    bslot, mask, sent, vec, stream);
+    SIDECAR_PUBLISH_CASE(1)
+    SIDECAR_PUBLISH_CASE(2)
+    SIDECAR_PUBLISH_CASE(4)
+    SIDECAR_PUBLISH_CASE(8)
+    SIDECAR_PUBLISH_CASE(16)
+    SIDECAR_PUBLISH_CASE(32)
+#undef SIDECAR_PUBLISH_CASE
   }
-  const bool above = priority > thresh;
-  const bool tie = priority == thresh && priority > 0;
-  const int n_above = __syncthreads_count(above);
-  const int rot = static_cast<int>((gid * kPhaseMult) &
-                                   static_cast<uint32_t>(k - 1));
-  const int total = __syncthreads_count(tie);
-  const int before_rot = __syncthreads_count(tie && j < rot);
-
-  // Inclusive count of ties in columns [0, j].
-  const unsigned lane = j & 31u;
-  const unsigned warp = j >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, tie);
-  if (lane == 31u) warp_total[warp] = __popc(ballot);
-  __syncthreads();
-  int prefix = __popc(ballot & (0xffffffffu >> (31u - lane)));
-  for (unsigned w = 0; w < warp; ++w) prefix += warp_total[w];
-
-  const int rank = j >= rot ? prefix - before_rot
-                            : prefix + total - before_rot;
-  Selection out;
-  out.selected = above || (tie && rank <= budget - n_above);
-  const int bumped = sent + (out.selected ? fanout : 0);
-  out.sent = bumped < limit ? bumped : limit;
-  return out;
-}
-
-
-__global__ void fused_publish_gather_kernel(
-    const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
-    const int8_t* __restrict__ cache_sent, const int* __restrict__ src,
-    int n, int f, int k, int budget, int limit, int fanout, int now,
-    int stale_ticks, int8_t* __restrict__ sent_out, int* __restrict__ pv,
-    int* __restrict__ ps) {
-  __shared__ int warp_total[32];
-  const int64_t block = blockIdx.x;
-  const int64_t n_pull = static_cast<int64_t>(n) * f;
-  const bool own = block >= n_pull;   // uniform across the block
-  int row, gid;
-  if (own) {
-    row = static_cast<int>(block - n_pull);
-    gid = row;
-  } else {
-    gid = src[block];
-    row = gid < 0 ? 0 : (gid >= n ? n - 1 : gid);
-  }
-  const int j = threadIdx.x;
-  const bool in_row = j < k;
-  const int64_t at = static_cast<int64_t>(row) * k + j;
-  int val = 0, slot = -1, sent = 0;
-  if (in_row) {
-    val = cache_val[at];
-    slot = cache_slot[at];
-    sent = cache_sent[at];
-  }
-  const Selection s = select_line(val, slot, sent, in_row,
-                                  static_cast<uint32_t>(gid), k, budget,
-                                  limit, fanout, warp_total);
-  if (!in_row) return;
-  if (own) {
-    sent_out[at] = static_cast<int8_t>(s.sent);
-  } else {
-    int bv = s.selected ? val : 0;
-    const int ts = bv >> 3;
-    if (ts > 0 && ts < now - stale_ticks) bv = 0;
-    const int64_t out = block * k + j;
-    pv[out] = bv;
-    ps[out] = s.selected ? slot : -1;
-  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Board row gather (the node-sharded round's delivery gather).  A shard
@@ -419,7 +439,9 @@ __global__ void fused_publish_gather_kernel(
 // int32 otherwise.  Pass 0 also writes (0, -1) to the out-of-block requests
 // and reads nothing for them.  The passes re-read src from the L2 (1.2 MB
 // a pass); no scratch, no atomics, no grid-wide sync.  The output index is
-// 64-bit (nl*F*K is 76.8 M at N=100,000, F=3, K=256).
+// 64-bit (nl*F*K is 76.8 M at N=100,000, F=3, K=256).  K1's gather pass is
+// the same walk over the cache's rows (R = N, base 0, rows clamped), with
+// the selection mask deciding what each unit reads and writes.
 constexpr int kGatherThreads = 256;   // one chunk: 8 warps x 32 requests
 // chip_smoke.py's row_gather_windows phase builds the kernel with other
 // windows (-DSIDECAR_ROW_GATHER_WINDOW_BYTES=...) and times each.
@@ -434,11 +456,40 @@ template <> __device__ __forceinline__ int4 splat<int4>(int x) {
   return make_int4(x, x, x, x);
 }
 
-// T is the unit of a copy (int4, or int on the scalar path); `e` the row
-// width in units; `window` the rows of a pass; `chunks` the request chunks.
-template <typename T>
-__global__ void __launch_bounds__(kGatherThreads) board_row_gather_kernel(
-    const T* __restrict__ bval, const T* __restrict__ bslot,
+// One published line of K1: the board's (val, slot) where selected, else
+// (0, -1), with the staleness gate on val (ts = val >> 3 in (0, horizon),
+// horizon = now - stale_ticks, zeroes it; the slot stays).
+__device__ __forceinline__ void publish_line(bool selected, int horizon,
+                                             int& val, int& slot) {
+  val = selected ? val : 0;
+  const int ts = val >> 3;
+  if (ts > 0 && ts < horizon) val = 0;
+  slot = selected ? slot : -1;
+}
+
+__device__ __forceinline__ void publish_unit(unsigned bits, int horizon,
+                                             int& val, int& slot) {
+  publish_line(bits & 1u, horizon, val, slot);
+}
+
+__device__ __forceinline__ void publish_unit(unsigned bits, int horizon,
+                                             int4& val, int4& slot) {
+  publish_line(bits & 1u, horizon, val.x, slot.x);
+  publish_line(bits >> 1 & 1u, horizon, val.y, slot.y);
+  publish_line(bits >> 2 & 1u, horizon, val.z, slot.z);
+  publish_line(bits >> 3 & 1u, horizon, val.w, slot.w);
+}
+
+// The windowed walk.  T is the unit of a copy (int4, or int on the scalar
+// path); `e` the row width in units; `window` the rows of a pass; `chunks`
+// the request chunks.  PUBLISH = false (K3): copy rows of the board block
+// (val = bval, slot = bslot), (0, -1) outside it.  PUBLISH = true (K1's
+// gather pass): rows of the cache (rows = N, base 0), src clamped to
+// [0, N), each unit published from its `words`-word row of `mask`.
+template <typename T, bool PUBLISH>
+__device__ __forceinline__ void windowed_row_gather(
+    const T* __restrict__ val, const T* __restrict__ slot,
+    const unsigned* __restrict__ mask, int words, int horizon,
     const int* __restrict__ src, int rows, int n_req, int e, int base,
     int window, int chunks, T* __restrict__ pv, T* __restrict__ ps) {
   const unsigned lane = threadIdx.x & 31u;
@@ -451,7 +502,8 @@ __global__ void __launch_bounds__(kGatherThreads) board_row_gather_kernel(
   int row = -1;        // -1: out of block
   bool mine = false;   // this pass copies request i
   if (i < n_req) {
-    const int64_t rel = static_cast<int64_t>(src[i]) - base;
+    int64_t rel = static_cast<int64_t>(src[i]) - base;
+    if constexpr (PUBLISH) rel = rel < 0 ? 0 : (rel < rows ? rel : rows - 1);
     const bool in_block = rel >= 0 && rel < rows;
     row = in_block ? static_cast<int>(rel) : -1;
     mine = in_block ? rel >= lo && rel < lo + window : pass == 0;
@@ -461,19 +513,61 @@ __global__ void __launch_bounds__(kGatherThreads) board_row_gather_kernel(
     const int r = __shfl_sync(kFull, row, t);
     const int64_t out = (first + t) * e;
     const int64_t in = static_cast<int64_t>(r) * e;
-    for (int x = static_cast<int>(lane); x < e; x += 32) {
-      pv[out + x] = r >= 0 ? bval[in + x] : splat<T>(0);
-      ps[out + x] = r >= 0 ? bslot[in + x] : splat<T>(-1);
+    if constexpr (PUBLISH) {
+      // Lines a unit: its mask bits are U consecutive bits of one word.
+      constexpr int U = static_cast<int>(sizeof(T) / sizeof(int));
+      const unsigned* __restrict__ m = mask + static_cast<int64_t>(r) * words;
+      for (int x = static_cast<int>(lane); x < e; x += 32) {
+        const unsigned bits =
+            (m[U * x / 32] >> (U * x % 32)) & ((1u << U) - 1u);
+        T v = splat<T>(0), s = splat<T>(-1);
+        if (bits) {                // an unselected unit reads nothing
+          v = val[in + x];
+          s = slot[in + x];
+          publish_unit(bits, horizon, v, s);
+        }
+        pv[out + x] = v;
+        ps[out + x] = s;
+      }
+    } else {
+      for (int x = static_cast<int>(lane); x < e; x += 32) {
+        pv[out + x] = r >= 0 ? val[in + x] : splat<T>(0);
+        ps[out + x] = r >= 0 ? slot[in + x] : splat<T>(-1);
+      }
     }
   }
 }
 
 template <typename T>
-int launch_row_gather(const void* bval, const void* bslot, const void* src,
-                      int rows, int n_req, int e, int base, void* pv,
-                      void* ps, cudaStream_t stream) {
+__global__ void __launch_bounds__(kGatherThreads) board_row_gather_kernel(
+    const T* __restrict__ bval, const T* __restrict__ bslot,
+    const int* __restrict__ src, int rows, int n_req, int e, int base,
+    int window, int chunks, T* __restrict__ pv, T* __restrict__ ps) {
+  windowed_row_gather<T, false>(bval, bslot, nullptr, 0, 0, src, rows, n_req,
+                                e, base, window, chunks, pv, ps);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGatherThreads) fused_publish_gather_kernel(
+    const T* __restrict__ cache_val, const T* __restrict__ cache_slot,
+    const unsigned* __restrict__ mask, int words, int horizon,
+    const int* __restrict__ src, int n, int n_req, int e, int window,
+    int chunks, T* __restrict__ pv, T* __restrict__ ps) {
+  windowed_row_gather<T, true>(cache_val, cache_slot, mask, words, horizon,
+                               src, n, n_req, e, 0, window, chunks, pv, ps);
+}
+
+// The walk's grid: `window` rows a pass (3 MiB of the two row buffers,
+// `row_bytes` a row), `chunks` of kGatherThreads requests, passes * chunks
+// blocks.
+struct GatherGrid {
+  int window;
+  int chunks;
+  unsigned blocks;
+};
+
+GatherGrid gather_grid(int rows, int n_req, long long row_bytes) {
   const long long chunks = (n_req + kGatherThreads - 1LL) / kGatherThreads;
-  const long long row_bytes = 2LL * e * static_cast<long long>(sizeof(T));
   long long window = kWindowBytes / row_bytes;
   if (window < 1) window = 1;
   if (window > rows) window = rows > 0 ? rows : 1;
@@ -483,16 +577,35 @@ int launch_row_gather(const void* bval, const void* bslot, const void* src,
     window = (rows + max_passes - 1) / max_passes;
   }
   const long long passes = rows > 0 ? (rows + window - 1) / window : 1;
-  board_row_gather_kernel<T><<<static_cast<unsigned>(passes * chunks),
-                               kGatherThreads, 0, stream>>>(
+  return {static_cast<int>(window), static_cast<int>(chunks),
+          static_cast<unsigned>(passes * chunks)};
+}
+
+template <typename T>
+int launch_row_gather(const void* bval, const void* bslot, const void* src,
+                      int rows, int n_req, int e, int base, void* pv,
+                      void* ps, cudaStream_t stream) {
+  const GatherGrid g = gather_grid(rows, n_req, 2LL * e * sizeof(T));
+  board_row_gather_kernel<T><<<g.blocks, kGatherThreads, 0, stream>>>(
       static_cast<const T*>(bval), static_cast<const T*>(bslot),
-      static_cast<const int*>(src), rows, n_req, e, base,
-      static_cast<int>(window), static_cast<int>(chunks),
+      static_cast<const int*>(src), rows, n_req, e, base, g.window, g.chunks,
       static_cast<T*>(pv), static_cast<T*>(ps));
   return static_cast<int>(cudaGetLastError());
 }
 
-inline unsigned threads_for(int k) { return k < 32 ? 32u : static_cast<unsigned>(k); }
+template <typename T>
+int launch_fused_gather(const void* cache_val, const void* cache_slot,
+                        const void* mask, int words, int horizon,
+                        const void* src, int n, int n_req, int e, void* pv,
+                        void* ps, cudaStream_t stream) {
+  const GatherGrid g = gather_grid(n, n_req, 2LL * e * sizeof(T));
+  fused_publish_gather_kernel<T><<<g.blocks, kGatherThreads, 0, stream>>>(
+      static_cast<const T*>(cache_val), static_cast<const T*>(cache_slot),
+      static_cast<const unsigned*>(mask), words, horizon,
+      static_cast<const int*>(src), n, n_req, e, g.window, g.chunks,
+      static_cast<T*>(pv), static_cast<T*>(ps));
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -504,33 +617,10 @@ extern "C" int sidecar_publish_board(
     const void* cache_val, const void* cache_slot, const void* cache_sent,
     int n, int k, int budget, int limit, int fanout, int row_offset,
     void* bval, void* bslot, void* sent, void* stream) {
-  if (n <= 0) return 0;
-  const int lines = k < 32 ? 1 : k / 32;   // L, lines a lane
-  const uintptr_t words = reinterpret_cast<uintptr_t>(cache_val) |
-                          reinterpret_cast<uintptr_t>(cache_slot) |
-                          reinterpret_cast<uintptr_t>(bval) |
-                          reinterpret_cast<uintptr_t>(bslot);
-  const uintptr_t bytes = reinterpret_cast<uintptr_t>(cache_sent) |
-                          reinterpret_cast<uintptr_t>(sent);
-  const uintptr_t sent_align = lines < 16 ? lines : 16;
-  const bool vec = lines >= 4 && (words & 15u) == 0 &&
-                   (bytes & (sent_align - 1)) == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (lines) {
-#define SIDECAR_PUBLISH_CASE(L)                                              \
-  case L:                                                                    \
-    return launch_publish_board<L>(cache_val, cache_slot, cache_sent, n, k,  \
-                                   budget, limit, fanout, row_offset, bval,  \
-                                   bslot, sent, vec, s);
-    SIDECAR_PUBLISH_CASE(1)
-    SIDECAR_PUBLISH_CASE(2)
-    SIDECAR_PUBLISH_CASE(4)
-    SIDECAR_PUBLISH_CASE(8)
-    SIDECAR_PUBLISH_CASE(16)
-    SIDECAR_PUBLISH_CASE(32)
-#undef SIDECAR_PUBLISH_CASE
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_publish_rows<true>(cache_val, cache_slot, cache_sent, n, k,
+                                   budget, limit, fanout, row_offset, bval,
+                                   bslot, nullptr, sent,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // `n_req` = nl * F requests.  The int4 path takes K % 4 == 0 with bval,
@@ -556,19 +646,38 @@ extern "C" int sidecar_board_row_gather(
                                 s);
 }
 
+// Two launches on `stream`: the select pass (sent, and the [n,
+// max(1, k/32)] int32 `mask` the wrapper allocated), then the gather pass
+// (pv, ps), int4 where k % 4 == 0 and cache_val, cache_slot, pv and ps are
+// 16-byte aligned, int32 otherwise.
 extern "C" int sidecar_fused_publish_gather(
     const void* cache_val, const void* cache_slot, const void* cache_sent,
     const void* src, int n, int f, int k, int budget, int limit, int fanout,
-    int now, int stale_ticks, void* sent, void* pv, void* ps, void* stream) {
+    int now, int stale_ticks, void* mask, void* sent, void* pv, void* ps,
+    void* stream) {
   if (n <= 0) return 0;
-  const int64_t blocks = static_cast<int64_t>(n) * (f + 1);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  fused_publish_gather_kernel<<<static_cast<unsigned>(blocks), threads_for(k),
-                                0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cache_val), static_cast<const int*>(cache_slot),
-      static_cast<const int8_t*>(cache_sent), static_cast<const int*>(src), n,
-      f, k, budget, limit, fanout, now, stale_ticks,
-      static_cast<int8_t*>(sent), static_cast<int*>(pv),
-      static_cast<int*>(ps));
-  return static_cast<int>(cudaGetLastError());
+  const long long n_req = static_cast<long long>(n) * f;
+  if (f < 0 || n_req > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_publish_rows<false>(
+      cache_val, cache_slot, cache_sent, n, k, budget, limit, fanout, 0,
+      nullptr, nullptr, mask, sent, s);
+  if (err != 0 || n_req == 0) return err;
+  // The gate's horizon in int32, as the reference computes it.
+  const int horizon = static_cast<int>(static_cast<uint32_t>(now) -
+                                       static_cast<uint32_t>(stale_ticks));
+  const uintptr_t bufs = reinterpret_cast<uintptr_t>(cache_val) |
+                         reinterpret_cast<uintptr_t>(cache_slot) |
+                         reinterpret_cast<uintptr_t>(pv) |
+                         reinterpret_cast<uintptr_t>(ps);
+  const int req = static_cast<int>(n_req);
+  if (k % 4 == 0 && (bufs & 15u) == 0) {
+    return launch_fused_gather<int4>(cache_val, cache_slot, mask,
+                                     mask_words(k), horizon, src, n, req,
+                                     k / 4, pv, ps, s);
+  }
+  return launch_fused_gather<int>(cache_val, cache_slot, mask, mask_words(k),
+                                  horizon, src, n, req, k, pv, ps, s);
 }

@@ -12,11 +12,14 @@ Three functions, each with both forms:
   (replaces ``publish_board_pallas``).
 * ``fused_publish_gather`` — the own rows' ``sent`` plus, for each
   receiver row r and leg f, the board of peer ``src[r, f]`` with the
-  staleness gate applied (``pv``/``ps`` [N, F, K]); the [N, K] board
-  never reaches memory in the kernel.  Plain version
+  staleness gate applied (``pv``/``ps`` [N, F, K]).  Plain version
   :func:`fused_publish_gather_torch` (``fused_publish_gather_xla``);
-  kernel ``fused_publish_gather_kernel`` (replaces
-  ``fused_publish_gather_pallas``).
+  two kernels launched by one call (replacing
+  ``fused_publish_gather_pallas``): ``fused_publish_select_kernel``
+  selects each row once and writes ``sent`` and a selection bit mask
+  (K bits a row) in place of the [N, K] board, then
+  ``fused_publish_gather_kernel`` walks the requests in windows of
+  rows and publishes each named row from the cache and its mask.
 * ``board_row_gather`` — the node-sharded round's delivery gather: from
   a board block whose row 0 is global node ``base``, the rows of the
   sampled peers ``src[r, f]`` (global ids), ``(0, -1)`` for a peer
@@ -175,9 +178,12 @@ publish_board_cuda.launches = 0
 def fused_publish_gather_cuda(cache_val, cache_slot, cache_sent, src,
                               now: int, *, stale_ticks: int, budget: int,
                               limit: int, fanout: int, cache_lines: int):
-    """Launch ``fused_publish_gather_kernel`` (one block per (r, f) pull
-    plus one per own row) on the current stream.  Returns
-    ``(sent, pv, ps)``."""
+    """Launch the select pass (a warp per row: ``sent`` and the rows'
+    selection masks, in a scratch ``[N, max(1, K/32)]`` int32 tensor)
+    and then the gather pass (the board row gather's windowed walk over
+    ``src``, each named row published from the cache and its mask) on
+    the current stream; one count in ``launches`` for the pair.
+    Returns ``(sent, pv, ps)``."""
     index = _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
     if src.dtype != torch.int32 or src.dim() != 2 or \
             src.shape[0] != cache_val.shape[0]:
@@ -188,14 +194,15 @@ def fused_publish_gather_cuda(cache_val, cache_slot, cache_sent, src,
     n, k = cache_val.shape
     f = src.shape[1]
     sent = torch.empty_like(cache_sent)
+    mask = cache_val.new_empty((n, max(1, k // 32)))
     pv = cache_val.new_empty((n, f, k))
     ps = torch.empty_like(pv)
-    launch("fused_publish_gather_kernel launch",
+    launch("fused publish gather launch",
            load("publish_gather").sidecar_fused_publish_gather, index,
            cache_val.data_ptr(), cache_slot.data_ptr(),
            cache_sent.data_ptr(), src.data_ptr(), n, f, k, min(budget, k),
-           limit, fanout, now, stale_ticks, sent.data_ptr(), pv.data_ptr(),
-           ps.data_ptr())
+           limit, fanout, now, stale_ticks, mask.data_ptr(),
+           sent.data_ptr(), pv.data_ptr(), ps.data_ptr())
     fused_publish_gather_cuda.launches += 1
     return sent, pv, ps
 

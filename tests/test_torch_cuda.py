@@ -128,6 +128,77 @@ def test_fused_gather_kernel_equals_plain(card, n, k, f):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def gather_corner(rng, case, k):
+    """(cache triple and src on the card, now, kwargs) of one corner of
+    the fused publish gather.  The publish corners come from
+    :func:`corner_cache` ("misaligned" also starts src one element past
+    an aligned address); N is 43, not a multiple of the 8 rows a select
+    block takes, except in "windows", where the rows span two and a
+    half of the gather pass's 3 MiB windows (8 K bytes of val and slot a
+    row)."""
+    n, f, now, stale = 43, 3, 1 << 19, 1 << 18
+    if case == "windows":
+        n = 5 * ((3 << 20) // (8 * k)) // 2 + 3
+    publish = case if case in ("budget-1", "budget-k", "exactly-b",
+                               "b-minus-1", "bit30", "all-tied",
+                               "misaligned") else "random"
+    (cv, cs, se), kw = corner_cache(rng, publish, n, k)
+    del kw["row_offset"]
+    if case == "f1":
+        f = 1
+    src = rng.integers(0, n, (n, f))
+    if case == "hot-row":
+        src[:] = 7
+    elif case == "self-sends":
+        src[:] = np.arange(n)[:, None]
+    elif case == "stale-edge":
+        # ts one below the horizon now - stale (stale), at it and one
+        # above (kept), and ts = 0 (never stale), any status bits; budget
+        # K publishes every eligible line, the stale ones too.
+        now, stale, kw["budget"] = 1000, 400, k
+        ts = rng.choice([599, 600, 601, 0], (n, k))
+        cv = torch.tensor(np.where(cs.cpu().numpy() >= 0,
+                                   (ts << 3) | rng.integers(0, 8, (n, k)),
+                                   0), dtype=torch.int32).cuda()
+    src = torch.tensor(src, dtype=torch.int32)
+    if case == "misaligned":
+        src = torch.cat([src.reshape(-1)[:1], src.reshape(-1)]).cuda()[1:] \
+            .view(n, f)
+    else:
+        src = src.cuda()
+    return (cv, cs, se, src), now, dict(kw, stale_ticks=stale, fanout=f)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 32, 256, 1024])
+@pytest.mark.parametrize("case", ["random", "budget-1", "budget-k",
+                                  "exactly-b", "b-minus-1", "bit30",
+                                  "all-tied", "f1", "hot-row", "self-sends",
+                                  "stale-edge", "windows", "misaligned"])
+def test_fused_gather_kernel_corners(card, k, case):
+    """The two-pass fused publish gather's corners: K from 1 to 1024 (K
+    < 4 takes the gather pass's scalar path, K < 32 one mask word a row,
+    K = 1024 32 words), budget 1 and budget K, rows with exactly B and
+    B - 1 positive priorities, bit 30 set, every line tied, F = 1, a hot
+    row that every request names, self-sends, the staleness boundary,
+    a ragged N and N over several windows, and all four input buffers
+    one element past an aligned address (the scalar paths)."""
+    rng = np.random.default_rng(k + 1000)
+    (cv, cs, se, src), now, kw = gather_corner(rng, case, k)
+    if case == "misaligned":
+        assert cv.data_ptr() % 16 and se.data_ptr() % 2 and \
+            src.data_ptr() % 16
+    before = pg.fused_publish_gather_cuda.launches
+    got = pg.fused_publish_gather_cuda(cv, cs, se, src, now, **kw)
+    want = pg.fused_publish_gather_torch(cv, cs, se, src, now, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert pg.fused_publish_gather_cuda.launches - before == 1
+    if case == "stale-edge":
+        # Premise: the gate fired (keeping the slot) and spared ts at
+        # the horizon.
+        assert bool(((got[1] == 0) & (got[2] >= 0)).any())
+        assert bool((got[1] >> 3 == 600).any())
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_run_on_card_equals_cpu(card, fused):
     p = CompressedParams(n=512, services_per_node=10, cache_lines=256,

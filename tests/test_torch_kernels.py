@@ -203,6 +203,51 @@ def run_both(ref, cache, src, now, kw):
     return got, want
 
 
+def gather_corner(name):
+    """(cache triple, src, now, kwargs) of one corner of the card's
+    two-pass fused publish gather, at n <= 64: publish corners of
+    ``BOARD_CASES`` (K below a warp with budget 1 and budget K, rows with
+    exactly B and B - 1 positive priorities, bit 30 set, every line
+    tied), F = 1, a hot row that every request names, self-sends, the
+    staleness boundary (ts one below ``now - stale_ticks``, at it, one
+    above, and 0) and a ragged N."""
+    now, stale, f = 1 << 19, 1 << 18, 3
+    if name in ("k1-budget1", "k2-budget2", "k4-budget1", "exactly-b",
+                "b-minus-1", "bit30", "all-tied-high-offset"):
+        (cv, cs, se), kw = board_case(name)
+    elif name == "budget-k":
+        rng = np.random.default_rng(60)
+        (cv, cs, se), kw = random_cache(rng, 29, 8, occupancy=0.9), \
+            dict(budget=8, limit=6, fanout=3)
+    else:
+        rng = np.random.default_rng(61)
+        (cv, cs, se), kw = random_cache(rng, 43, 16), \
+            dict(budget=5, limit=6, fanout=3)
+    kw.pop("row_offset", None)
+    n = cv.shape[0]
+    rng = np.random.default_rng(62)
+    if name == "f1":
+        f = 1
+    src = rng.integers(0, n, (n, f)).astype(np.int32)
+    if name == "hot-row":
+        src[:] = 7
+    elif name == "self-sends":
+        src[:] = np.arange(n, dtype=np.int32)[:, None]
+    elif name == "stale-edge":
+        # Budget K publishes every eligible line, the stale ones too.
+        now, stale, kw["budget"] = 1000, 400, cv.shape[1]
+        ts = rng.choice([599, 600, 601, 0], cv.shape)
+        cv = np.where(cs >= 0, (ts << 3) | rng.integers(0, 8, cv.shape),
+                      0).astype(np.int32)
+    return (cv, cs, se), src, now, dict(kw, stale_ticks=stale,
+                                        cache_lines=cv.shape[1])
+
+
+GATHER_CORNERS = ["k1-budget1", "k2-budget2", "k4-budget1", "budget-k",
+                  "exactly-b", "b-minus-1", "bit30", "all-tied-high-offset",
+                  "f1", "hot-row", "self-sends", "stale-edge", "ragged"]
+
+
 class TestFusedGatherPlain:
     @pytest.mark.parametrize("n,k,f", GATHER_CASES)
     def test_matches_xla(self, n, k, f):
@@ -214,6 +259,22 @@ class TestFusedGatherPlain:
         got, want = run_both(fused_publish_gather_pallas,
                              *gather_inputs(n, k, f))
         assert_all_equal(got, want, ("sent", "pv", "ps"))
+
+    @pytest.mark.parametrize("case", GATHER_CORNERS)
+    def test_corners_match_xla(self, case):
+        got, want = run_both(fused_publish_gather_xla, *gather_corner(case))
+        assert_all_equal(got, want, ("sent", "pv", "ps"))
+
+    @pytest.mark.parametrize("case", ["k2-budget2", "hot-row", "stale-edge"])
+    def test_corners_match_pallas_interpret(self, case):
+        got, want = run_both(fused_publish_gather_pallas,
+                             *gather_corner(case))
+        assert_all_equal(got, want, ("sent", "pv", "ps"))
+        if case == "stale-edge":
+            # Premise: the gate fired (ps kept its slot where pv zeroed)
+            # and spared ts at the horizon.
+            assert bool(((got[1] == 0) & (got[2] >= 0)).any())
+            assert bool((got[1] >> 3 == 600).any())
 
     @pytest.mark.parametrize("ref", [fused_publish_gather_xla,
                                      fused_publish_gather_pallas])
@@ -316,8 +377,8 @@ class TestDispatch:
         from sidecar_tpu_torch.ops.kernels import build
 
         text = build.source_path("publish_gather").read_text()
-        for sym in ("publish_board_kernel", "fused_publish_gather_kernel",
-                    "board_row_gather_kernel"):
+        for sym in ("publish_board_kernel", "fused_publish_select_kernel",
+                    "fused_publish_gather_kernel", "board_row_gather_kernel"):
             assert sym in text, sym
         for name, entry_points in build.SIGNATURES.items():
             text = build.source_path(name).read_text()
