@@ -85,24 +85,13 @@ def state_to_numpy(state) -> dict:
 def params_from_jax_fields(fields: dict) -> CompressedParams:
     """Compressed-model params from ``dataclasses.asdict`` of the
     reference's ``CompressedParams``."""
-    return CompressedParams(**_without_sparse_cap(fields))
+    return CompressedParams(**fields)
 
 
 def exact_params_from_jax_fields(fields: dict) -> SimParams:
     """Exact-model params from ``dataclasses.asdict`` of the reference's
     exact ``SimParams``."""
-    return SimParams(**_without_sparse_cap(fields))
-
-
-def _without_sparse_cap(fields: dict) -> dict:
-    """``sparse_cap`` belongs to the sparse-frontier round, which the
-    port does not run yet: only its default (0) is accepted."""
-    fields = dict(fields)
-    if fields.pop("sparse_cap", 0):
-        raise NotImplementedError(
-            "sparse_cap is not ported yet: ROADMAP.md Queue 1 item 6 "
-            "(execution modes: sparse-frontier round)")
-    return fields
+    return SimParams(**fields)
 
 
 def timecfg_from_fields(fields: dict) -> TimeConfig:
@@ -112,10 +101,16 @@ def timecfg_from_fields(fields: dict) -> TimeConfig:
 
 
 def topology_from_numpy(n: int, nbrs=None, deg=None,
-                        name: str = "complete") -> Topology:
-    """A port topology from the reference's ``(n, nbrs, deg)``; ``nbrs``
+                        name: str = "complete", *, stagger=None,
+                        stagger_period: int = 1) -> Topology:
+    """A port topology from the reference's ``(n, nbrs, deg)`` and, where
+    it staggers rounds, its ``stagger``/``stagger_period``; ``nbrs``
     None is the complete graph."""
+    stagger = None if stagger is None else np.asarray(stagger,
+                                                      dtype=np.int32)
     if nbrs is None:
-        return Topology(n=n, name=name)
+        return Topology(n=n, name=name, stagger=stagger,
+                        stagger_period=int(stagger_period))
     return Topology(n=n, nbrs=np.asarray(nbrs, dtype=np.int32),
-                    deg=np.asarray(deg, dtype=np.int32), name=name)
+                    deg=np.asarray(deg, dtype=np.int32), name=name,
+                    stagger=stagger, stagger_period=int(stagger_period))

@@ -17,11 +17,31 @@ baseline ``floor[M]``.  One round (:meth:`CompressedSim._step`):
 5. per-line census, floor advance and TTL sweep, every
    ``sweep_rounds``.
 
+Two more forms of the round, chosen per dispatch (``sparse=``,
+``pipeline=``; they do not compose):
+
+* the sparse-frontier round (:meth:`CompressedSim._step_sparse`,
+  ``ops/sparse.py``) runs publish, pull, merge and announce on the
+  compacted rows that can change — senders, receivers that sampled
+  one, announcers — and falls back to the dense round when a frontier
+  exceeds its cap (``sparse_cap``); it equals the dense round bit for
+  bit.  The compacted publish is the publish-only kernel with
+  ``row_ids``;
+* the software-pipelined round (:meth:`CompressedSim._step_pipelined`,
+  ``ops/pipeline.py``) folds round r's carried board while it publishes
+  round r+1's from the pre-fold cache (one round stale), through the
+  publish-only kernel.
+
+Peer sampling takes the topology's round stagger and the per-node tick
+cadence (``tick_period``/``tick_phase``) as delivery gates.
+
 Idiom of the port: plain functions on tensors, a dataclass state, an
 explicit device.  The reference's ``lax.cond`` on the round counter
 (steps 4 and 5) is a host branch on ``state.round_idx``, a Python int.
 The branch on a DEVICE predicate — the deep below-floor free,
 ``deep_due`` — is a ``torch.where`` (same values, no host sync).  The
+sparse round's ``lax.cond`` on frontier overflow is a host branch: it
+reads the three frontier sizes once a round, its only sync.  The
 behind census picks its path on the host (it reads two device scalars
 at each metric sample, where the caller reads the metric anyway).
 
@@ -44,8 +64,11 @@ from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import gossip as gossip_ops
 from sidecar_tpu_torch.ops import kernels as kernel_ops
 from sidecar_tpu_torch.ops import knobs as knob_ops
+from sidecar_tpu_torch.ops import pipeline as pipeline_ops
+from sidecar_tpu_torch.ops import sparse as sparse_ops
 from sidecar_tpu_torch.ops import suspicion as suspicion_ops
 from sidecar_tpu_torch.ops.gossip import MASK32, RoundDraws
+from sidecar_tpu_torch.ops.pipeline import Inflight
 from sidecar_tpu_torch.ops.merge import (
     admit_gate,
     apply_stickiness,
@@ -132,6 +155,12 @@ class CompressedParams:
                                  # P — width of the behind metric's
                                  # in-flight slot list (the fastest census
                                  # path); more in flight → the gather path
+    sparse_cap: int = 0          # C — width of the sparse round's sender
+                                 # and announcer compaction (receivers
+                                 # get C·fanout); 0 = auto
+                                 # (ops/sparse.default_frontier_cap).  A
+                                 # round whose frontier exceeds it runs
+                                 # the dense round instead
 
     def __post_init__(self):
         if self.cache_lines & (self.cache_lines - 1):
@@ -163,7 +192,18 @@ class CompressedParams:
 
 
 class CompressedSim:
-    """Single-device compressed simulator (the dense lockstep round)."""
+    """Single-device compressed simulator: the dense lockstep round, the
+    sparse-frontier round and the software-pipelined round.
+
+    ``sparse`` and ``pipeline`` are the modes (``"auto"``, ``"0"``,
+    ``"1"``; None is ``"auto"``) that a dispatch's ``sparse=`` and
+    ``pipeline=`` resolve against (``ops/sparse.py``,
+    ``ops/pipeline.py``); ``tick_period``/``tick_phase`` the per-node
+    tick cadence (ints, or scalar or ``[N]`` sequences)."""
+
+    # Whether this sim runs the sparse-frontier and pipelined rounds.
+    supports_sparse = True
+    supports_pipeline = True
 
     def __init__(self, params: CompressedParams, topo: Topology,
                  timecfg: TimeConfig = TimeConfig(), *,
@@ -171,10 +211,8 @@ class CompressedSim:
                  perturb=None, cut_mask=None, node_side=None,
                  sparse=None, pipeline=None, tick_period=None,
                  tick_phase=None):
-        common.reject_deferred(
-            topo, perturb=perturb, cut_mask=cut_mask, node_side=node_side,
-            sparse=sparse, pipeline=pipeline, tick_period=tick_period,
-            tick_phase=tick_phase)
+        common.reject_deferred(perturb=perturb, cut_mask=cut_mask,
+                               node_side=node_side)
         if topo.n != params.n:
             raise ValueError(
                 f"topology has {topo.n} nodes, params say {params.n}")
@@ -191,8 +229,24 @@ class CompressedSim:
         self._deg = None if topo.deg is None else \
             torch.as_tensor(np.asarray(topo.deg), dtype=I32,
                             device=self.device)
+        self._sparse_mode = sparse_ops.resolve_sparse(sparse)
+        self._pipeline_mode = pipeline_ops.resolve_pipeline(pipeline)
+        tick_period, tick_phase = common.resolve_cadence(
+            tick_period, tick_phase, params.n, self.device)
         self._knobs = knob_ops.from_protocol(
-            params, timecfg, recover_rounds=params.recover_rounds)
+            params, timecfg, recover_rounds=params.recover_rounds,
+            tick_period=tick_period, tick_phase=tick_phase)
+        self._stagger = common.stagger_tensor(topo, self.device)
+        self._stagger_period = int(topo.stagger_period)
+        cap = params.sparse_cap or sparse_ops.default_frontier_cap(params.n)
+        # (senders, receivers, announcers)
+        self._sparse_caps = (min(params.n, cap),
+                             min(params.n, cap * params.fanout),
+                             min(params.n, cap))
+        # The last sparse dispatch's int32 [3] stats (sparse rounds,
+        # overflow rounds, frontier high-water mark); None after a dense
+        # or pipelined one.
+        self.last_sparse_stats = None
 
     # -- state construction -------------------------------------------------
 
@@ -562,8 +616,11 @@ class CompressedSim:
             cache_val=swept_val, cache_sent=cache_sent)
 
     def _round_gossip_announce(self, state, src, keep, round_idx: int,
-                               now: int):
-        """Phases 1 + 2 of the round: publish/pull/merge + announce."""
+                               now: int, ann=None):
+        """Phases 1 + 2 of the round: publish/pull/merge + announce —
+        the dense form, which is also the sparse round's overflow
+        fallback.  ``ann`` is the announce's own/floor half when the
+        caller has computed it already (the sparse round has)."""
         p = self.p
         kn = self._knobs
         if self.fused_gather:
@@ -592,28 +649,210 @@ class CompressedSim:
             bval, bslot, sent = self._publish(state, kn.limit)
             state = self._pull_merge(state, sent, bval, bslot, src,
                                      state.node_alive, now, keep=keep)
-        return self._announce(state, round_idx, now)
+        if ann is None:
+            return self._announce(state, round_idx, now)
+        return self._insert_announce(state, ann)
 
-    def _step(self, state: CompressedState,
-              draws: RoundDraws) -> CompressedState:
-        """One dense lockstep round from this round's draws."""
-        p, t = self.p, self.t
+    def _insert_announce(self, state, ann):
+        """The announce's cache half: insert the offers of ``ann`` (the
+        own/floor half's ``(own, floor, offer_val, base_slot)``)."""
+        own1, floor1, offer_val, base_slot = ann
+        cv, cs, se, ev = self._insert_own_offers(
+            state.cache_val, state.cache_slot, state.cache_sent,
+            offer_val, base_slot, reset_on_hold=True)
+        return dataclasses.replace(
+            state, own=own1, floor=floor1, cache_slot=cs, cache_val=cv,
+            cache_sent=se, evictions=(state.evictions + ev).to(I32))
+
+    def _sample(self, state, draws: RoundDraws, round_idx: int):
+        """Round ``round_idx``'s gossip targets from its draws, gated by
+        the stagger and the tick cadence at that round."""
+        return gossip_ops.sample_peers(
+            draws.peer_slot.to(self.device, I32), self.p.n,
+            nbrs=self._nbrs, node_alive=state.node_alive,
+            **common.gate_kwargs(self, round_idx))
+
+    def _keep(self, draws: RoundDraws):
+        """The round's loss mask on this device, or None without loss."""
+        return draws.keep.to(self.device) if self._knobs.needs_drop_draw \
+            else None
+
+    def _tail(self, state, draws: RoundDraws, round_idx: int, now: int):
+        """Phases 3 + 4 — push-pull and the floor sweep on their
+        cadences, dense in every form of the round — and the round
+        counter."""
         kn = self._knobs
-        round_idx = state.round_idx + 1
-        now = round_idx * t.round_ticks
-        src = gossip_ops.sample_peers(
-            draws.peer_slot.to(self.device, I32), p.n, nbrs=self._nbrs,
-            node_alive=state.node_alive)
-        keep = None
-        if kn.needs_drop_draw:
-            keep = draws.keep.to(self.device)
-        state = self._round_gossip_announce(state, src, keep, round_idx,
-                                            now)
         if round_idx % kn.push_pull_rounds == 0:
             state = self._push_pull_stride(state, int(draws.stride), now)
         if round_idx % kn.sweep_rounds == 0:
             state = self._floor_advance_and_sweep(state, now)
         return dataclasses.replace(state, round_idx=round_idx)
+
+    def _step(self, state: CompressedState,
+              draws: RoundDraws) -> CompressedState:
+        """One dense lockstep round from this round's draws."""
+        round_idx = state.round_idx + 1
+        now = round_idx * self.t.round_ticks
+        src = self._sample(state, draws, round_idx)
+        state = self._round_gossip_announce(state, src, self._keep(draws),
+                                            round_idx, now)
+        return self._tail(state, draws, round_idx, now)
+
+    # -- the sparse-frontier round ------------------------------------------
+
+    def _sparse_frontiers(self, state, src, round_idx: int, now: int):
+        """The round's three frontiers, and the announce's own/floor
+        half that both branches use:
+
+        * senders — rows with an eligible line (occupied, transmits
+          left); every other row publishes an empty board;
+        * receivers — alive rows that sampled a sender; every other
+          row's pull folds only empty boards, a no-op;
+        * announcers — rows with a refresh or recovery offer."""
+        sender = kernel_ops.eligible_lines(
+            state.cache_slot, state.cache_sent, self._knobs.limit).any(dim=1)
+        recv = state.node_alive & sender[src.to(I64)].any(dim=1)
+        ann = self._announce_offers(state.own, state.floor,
+                                    state.node_alive, round_idx, now)
+        announcer = (ann[2] > 0).any(dim=1)
+        return sender, recv, announcer, ann
+
+    def _round_gossip_announce_sparse(self, st, src, keep, now: int,
+                                      sender, recv, announcer, ann):
+        """Phases 1 + 2 on the compacted frontiers — equal to
+        :meth:`_round_gossip_announce` when no frontier overflows (the
+        caller checks).  Every write-back is a gather and a select
+        (``compact[pos]`` under the frontier mask)."""
+        p = self.p
+        kn = self._knobs
+        k, s = p.cache_lines, p.services_per_node
+        cs_cap, cr_cap, ca_cap = self._sparse_caps
+        own1, floor1, offer_val, base_slot = ann
+        dev = st.cache_val.device
+
+        # Senders: the compacted board, each row's tie rotation seeded
+        # by its global id (pad rows carry id n and publish nothing).
+        idx_s, row_s, valid_s, pos_s = sparse_ops.compact_rows(sender,
+                                                               cs_cap)
+        rs = row_s.to(I64)
+        cv_s = torch.where(valid_s[:, None], st.cache_val[rs], 0)
+        sl_s = torch.where(valid_s[:, None], st.cache_slot[rs], -1)
+        bval_c, bslot_c, sent_c = kernel_ops.publish_board(
+            cv_s, sl_s, st.cache_sent[rs], budget=min(p.budget, k),
+            limit=kn.limit, fanout=p.fanout, cache_lines=k, row_ids=idx_s)
+        sent = torch.where(sender[:, None], sent_c[pos_s.to(I64)],
+                           st.cache_sent)
+        tb = kn.budget_arg()
+        b_own_c = None
+        if tb is not None:
+            b_own_c = torch.div(bslot_c, s, rounding_mode="floor") == \
+                idx_s[:, None]
+        bval_c = admit_gate(bval_c, now, kn.stale_ticks, kn.future_arg(),
+                            tb, b_own_c)
+        # Board row cs_cap is the inactive sender's: all zeros, slots -1.
+        bval_p = torch.cat([bval_c, torch.zeros((1, k), dtype=I32,
+                                                device=dev)])
+        bslot_p = torch.cat([bslot_c, torch.full((1, k), -1, dtype=I32,
+                                                 device=dev)])
+        bpos = torch.where(sender, pos_s, cs_cap)              # [N]
+
+        # Receivers: pull the compacted boards and fold.
+        idx_r, row_r, valid_r, pos_r = sparse_ops.compact_rows(recv,
+                                                               cr_cap)
+        rr = row_r.to(I64)
+        src_r = src[rr].to(I64)                                # [Cr, F]
+        b = bpos[src_r].to(I64)
+        pv, ps = bval_p[b], bslot_p[b]                         # [Cr, F, K]
+        ok = st.node_alive[src_r] & (st.node_alive[rr] & valid_r)[:, None]
+        keep_r = None if keep is None else keep[rr]
+        cv0_r, cs0_r = st.cache_val[rr], st.cache_slot[rr]
+        wv, ws = self._fold_pulled(cv0_r, cs0_r, cv0_r, cs0_r, pv, ps, ok,
+                                   now, keep=keep_r, stale_filtered=True)
+        changed = (wv != cv0_r) | (ws != cs0_r)
+        sent_r = torch.where(changed, 0, sent[rr])
+        ev = ((cs0_r >= 0) & (ws != cs0_r)).sum(dtype=I32)
+        pr = pos_r.to(I64)
+        recv_c = recv[:, None]
+        cache_val = torch.where(recv_c, wv[pr], st.cache_val)
+        cache_slot = torch.where(recv_c, ws[pr], st.cache_slot)
+        cache_sent = torch.where(recv_c, sent_r[pr], sent)
+
+        # Announcers: the cache insert on the compacted rows, after the
+        # merge, as in the dense round.
+        idx_a, row_a, valid_a, pos_a = sparse_ops.compact_rows(announcer,
+                                                               ca_cap)
+        ra = row_a.to(I64)
+        off_a = torch.where(valid_a[:, None], offer_val[ra], 0)
+        cv2, cs2, se2, ev_a = self._insert_own_offers(
+            cache_val[ra], cache_slot[ra], cache_sent[ra], off_a,
+            base_slot[ra], reset_on_hold=True)
+        pa = pos_a.to(I64)
+        ann_c = announcer[:, None]
+        return dataclasses.replace(
+            st, own=own1, floor=floor1,
+            cache_slot=torch.where(ann_c, cs2[pa], cache_slot),
+            cache_val=torch.where(ann_c, cv2[pa], cache_val),
+            cache_sent=torch.where(ann_c, se2[pa], cache_sent),
+            evictions=(st.evictions + ev + ev_a).to(I32))
+
+    def _step_sparse(self, state: CompressedState, draws: RoundDraws):
+        """One round on the sparse path: the compacted phases where the
+        frontiers fit their caps, else the dense round — equal either
+        way.  Returns ``(state, (ran sparse, overflowed, frontier
+        size))`` as host ints; reading the three frontier sizes is the
+        round's one host sync."""
+        round_idx = state.round_idx + 1
+        now = round_idx * self.t.round_ticks
+        src = self._sample(state, draws, round_idx)
+        keep = self._keep(draws)
+        sender, recv, announcer, ann = self._sparse_frontiers(
+            state, src, round_idx, now)
+        sizes = torch.stack([sender.sum(), recv.sum(),
+                             announcer.sum()]).tolist()
+        overflow = any(c > cap for c, cap in zip(sizes, self._sparse_caps))
+        if overflow:
+            state = self._round_gossip_announce(state, src, keep, round_idx,
+                                                now, ann=ann)
+        else:
+            state = self._round_gossip_announce_sparse(
+                state, src, keep, now, sender, recv, announcer, ann)
+        state = self._tail(state, draws, round_idx, now)
+        return state, (int(not overflow), int(overflow), max(sizes))
+
+    # -- the software-pipelined round ---------------------------------------
+
+    def _select_inflight(self, state, draws: RoundDraws, round_sel: int):
+        """Select round ``round_sel``'s publish from the current cache:
+        its peers (gated at ``round_sel``, with the current liveness —
+        stale by one) and the raw board, through the publish-only
+        kernel, with the transmit bump charged at once.  The admission
+        gates run at fold time.  Returns ``(inflight, cache_sent)``."""
+        src = self._sample(state, draws, round_sel)
+        bval, bslot, sent = self._publish(state, self._knobs.limit)
+        return Inflight(round_sel, (src, bval, bslot), draws), sent
+
+    def _step_pipelined(self, state, inflight: Inflight,
+                        draws_next: RoundDraws):
+        """One pipelined tick: fold the carried round-r boards (gated at
+        this tick's ``now`` and liveness) while round r+1's publish is
+        selected from the pre-fold cache, then announce, push-pull and
+        sweep as the lockstep round does.  Round r's loss mask and
+        stride come with the carry; ``draws_next`` are round r+1's.
+        Returns ``(state, inflight')``."""
+        round_idx = state.round_idx + 1
+        if inflight.round_idx != round_idx:
+            raise ValueError(
+                f"the carried publish is round {inflight.round_idx}'s, "
+                f"the state's next round is {round_idx}")
+        now = round_idx * self.t.round_ticks
+        src, bval, bslot = inflight.publish
+        draws = inflight.draws
+        nxt, sent = self._select_inflight(state, draws_next, round_idx + 1)
+        state = self._pull_merge(state, sent, bval, bslot, src,
+                                 state.node_alive, now,
+                                 keep=self._keep(draws))
+        state = self._announce(state, round_idx, now)
+        return self._tail(state, draws, round_idx, now), nxt
 
     # -- metrics ------------------------------------------------------------
 
@@ -733,10 +972,37 @@ class CompressedSim:
         return n_f * n_inflight.to(torch.float32) - \
             sum_hits.to(torch.float32)
 
-    # -- drivers ------------------------------------------------------------
+    # -- run methods --------------------------------------------------------
+    #
+    # Every run method takes its draws from ``generator`` (through
+    # :meth:`draw`) or from ``draws=``, one per round; ``sparse=`` and
+    # ``pipeline=`` resolve against the sim's modes.  ``start_round``, a
+    # caller's own round counter, stands in for ``state.round_idx`` in
+    # the horizon check, as in the reference's chunked runs.  A run
+    # in chunks equals a straight one: the sparse stats add up across
+    # chunks, and a pipelined chunk hands its ``inflight`` carry on.
 
-    def _check_horizon(self, state, num_rounds: int):
-        self.t.validate_horizon(state.round_idx + num_rounds)
+    def _check_horizon(self, state, num_rounds: int, start_round=None):
+        if start_round is None:
+            start_round = state.round_idx
+        self.t.validate_horizon(start_round + num_rounds)
+
+    def _resolve_sparse_request(self, sparse) -> bool:
+        return sparse_ops.resolve_request(self._sparse_mode, sparse,
+                                          self.supports_sparse)
+
+    def _resolve_pipeline_request(self, pipeline) -> bool:
+        return pipeline_ops.resolve_request(self._pipeline_mode, pipeline,
+                                            self.supports_pipeline)
+
+    def _pipeline_dispatch(self, sparse) -> None:
+        """Guard a pipelined dispatch: the carried board is the dense
+        one, so the sparse-frontier round does not compose with it."""
+        if self._resolve_sparse_request(sparse):
+            raise ValueError(
+                "pipelined execution does not compose with the "
+                "sparse-frontier round (the carried publish is dense); "
+                "pass sparse='0' or pipeline=False")
 
     def default_generator(self, seed: int) -> torch.Generator:
         """A ``torch.Generator`` on this sim's device, seeded."""
@@ -755,50 +1021,161 @@ class CompressedSim:
              draws: Optional[RoundDraws] = None) -> CompressedState:
         """One round, from ``draws`` or from ``generator``."""
         self._check_horizon(state, 1)
-        seq = None if draws is None else [draws]
-        (d,) = list(common.round_draws(self, state, 1, generator, seq))
+        (d,) = common.round_draws(self, state.round_idx + 1, 1, generator,
+                                  common.one_draw(draws))
         return self._step(state, d)
 
-    def run_fast(self, state: CompressedState, num_rounds: int, *,
-                 generator=None,
-                 draws: Optional[Sequence[RoundDraws]] = None):
-        """Run ``num_rounds`` rounds; returns the final state."""
-        self._check_horizon(state, num_rounds)
-        for d in common.round_draws(self, state, num_rounds, generator,
-                                    draws):
-            state = self._step(state, d)
-        return state
+    def step_sparse(self, state: CompressedState, *, generator=None,
+                    draws: Optional[RoundDraws] = None):
+        """One sparse-path round; returns ``(state, stats)``, stats an
+        int32 ``[3]`` tensor (``ops/sparse.py`` layout)."""
+        self._resolve_sparse_request(True)
+        self._check_horizon(state, 1)
+        (d,) = common.round_draws(self, state.round_idx + 1, 1, generator,
+                                  common.one_draw(draws))
+        state, stats = self._step_sparse(state, d)
+        return state, torch.tensor(stats, dtype=I32)
 
-    def _run_sampled(self, state, num_rounds: int, every: int, metric,
-                     generator, draws):
+    def _run(self, state, num_rounds: int, every: int, metric, generator,
+             draws, sparse: bool):
+        """``num_rounds`` lockstep (or sparse) rounds, sampling
+        ``metric`` every ``every`` rounds (none where ``metric`` is
+        None); a sparse run leaves its stats in ``last_sparse_stats``."""
         if num_rounds % every:
             raise ValueError(
                 f"num_rounds={num_rounds} not divisible by every={every}")
-        self._check_horizon(state, num_rounds)
+        self.last_sparse_stats = None
+        acc = [0, 0, 0]
         samples = []
-        for i, d in enumerate(common.round_draws(self, state, num_rounds,
-                                                 generator, draws)):
-            state = self._step(state, d)
-            if (i + 1) % every == 0:
+        for i, d in enumerate(common.round_draws(
+                self, state.round_idx + 1, num_rounds, generator, draws)):
+            if sparse:
+                state, st = self._step_sparse(state, d)
+                acc = [acc[0] + st[0], acc[1] + st[1], max(acc[2], st[2])]
+            else:
+                state = self._step(state, d)
+            if metric is not None and (i + 1) % every == 0:
                 samples.append(metric(state))
+        if sparse:
+            self.last_sparse_stats = torch.tensor(acc, dtype=I32)
         curve = torch.stack(samples) if samples else \
             torch.zeros(0, dtype=torch.float32, device=self.device)
         return state, curve
 
+    def run_fast(self, state: CompressedState, num_rounds: int, *,
+                 generator=None,
+                 draws: Optional[Sequence[RoundDraws]] = None,
+                 start_round=None, sparse=None, pipeline=None):
+        """Run ``num_rounds`` rounds; returns the final state."""
+        if self._resolve_pipeline_request(pipeline):
+            self._pipeline_dispatch(sparse)
+            return self.run_fast_pipelined(
+                state, num_rounds, generator=generator, draws=draws,
+                start_round=start_round)[0]
+        self._check_horizon(state, num_rounds, start_round)
+        return self._run(state, num_rounds, 1, None, generator, draws,
+                         self._resolve_sparse_request(sparse))[0]
+
     def run(self, state: CompressedState, num_rounds: int,
             conv_every: int = 1, *, generator=None,
-            draws: Optional[Sequence[RoundDraws]] = None):
+            draws: Optional[Sequence[RoundDraws]] = None,
+            start_round=None, sparse=None, pipeline=None):
         """Run ``num_rounds``, sampling :meth:`convergence` every
         ``conv_every`` rounds; returns ``(final, curve)``."""
-        return self._run_sampled(state, num_rounds, conv_every,
-                                 self.convergence, generator, draws)
+        if self._resolve_pipeline_request(pipeline):
+            self._pipeline_dispatch(sparse)
+            final, conv, _ = self.run_pipelined(
+                state, num_rounds, conv_every, generator=generator,
+                draws=draws, start_round=start_round)
+            return final, conv
+        self._check_horizon(state, num_rounds, start_round)
+        return self._run(state, num_rounds, conv_every, self.convergence,
+                         generator, draws,
+                         self._resolve_sparse_request(sparse))
 
     def run_behind(self, state: CompressedState, num_rounds: int,
                    every: int = 1, *, generator=None,
-                   draws: Optional[Sequence[RoundDraws]] = None):
+                   draws: Optional[Sequence[RoundDraws]] = None,
+                   start_round=None, sparse=None):
         """Like :meth:`run` but sampling the raw behind COUNT."""
-        return self._run_sampled(state, num_rounds, every, self.behind,
-                                 generator, draws)
+        self._check_horizon(state, num_rounds, start_round)
+        return self._run(state, num_rounds, every, self.behind, generator,
+                         draws, self._resolve_sparse_request(sparse))
+
+    # -- pipelined runs -----------------------------------------------------
+    #
+    # Priming selects round r0+1's publish from the state (one draw);
+    # each tick folds round r and selects round r+1 (one draw), so a
+    # pipelined run takes the same draws from a generator, in the same
+    # order, as a lockstep run — plus the one for the next round's
+    # carried publish.
+
+    def prime_pipeline(self, state: CompressedState, *, generator=None,
+                       draws: Optional[RoundDraws] = None):
+        """Fill the pipeline: select round ``state.round_idx + 1``'s
+        publish from the current cache, from that round's draws.
+        Returns ``(state, inflight)``."""
+        (d,) = common.round_draws(self, state.round_idx + 1, 1, generator,
+                                  common.one_draw(draws))
+        inflight, sent = self._select_inflight(state, d,
+                                               state.round_idx + 1)
+        return dataclasses.replace(state, cache_sent=sent), inflight
+
+    def step_pipelined(self, state: CompressedState, inflight: Inflight, *,
+                       generator=None, draws: Optional[RoundDraws] = None):
+        """One pipelined tick; ``draws`` (or the generator's next draw)
+        are the NEXT round's, ``state.round_idx + 2``.  Returns
+        ``(state, inflight)``."""
+        self._check_horizon(state, 1)
+        (d,) = common.round_draws(self, state.round_idx + 2, 1, generator,
+                                  common.one_draw(draws))
+        return self._step_pipelined(state, inflight, d)
+
+    def _run_pipelined(self, state, num_rounds: int, every: int, metric,
+                       inflight, generator, draws):
+        self._resolve_pipeline_request(True)
+        if num_rounds % every:
+            raise ValueError(
+                f"num_rounds={num_rounds} not divisible by every={every}")
+        self.last_sparse_stats = None
+        draws = None if draws is None else list(draws)
+        if inflight is None:
+            state, inflight = self.prime_pipeline(
+                state, generator=generator,
+                draws=None if draws is None else draws[0])
+            draws = None if draws is None else draws[1:]
+        samples = []
+        for i, d in enumerate(common.round_draws(
+                self, state.round_idx + 2, num_rounds, generator, draws)):
+            state, inflight = self._step_pipelined(state, inflight, d)
+            if metric is not None and (i + 1) % every == 0:
+                samples.append(metric(state))
+        curve = torch.stack(samples) if samples else \
+            torch.zeros(0, dtype=torch.float32, device=self.device)
+        return state, curve, inflight
+
+    def run_pipelined(self, state: CompressedState, num_rounds: int,
+                      conv_every: int = 1, *, inflight=None, generator=None,
+                      draws: Optional[Sequence[RoundDraws]] = None,
+                      start_round=None):
+        """Pipelined :meth:`run`: returns ``(final, curve, inflight)``.
+        ``inflight=None`` primes the pipeline first (taking one more
+        draw: ``draws`` then holds ``num_rounds + 1``); a chunked caller
+        passes the previous chunk's ``inflight``."""
+        self._check_horizon(state, num_rounds, start_round)
+        return self._run_pipelined(state, num_rounds, conv_every,
+                                   self.convergence, inflight, generator,
+                                   draws)
+
+    def run_fast_pipelined(self, state: CompressedState, num_rounds: int,
+                           *, inflight=None, generator=None,
+                           draws: Optional[Sequence[RoundDraws]] = None,
+                           start_round=None):
+        """Pipelined :meth:`run_fast`: returns ``(final, inflight)``."""
+        self._check_horizon(state, num_rounds, start_round)
+        final, _, inflight = self._run_pipelined(
+            state, num_rounds, 1, None, inflight, generator, draws)
+        return final, inflight
 
 
 # -- host-path kernels ------------------------------------------------------

@@ -1,6 +1,7 @@
 """The gossip-round ops — the port of ``sidecar_tpu/ops/gossip.py``:
 the refresh stagger (``refresh_phase``, ``refresh_due``), peer sampling
-(``sample_peers``), and the exact model's round (``eligible_mask``,
+(``sample_peers``) with its delivery gates (``cadence_gate``,
+``stagger_gate``), and the exact model's round (``eligible_mask``,
 ``eligible_records``, ``select_messages``, ``expand_deliveries``,
 ``finalize_deliveries``, ``prepare_deliveries``, ``apply_updates``,
 ``record_transmissions``, ``push_pull``), plus the one seam all
@@ -128,14 +129,51 @@ def draw_round(generator: torch.Generator, n: int, fanout: int, *,
                       pp_slot=pp_slot)
 
 
-def sample_peers(peer_slot, n: int, *, nbrs=None, node_alive=None):
+def cadence_gate(dst, round_idx: int, tick_period, tick_phase,
+                 self_idx=None):
+    """Per-node tick cadence: node i ticks iff ``(round_idx + phase[i])
+    % period[i] == 0``; off this round, every sampled target resolves to
+    itself (the merge no-op self-send, like a dead sender).
+    ``tick_period``/``tick_phase`` are ints or int32 tensors, scalar or
+    per-node ``[N]``; periods are clamped to at least 1.  Gossip fan-out
+    only: push-pull is never gated, and the draws happen either way."""
+    n = dst.shape[0]
+    dev = dst.device
+    if self_idx is None:
+        self_idx = torch.arange(n, dtype=torch.int32, device=dev)
+    period = torch.as_tensor(tick_period, dtype=torch.int32,
+                             device=dev).reshape(-1).expand(n)
+    phase = torch.as_tensor(tick_phase, dtype=torch.int32,
+                            device=dev).reshape(-1).expand(n)
+    off = ((round_idx + phase) % torch.clamp(period, min=1)) != 0
+    return torch.where(off[:, None], self_idx.reshape(-1, 1), dst)
+
+
+def stagger_gate(dst, round_idx: int, stagger, stagger_period: int,
+                 self_idx=None):
+    """Round stagger: node i gossips only when ``(round_idx +
+    stagger[i]) % stagger_period == 0`` — :func:`cadence_gate` with one
+    period for every node.  ``stagger`` None or a period of at most 1
+    returns ``dst`` untouched."""
+    if stagger is None or stagger_period <= 1:
+        return dst
+    return cadence_gate(dst, round_idx, stagger_period, stagger,
+                        self_idx=self_idx)
+
+
+def sample_peers(peer_slot, n: int, *, nbrs=None, node_alive=None,
+                 stagger=None, stagger_period: int = 1, round_idx=None,
+                 tick_period=None, tick_phase=None):
     """Resolve a round's ``peer_slot`` draws to gossip targets
     ``dst[int32 N, F]``.  Dead senders resolve to their own index (a
     self-send is a merge no-op).
 
     ``nbrs`` (int32 [N, D]) is the padded neighbour list; None is the
     complete graph, where the draw ``r`` in ``[0, N-1)`` becomes
-    ``r + (r >= self)``."""
+    ``r + (r >= self)``.  After the draw, the stagger gate
+    (:func:`stagger_gate`) and then the cadence gate
+    (:func:`cadence_gate`, when ``tick_period`` is given) apply at
+    ``round_idx``; a node sends only when both are on."""
     self_idx = torch.arange(n, dtype=torch.int32,
                             device=peer_slot.device)[:, None]
     if nbrs is None:
@@ -144,6 +182,17 @@ def sample_peers(peer_slot, n: int, *, nbrs=None, node_alive=None):
         dst = torch.gather(nbrs, 1, peer_slot.to(torch.int64))
     if node_alive is not None:
         dst = torch.where(node_alive[:, None], dst, self_idx)
+    if stagger is not None and stagger_period > 1:
+        if round_idx is None:
+            raise ValueError("stagger gating needs the current round_idx")
+        dst = stagger_gate(dst, round_idx, stagger, stagger_period,
+                           self_idx=self_idx[:, 0])
+    if tick_period is not None:
+        if round_idx is None:
+            raise ValueError("cadence gating needs the current round_idx")
+        dst = cadence_gate(dst, round_idx, tick_period,
+                           0 if tick_phase is None else tick_phase,
+                           self_idx=self_idx[:, 0])
     return dst
 
 
@@ -175,17 +224,23 @@ def top_k(x, k: int):
     return (top >> 32).to(I32), MASK32 - (top & MASK32)
 
 
-def _row_rotation(n: int, device, row_offset: int = 0):
-    """``uint32(row id) · PHASE_MULT mod 2³²`` per row, as int64."""
-    rows = torch.arange(n, dtype=I64, device=device) + row_offset
+def _row_rotation(n: int, device, row_offset: int = 0, row_ids=None):
+    """``uint32(row id) · PHASE_MULT mod 2³²`` per row, as int64; the
+    row ids are ``row_offset + i``, or ``row_ids`` when given."""
+    if row_ids is not None:
+        rows = row_ids.to(device, I64) & MASK32
+    else:
+        rows = torch.arange(n, dtype=I64, device=device) + row_offset
     return (rows * PHASE_MULT) & MASK32
 
 
 def select_messages(known, sent, budget: int, limit: int,
-                    row_offset: int = 0):
+                    row_offset: int = 0, row_ids=None):
     """Top-``budget`` freshest eligible records per node, with the
     reference's per-row rotation of the tie order (row ``i`` scans from a
-    hashed offset; ``row_offset`` is the global id of row 0).
+    hashed offset; ``row_offset`` is the global id of row 0, and
+    ``row_ids`` int32 ``[N]``, when given, the global id of each row — the
+    sparse round selects on a compacted, non-contiguous row set).
 
     Rows of at most 4,096 columns take one ``top_k`` over the rotated
     row.  Wider rows take the reference's two stages as written: groups
@@ -202,7 +257,7 @@ def select_messages(known, sent, budget: int, limit: int,
     n, m = priority.shape
     dev = priority.device
     budget = min(budget, m)
-    rot = _row_rotation(n, dev, row_offset)
+    rot = _row_rotation(n, dev, row_offset, row_ids)
 
     if m <= 4 * 1024:
         r = (rot % m)[:, None]
@@ -239,8 +294,8 @@ def select_messages(known, sent, budget: int, limit: int,
 
 
 def expand_deliveries(dst, svc_idx, msg, *, now_tick: int,
-                      stale_ticks: int, node_alive=None, record_keep=None,
-                      future_ticks=None, tomb_budget=None,
+                      stale_ticks: int, node_alive=None, sender_alive=None,
+                      record_keep=None, future_ticks=None, tomb_budget=None,
                       sender_own=None):
     """Expand each sender's ``B`` selected records to each of its ``F``
     targets as flat ``(row, col, val)`` triples, every gate applied but
@@ -248,7 +303,9 @@ def expand_deliveries(dst, svc_idx, msg, *, now_tick: int,
     (staleness; the future bound and the per-origin budget when not
     None — ``sender_own`` [N, B] exempts the sender's own slots), dead
     sender or receiver, and the pre-drawn loss mask ``record_keep``
-    ``[N, F, B]``."""
+    ``[N, F, B]``.  ``sender_alive`` replaces the sender-liveness gate
+    for a compacted batch whose rows are not node ids (the sparse
+    round); ``node_alive`` still gates the receivers."""
     n, fanout = dst.shape
     budget = svc_idx.shape[1]
     shape = (n, fanout, budget)
@@ -258,7 +315,8 @@ def expand_deliveries(dst, svc_idx, msg, *, now_tick: int,
     val = admit_gate(val, now_tick, stale_ticks, future_ticks, tomb_budget,
                      own)
     if node_alive is not None:
-        val = torch.where(node_alive[:, None, None], val, 0)
+        snd = sender_alive if sender_alive is not None else node_alive
+        val = torch.where(snd[:, None, None], val, 0)
         val = torch.where(node_alive[tgt.to(I64)], val, 0)
     if record_keep is not None:
         val = torch.where(record_keep, val, 0)
@@ -298,7 +356,7 @@ def apply_updates(known, sent, rows, cols, vals, advanced):
                                         advanced)
 
 
-def record_transmissions(sent, svc_idx, msg, fanout: int):
+def record_transmissions(sent, svc_idx, msg, fanout: int, row_ids=None):
     """Charge ``fanout`` transmissions to every record offered this round,
     in place — the reference's unclamped int8 scatter-add (counts stay
     under ``limit + fanout − 1``).
@@ -308,13 +366,30 @@ def record_transmissions(sent, svc_idx, msg, fanout: int):
     exact without atomics.  A padding entry is pointed at the row's
     first selection with that selection's value (both writers then
     store the same number), or at column 0 unchanged when the row
-    selected nothing.  Returns ``sent``."""
+    selected nothing.
+
+    ``row_ids`` (int32 ``[C]``, distinct) maps a compacted selection
+    batch to its rows of ``sent``; ids out of ``[0, N)`` — the pad id
+    ``N`` — drop.  A dropped row charges nothing: it is pointed at a row
+    outside the batch (one exists wherever a batch has a pad) and writes
+    that row's counts back unchanged, so no two writers of a cell store
+    different numbers.  Returns ``sent``."""
     first = msg[:, :1] > 0
     col0 = torch.where(first, svc_idx[:, :1].to(I64), 0)
     offered = msg > 0
     cols = torch.where(offered, svc_idx.to(I64), col0)
     bump = torch.where(offered | first, fanout, 0).to(sent.dtype)
-    return sent.scatter_(1, cols, torch.gather(sent, 1, cols) + bump)
+    if row_ids is None:
+        return sent.scatter_(1, cols, torch.gather(sent, 1, cols) + bump)
+    n = sent.shape[0]
+    ids = row_ids.to(I64)
+    real = (ids >= 0) & (ids < n)
+    member = torch.zeros(n + 1, dtype=torch.bool, device=sent.device)
+    member[torch.where(real, ids, n)] = True
+    spare = torch.argmin(member[:n].to(torch.int8))
+    rows = torch.where(real, ids, spare)[:, None].expand_as(cols)
+    bump = torch.where(real[:, None], bump, 0).to(sent.dtype)
+    return sent.index_put_((rows, cols), sent[rows, cols] + bump)
 
 
 def push_pull(known, partner, *, now_tick: int, stale_ticks: int,

@@ -37,7 +37,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "publish_gather": {
         "sidecar_publish_board": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                                  _P, _P, _P],
+                                  _P, _P, _P, _P],
         "sidecar_board_row_gather": [_P, _P, _P, _I, _LL, _I, _I, _P, _P,
                                      _P],
         "sidecar_fused_publish_gather": [_P, _P, _P, _P, _I, _I, _I, _I,

@@ -18,7 +18,9 @@
 //   above    = priority > t
 //   tie      = priority == t && priority > 0
 //   ties are admitted in the row's rotated column order while their rank
-//   is <= B - #above, rot = (uint32(gid) * 2654435761) & (K - 1)
+//   is <= B - #above, rot = (uint32(gid) * 2654435761) & (K - 1), gid the
+//   row's global id: row_offset + row, or row_ids[row] where the caller
+//   gives ids (the sparse round's compacted rows, K2 only)
 //   bval/bslot = selected ? (val, slot) : (0, -1)
 //   sent       = min(sent + fanout * selected, limit)          (int8)
 // t is the largest t with count(priority >= t) >= B, found greedily bit by
@@ -234,9 +236,9 @@ template <int L, bool VEC, bool BOARD>
 __device__ __forceinline__ void publish_rows(
     const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
     const int8_t* __restrict__ cache_sent, int n, int k, int budget,
-    int limit, int fanout, int row_offset, int* __restrict__ bval,
-    int* __restrict__ bslot, unsigned* __restrict__ mask,
-    int8_t* __restrict__ sent_out) {
+    int limit, int fanout, int row_offset, const int* __restrict__ row_ids,
+    int* __restrict__ bval, int* __restrict__ bslot,
+    unsigned* __restrict__ mask, int8_t* __restrict__ sent_out) {
   static_assert(!VEC || L >= 4, "vector accesses need 4 lines a lane");
   const int row = static_cast<int>(blockIdx.x) * kPublishWarps +
                   static_cast<int>(threadIdx.x >> 5);
@@ -268,8 +270,10 @@ __device__ __forceinline__ void publish_rows(
   for (int i = 0; i < L; ++i) {
     priority[i] = slot[i] >= 0 && sent[i] < limit ? val[i] : 0;
   }
-  const uint32_t gid = static_cast<uint32_t>(row_offset) +
-                       static_cast<uint32_t>(row);
+  const uint32_t gid = row_ids != nullptr
+                           ? static_cast<uint32_t>(row_ids[row])
+                           : static_cast<uint32_t>(row_offset) +
+                                 static_cast<uint32_t>(row);
   const unsigned sel = warp_select_lines<L>(priority, first, gid, k, budget);
   if constexpr (!BOARD) {
     // Line j is bit j % 32 of word j / 32: the 32 / L lanes of a word OR
@@ -324,12 +328,12 @@ template <int L, bool VEC>
 __global__ void __launch_bounds__(kPublishWarps * 32) publish_board_kernel(
     const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
     const int8_t* __restrict__ cache_sent, int n, int k, int budget,
-    int limit, int fanout, int row_offset, int* __restrict__ bval,
-    int* __restrict__ bslot, unsigned* __restrict__ mask,
-    int8_t* __restrict__ sent_out) {
+    int limit, int fanout, int row_offset, const int* __restrict__ row_ids,
+    int* __restrict__ bval, int* __restrict__ bslot,
+    unsigned* __restrict__ mask, int8_t* __restrict__ sent_out) {
   publish_rows<L, VEC, true>(cache_val, cache_slot, cache_sent, n, k, budget,
-                             limit, fanout, row_offset, bval, bslot, mask,
-                             sent_out);
+                             limit, fanout, row_offset, row_ids, bval, bslot,
+                             mask, sent_out);
 }
 
 template <int L, bool VEC>
@@ -337,20 +341,21 @@ __global__ void __launch_bounds__(kPublishWarps * 32)
     fused_publish_select_kernel(
         const int* __restrict__ cache_val, const int* __restrict__ cache_slot,
         const int8_t* __restrict__ cache_sent, int n, int k, int budget,
-        int limit, int fanout, int row_offset, int* __restrict__ bval,
+        int limit, int fanout, int row_offset,
+        const int* __restrict__ row_ids, int* __restrict__ bval,
         int* __restrict__ bslot, unsigned* __restrict__ mask,
         int8_t* __restrict__ sent_out) {
   publish_rows<L, VEC, false>(cache_val, cache_slot, cache_sent, n, k,
-                              budget, limit, fanout, row_offset, bval, bslot,
-                              mask, sent_out);
+                              budget, limit, fanout, row_offset, row_ids,
+                              bval, bslot, mask, sent_out);
 }
 
 template <int L, bool BOARD>
 int launch_publish(const void* cache_val, const void* cache_slot,
                    const void* cache_sent, int n, int k, int budget,
-                   int limit, int fanout, int row_offset, void* bval,
-                   void* bslot, void* mask, void* sent, bool vec,
-                   cudaStream_t stream) {
+                   int limit, int fanout, int row_offset,
+                   const void* row_ids, void* bval, void* bslot, void* mask,
+                   void* sent, bool vec, cudaStream_t stream) {
   const unsigned blocks =
       static_cast<unsigned>((n + kPublishWarps - 1) / kPublishWarps);
   auto run = [&](auto kernel) {
@@ -358,7 +363,8 @@ int launch_publish(const void* cache_val, const void* cache_slot,
         static_cast<const int*>(cache_val),
         static_cast<const int*>(cache_slot),
         static_cast<const int8_t*>(cache_sent), n, k, budget, limit, fanout,
-        row_offset, static_cast<int*>(bval), static_cast<int*>(bslot),
+        row_offset, static_cast<const int*>(row_ids),
+        static_cast<int*>(bval), static_cast<int*>(bslot),
         static_cast<unsigned*>(mask), static_cast<int8_t*>(sent));
     return static_cast<int>(cudaGetLastError());
   };
@@ -374,13 +380,13 @@ int launch_publish(const void* cache_val, const void* cache_slot,
 
 // The publish pass over n rows, with its L and access width chosen from
 // k and the buffers' alignment (bval/bslot null for the mask, mask null
-// for the board).
+// for the board; row_ids null for the ids row_offset + row).
 template <bool BOARD>
 int launch_publish_rows(const void* cache_val, const void* cache_slot,
                         const void* cache_sent, int n, int k, int budget,
-                        int limit, int fanout, int row_offset, void* bval,
-                        void* bslot, void* mask, void* sent,
-                        cudaStream_t stream) {
+                        int limit, int fanout, int row_offset,
+                        const void* row_ids, void* bval, void* bslot,
+                        void* mask, void* sent, cudaStream_t stream) {
   if (n <= 0) return 0;
   const int lines = k < 32 ? 1 : k / 32;   // L, lines a lane
   const uintptr_t words = reinterpret_cast<uintptr_t>(cache_val) |
@@ -396,8 +402,9 @@ int launch_publish_rows(const void* cache_val, const void* cache_slot,
 #define SIDECAR_PUBLISH_CASE(L)                                              \
   case L:                                                                    \
     return launch_publish<L, BOARD>(cache_val, cache_slot, cache_sent, n, k, \
-                                    budget, limit, fanout, row_offset, bval, \
-                                    bslot, mask, sent, vec, stream);
+                                    budget, limit, fanout, row_offset,       \
+                                    row_ids, bval, bslot, mask, sent, vec,   \
+                                    stream);
     SIDECAR_PUBLISH_CASE(1)
     SIDECAR_PUBLISH_CASE(2)
     SIDECAR_PUBLISH_CASE(4)
@@ -612,14 +619,15 @@ int launch_fused_gather(const void* cache_val, const void* cache_slot,
 // Plain C interface, bound with ctypes.  Pointers are device pointers of
 // contiguous tensors; `stream` is a cudaStream_t.  Returns the launch's
 // cudaError_t (0 on success).  The wrapper has checked shapes, dtypes and
-// that k is a power of two in [1, 1024].
+// that k is a power of two in [1, 1024].  `row_ids` is null (row ids
+// row_offset + row) or n int32 global row ids.
 extern "C" int sidecar_publish_board(
     const void* cache_val, const void* cache_slot, const void* cache_sent,
     int n, int k, int budget, int limit, int fanout, int row_offset,
-    void* bval, void* bslot, void* sent, void* stream) {
+    const void* row_ids, void* bval, void* bslot, void* sent, void* stream) {
   return launch_publish_rows<true>(cache_val, cache_slot, cache_sent, n, k,
-                                   budget, limit, fanout, row_offset, bval,
-                                   bslot, nullptr, sent,
+                                   budget, limit, fanout, row_offset, row_ids,
+                                   bval, bslot, nullptr, sent,
                                    static_cast<cudaStream_t>(stream));
 }
 
@@ -663,7 +671,7 @@ extern "C" int sidecar_fused_publish_gather(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = launch_publish_rows<false>(
       cache_val, cache_slot, cache_sent, n, k, budget, limit, fanout, 0,
-      nullptr, nullptr, mask, sent, s);
+      nullptr, nullptr, nullptr, mask, sent, s);
   if (err != 0 || n_req == 0) return err;
   // The gate's horizon in int32, as the reference computes it.
   const int horizon = static_cast<int>(static_cast<uint32_t>(now) -

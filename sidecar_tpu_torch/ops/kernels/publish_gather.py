@@ -9,7 +9,8 @@ Three functions, each with both forms:
   or -1) plus the transmit-count bump ``sent``.  Plain version
   :func:`publish_board_torch` (the reference's ``publish_board_xla``);
   kernel ``publish_board_kernel`` in ``csrc/publish_gather.cu``
-  (replaces ``publish_board_pallas``).
+  (replaces ``publish_board_pallas``).  ``row_ids`` gives each row its
+  global id (the sparse round publishes a compacted row set).
 * ``fused_publish_gather`` — the own rows' ``sent`` plus, for each
   receiver row r and leg f, the board of peer ``src[r, f]`` with the
   staleness gate applied (``pv``/``ps`` [N, F, K]).  Plain version
@@ -61,11 +62,12 @@ def eligible_lines(cache_slot, cache_sent, limit: int):
 
 def publish_board_torch(cache_val, cache_slot, cache_sent, *, budget: int,
                         limit: int, fanout: int, cache_lines: int,
-                        row_offset: int = 0):
+                        row_offset: int = 0, row_ids=None):
     """The publish selection in plain PyTorch — the op sequence of the
     reference's ``publish_board_xla``: ``topk`` threshold plus the
-    rotated prefix-sum tie admission.  ``row_offset`` is the global id
-    of row 0 (the tie-rotation seed).  Returns ``(bval, bslot, sent)``."""
+    rotated prefix-sum tie admission.  The tie rotation is seeded by
+    each row's global id: ``row_offset + r``, or ``row_ids[r]`` (int32
+    ``[N]``) when given.  Returns ``(bval, bslot, sent)``."""
     k = cache_lines
     n = cache_val.shape[0]
     dev = cache_val.device
@@ -77,7 +79,10 @@ def publish_board_torch(cache_val, cache_slot, cache_sent, *, budget: int,
     tie = (priority == thresh) & (priority > 0)
     n_above = above.sum(dim=1, keepdim=True, dtype=torch.int32)
 
-    rows = torch.arange(n, dtype=torch.int64, device=dev) + row_offset
+    if row_ids is not None:
+        rows = row_ids.to(dev, torch.int64) & MASK32
+    else:
+        rows = torch.arange(n, dtype=torch.int64, device=dev) + row_offset
     rot = (((rows * PHASE_MULT) & MASK32) & (k - 1))[:, None]
     s = torch.cumsum(tie.to(torch.int32), dim=1, dtype=torch.int32)
     total = s[:, -1:]
@@ -155,11 +160,24 @@ def _check_cache(cache_val, cache_slot, cache_sent, cache_lines: int):
 
 def publish_board_cuda(cache_val, cache_slot, cache_sent, *, budget: int,
                        limit: int, fanout: int, cache_lines: int,
-                       row_offset: int = 0):
+                       row_offset: int = 0, row_ids=None):
     """Launch ``publish_board_kernel`` (a warp per row, eight rows a
-    block) on the current stream.  Returns ``(bval, bslot, sent)``."""
+    block) on the current stream; ``row_ids``, when given, is a
+    contiguous int32 ``[N]`` tensor on the cache's device.  Returns
+    ``(bval, bslot, sent)``."""
     index = _check_cache(cache_val, cache_slot, cache_sent, cache_lines)
     n, k = cache_val.shape
+    ids = None
+    if row_ids is not None:
+        if not row_ids.is_cuda or row_ids.get_device() != index:
+            raise ValueError(f"row_ids is on {row_ids.device}, "
+                             f"cache_val on {cache_val.device}")
+        if row_ids.dtype != torch.int32 or row_ids.shape != (n,):
+            raise ValueError(f"row_ids must be int32 [{n}], got "
+                             f"{row_ids.dtype} {tuple(row_ids.shape)}")
+        if not row_ids.is_contiguous():
+            raise ValueError("row_ids must be contiguous")
+        ids = row_ids.data_ptr()
     bval = torch.empty_like(cache_val)
     bslot = torch.empty_like(cache_slot)
     sent = torch.empty_like(cache_sent)
@@ -167,7 +185,8 @@ def publish_board_cuda(cache_val, cache_slot, cache_sent, *, budget: int,
            load("publish_gather").sidecar_publish_board, index,
            cache_val.data_ptr(), cache_slot.data_ptr(),
            cache_sent.data_ptr(), n, k, min(budget, k), limit, fanout,
-           row_offset, bval.data_ptr(), bslot.data_ptr(), sent.data_ptr())
+           row_offset, ids, bval.data_ptr(), bslot.data_ptr(),
+           sent.data_ptr())
     publish_board_cuda.launches += 1
     return bval, bslot, sent
 

@@ -5,11 +5,14 @@ only, built once per sim by :func:`from_protocol`.
 The reference also carries traced (batched) knobs for its scenario
 fleet; the port runs one scenario per sim, so every knob here is a host
 scalar and every "is this gate on" question is a plain Python branch.
+The one exception is the tick cadence, which may be a per-node int32
+tensor (:func:`sidecar_tpu_torch.models.common.resolve_cadence`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +33,17 @@ class RoundKnobs:
     stale_ticks: int        # merge staleness bound (ticks)
     future_ticks: int = -1  # future-admission bound (negative = off)
     tomb_budget: int = -1   # per-origin suspicious budget (negative = off)
+    tick_period: Any = 1    # gossip cadence (rounds between ticks): an
+                            # int, or an int32 tensor (scalar or [N])
+    tick_phase: Any = 0     # cadence phase: node i ticks iff
+                            # (round_idx + phase) % period == 0
+
+    @property
+    def cadence_enabled(self) -> bool:
+        """False only for the static period 1 (no gate); a tensor period
+        keeps the gate, a value no-op where it is 1."""
+        return not (isinstance(self.tick_period, int)
+                    and self.tick_period <= 1)
 
     @property
     def suspicion_enabled(self) -> bool:
@@ -48,9 +62,10 @@ class RoundKnobs:
         return None if self.tomb_budget < 0 else int(self.tomb_budget)
 
 
-def from_protocol(params, timecfg, *,
-                  recover_rounds: int = 1) -> RoundKnobs:
-    """The static bundle read off ``CompressedParams`` + ``TimeConfig``."""
+def from_protocol(params, timecfg, *, recover_rounds: int = 1,
+                  tick_period=1, tick_phase=0) -> RoundKnobs:
+    """The bundle read off ``CompressedParams`` or ``SimParams`` +
+    ``TimeConfig``, with the resolved tick cadence."""
     return RoundKnobs(
         limit=params.resolved_retransmit_limit(),
         keep_prob=1.0 - params.drop_prob,
@@ -67,4 +82,6 @@ def from_protocol(params, timecfg, *,
                       else timecfg.future_ticks),
         tomb_budget=(-1 if timecfg.tomb_budget is None
                      else timecfg.tomb_budget),
+        tick_period=tick_period,
+        tick_phase=tick_phase,
     )

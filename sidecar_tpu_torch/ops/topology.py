@@ -1,8 +1,8 @@
 """Cluster topologies — the numpy builders of
 ``sidecar_tpu/ops/topology.py`` (``Topology``, ``complete``, ``ring``,
-``erdos_renyi``), copied so both packages build bit-identical graphs
-from the same seed, and the static plan of the sharded round's zoned
-board exchange (``zoned_exchange_plan``).
+``erdos_renyi``, ``with_stagger``), copied so both packages build
+bit-identical graphs from the same seed, and the static plan of the
+sharded round's zoned board exchange (``zoned_exchange_plan``).
 
 A :class:`Topology` is a padded neighbour list ``nbrs[N, D]`` (int32,
 padded with the node's own index) plus a degree vector ``deg[N]``;
@@ -23,9 +23,9 @@ import numpy as np
 class Topology:
     """Peer adjacency for N nodes (``nbrs`` None = complete graph).
 
-    ``stagger``/``stagger_period`` carry per-node round-phase offsets
-    in the reference; the port does not run staggered rounds yet and
-    its model raises on a topology that sets them."""
+    ``stagger``/``stagger_period`` are per-node round-phase offsets
+    (:func:`with_stagger`): node i gossips only on rounds where
+    ``(round + stagger[i]) % stagger_period == 0``."""
 
     n: int
     nbrs: Optional[np.ndarray] = None  # int32 [N, D], padded with self-index
@@ -93,6 +93,26 @@ def erdos_renyi(n: int, avg_degree: float, seed: int = 0) -> Topology:
     col = np.arange(src.shape[0], dtype=np.int64) - starts[src]
     nbrs[src, col] = dst.astype(np.int32)
     return Topology(n=n, nbrs=nbrs, deg=deg, name=f"er{avg_degree:g}")
+
+
+def with_stagger(topo: Topology, period: int,
+                 offsets: Optional[np.ndarray] = None,
+                 seed: int = 0) -> Topology:
+    """Attach per-node round-stagger offsets: node i gossips only when
+    ``(round + offsets[i]) % period == 0``.  ``offsets`` defaults to the
+    reference's seeded uniform draw over ``[0, period)``; a period of at
+    most 1 strips any stagger."""
+    if period <= 1:
+        return dataclasses.replace(topo, stagger=None, stagger_period=1)
+    if offsets is None:
+        offsets = np.random.default_rng(seed).integers(
+            0, period, size=topo.n)
+    offsets = np.asarray(offsets, dtype=np.int32)
+    if offsets.shape != (topo.n,):
+        raise ValueError(
+            f"stagger offsets must be shape ({topo.n},), got {offsets.shape}")
+    return dataclasses.replace(topo, stagger=offsets,
+                               stagger_period=int(period))
 
 
 # -- the zoned board-exchange plan --------------------------------------------

@@ -39,7 +39,11 @@ between them:
 7. ``pmax`` of the floor replicas, ``psum`` of evictions and drops.
 
 The push-pull and the sweep then run on the global tensors, as in the
-reference.  With the same peers, the same loss mask and no dropped
+reference.  The round stagger and the tick cadence gate the sampled
+peers in the inherited round, on the global node ids, as the
+reference's sharded round does; the sparse-frontier and pipelined
+rounds of the twin are not ported yet (ROADMAP.md Queue 1 item 10) and
+raise.  With the same peers, the same loss mask and no dropped
 pull, every mode at every ``d`` ends each round in the single-device
 model's state: the line fold is a max, so the order in which groups of
 pulled rows fold does not matter.
@@ -64,6 +68,7 @@ from sidecar_tpu_torch.models.compressed import (
     CompressedParams,
     CompressedSim,
 )
+from sidecar_tpu_torch.models.common import deferred
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import kernels as kernel_ops
 from sidecar_tpu_torch.ops.merge import admit_gate
@@ -119,10 +124,10 @@ class _Shard:
 
 class ShardedCompressedSim(CompressedSim):
     """The compressed model over ``d`` node shards (default 1).  Same
-    driver contract as :class:`CompressedSim`; ``board_exchange``
-    (default ``all_gather``), ``a2a_slack`` and ``exchange_stub`` as in
-    the reference.  The shards share one device (a
-    :class:`LocalShardGroup`)."""
+    ``run*`` methods as :class:`CompressedSim`, without the sparse and
+    pipelined rounds; ``board_exchange`` (default ``all_gather``),
+    ``a2a_slack`` and ``exchange_stub`` as in the reference.  The shards
+    share one device (a :class:`LocalShardGroup`)."""
 
     def __init__(self, params: CompressedParams, topo: Topology,
                  timecfg: TimeConfig = TimeConfig(), *, d: int = 1,
@@ -130,10 +135,13 @@ class ShardedCompressedSim(CompressedSim):
                  exchange_stub: bool = False, device="cuda",
                  perturb=None, cut_mask=None, node_side=None, sparse=None,
                  pipeline=None, tick_period=None, tick_phase=None):
+        if sparse is not None:
+            raise deferred("sharded sparse")
+        if pipeline is not None:
+            raise deferred("sharded pipeline")
         super().__init__(params, topo, timecfg, device=device,
                          fused_gather=False, perturb=perturb,
                          cut_mask=cut_mask, node_side=node_side,
-                         sparse=sparse, pipeline=pipeline,
                          tick_period=tick_period, tick_phase=tick_phase)
         if board_exchange == "zoned" and topo.nbrs is None:
             raise ValueError(
@@ -192,6 +200,24 @@ class ShardedCompressedSim(CompressedSim):
         ``parallel.exchange.overflow``; the port's registry comes with
         ROADMAP.md Queue 1 item 7.)"""
         return int(state.dropped)
+
+    # -- the rounds not ported yet ------------------------------------------
+
+    def _resolve_sparse_request(self, sparse) -> bool:
+        if sparse:
+            raise deferred("sharded sparse")
+        return False
+
+    def _resolve_pipeline_request(self, pipeline) -> bool:
+        if pipeline:
+            raise deferred("sharded pipeline")
+        return False
+
+    def _step_sparse(self, state, draws):
+        raise deferred("sharded sparse")
+
+    def _select_inflight(self, state, draws, round_sel):
+        raise deferred("sharded pipeline")
 
     # -- the all_to_all request routing -----------------------------------
 

@@ -440,3 +440,137 @@ def test_exact_run_on_card_equals_cpu(card):
     for name, value in convert.state_to_numpy(a).items():
         np.testing.assert_array_equal(
             convert.state_to_numpy(b)[name], value, err_msg=name)
+
+
+# -- the execution modes ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("label", ["pads", "one-row", "arange", "shard",
+                                   "misaligned"])
+def test_publish_board_row_ids_equals_plain(card, label):
+    """The publish kernel with explicit global row ids (the sparse
+    round's compacted publish) against its plain version: ascending ids
+    padded with n, one row, ids ``arange(N)`` (equal to the
+    ``row_offset=0`` launch), ids of a far block, and misaligned ids."""
+    rng = np.random.default_rng(len(label) + 40)
+    n, k = 300, 256
+    c = {"pads": 48, "one-row": 1, "arange": n, "shard": 64,
+         "misaligned": 33}[label]
+    cv, cs, se = cache(rng, c, k, tie_value=7)
+    if label == "arange":
+        ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    elif label == "shard":
+        ids = torch.arange(c, dtype=torch.int32, device="cuda") + (1 << 30)
+    else:
+        real = np.sort(rng.choice(n, max(1, c - 5), replace=False))
+        host = np.full(c + 1, n, np.int32)
+        host[1:1 + len(real)] = real
+        ids = torch.as_tensor(host, device="cuda")
+        ids = ids[1:] if label == "misaligned" else ids[:c]
+    kw = dict(budget=15, limit=6, fanout=3, cache_lines=k)
+    before = pg.publish_board_cuda.launches
+    got = pg.publish_board_cuda(cv, cs, se, row_ids=ids, **kw)
+    want = pg.publish_board_torch(cv, cs, se, row_ids=ids, **kw)
+    torch.cuda.synchronize()
+    assert pg.publish_board_cuda.launches - before == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if label == "arange":
+        plain = pg.publish_board_cuda(cv, cs, se, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    with pytest.raises(ValueError, match="row_ids must be int32"):
+        pg.publish_board_cuda(cv, cs, se, row_ids=ids.long(), **kw)
+
+
+def mode_pair(model, **kw):
+    """The same model on the CPU and on the card, n = 256."""
+    t = TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
+    topo = topology.erdos_renyi(256, 8.0, seed=3)
+    if model == "compressed":
+        p = CompressedParams(n=256, services_per_node=10, cache_lines=256,
+                             fold_quorum=0.995, deep_sweep_every=0,
+                             drop_prob=0.1, sparse_cap=32)
+        cls = CompressedSim
+    else:
+        # Two services a node and one offer a record (limit 3, fanout
+        # 3): the senders thin out within the run.
+        p = SimParams(n=256, services_per_node=2, drop_prob=0.1,
+                      retransmit_limit=3, sparse_cap=32)
+        cls = ExactSim
+    return cls(p, topo, t, device="cpu", **kw), cls(p, topo, t, **kw)
+
+
+def start(sim):
+    if isinstance(sim, CompressedSim):
+        return sim.mint(sim.init_state(), np.arange(0, sim.p.m, 41), 10)
+    return sim.init_state(0.5, seed=1)
+
+
+def assert_same(a, b):
+    for name, value in convert.state_to_numpy(a).items():
+        np.testing.assert_array_equal(
+            convert.state_to_numpy(b)[name], value, err_msg=name)
+
+
+@pytest.mark.parametrize("model", ["compressed", "exact"])
+def test_sparse_run_on_card_equals_cpu(card, model):
+    """A forced-sparse run with a cap that some rounds overflow: equal
+    states and stats; on the compressed model the publish kernel
+    launches once a sparse round and the fused kernel once an overflow
+    round, on the exact model the scatter kernel once a round."""
+    cpu, gpu = mode_pair(model)
+    gen = torch.Generator().manual_seed(2)
+    draws = [cpu.draw(gen, r) for r in range(1, 41)]
+    a = cpu.run_fast(start(cpu), 40, draws=draws, sparse=True)
+    kernels = (pg.publish_board_cuda, pg.fused_publish_gather_cuda,
+               sm.scatter_max_apply_cuda)
+    before = [k.launches for k in kernels]
+    b = gpu.run_fast(start(gpu), 40, draws=draws, sparse=True)
+    torch.cuda.synchronize()
+    got = [k.launches - x for k, x in zip(kernels, before)]
+    assert_same(a, b)
+    stats = gpu.last_sparse_stats.tolist()
+    assert stats == cpu.last_sparse_stats.tolist()
+    assert stats[0] > 0 and stats[1] > 0
+    if model == "compressed":
+        assert got == [stats[0], stats[1], 0]
+    else:
+        assert got == [0, 0, 40]
+
+
+@pytest.mark.parametrize("model", ["compressed", "exact"])
+def test_pipelined_run_on_card_equals_cpu(card, model):
+    """A pipelined run (primed, 30 ticks): the compressed model's
+    publish kernel launches once a tick and once for the prime, the
+    exact model's scatter kernel once a tick."""
+    cpu, gpu = mode_pair(model)
+    gen = torch.Generator().manual_seed(3)
+    draws = [cpu.draw(gen, r) for r in range(1, 32)]
+    a, _ = cpu.run_fast_pipelined(start(cpu), 30, draws=draws)
+    kernel = pg.publish_board_cuda if model == "compressed" \
+        else sm.scatter_max_apply_cuda
+    before = kernel.launches
+    b, inf = gpu.run_fast_pipelined(start(gpu), 30, draws=draws)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == (31 if model == "compressed" else 30)
+    assert_same(a, b)
+    assert inf.round_idx == 31
+
+
+@pytest.mark.parametrize("model", ["compressed", "exact"])
+def test_cadence_run_on_card_equals_cpu(card, model):
+    """Per-node periods in {1, 2, 4} and a stagger of period 2."""
+    rng = np.random.default_rng(4)
+    kw = dict(tick_period=rng.choice([1, 2, 4], 256),
+              tick_phase=rng.integers(0, 4, 256))
+    cpu, gpu = mode_pair(model, **kw)
+    gen = torch.Generator().manual_seed(4)
+    draws = [cpu.draw(gen, r) for r in range(1, 31)]
+    a = cpu.run_fast(start(cpu), 30, draws=draws)
+    b = gpu.run_fast(start(gpu), 30, draws=draws)
+    assert_same(a, b)
+    topo = topology.with_stagger(topology.erdos_renyi(256, 8.0, seed=3), 2,
+                                 seed=1)
+    cpu2 = type(cpu)(cpu.p, topo, cpu.t, device="cpu")
+    gpu2 = type(gpu)(gpu.p, topo, gpu.t)
+    assert_same(cpu2.run_fast(start(cpu2), 30, draws=draws),
+                gpu2.run_fast(start(gpu2), 30, draws=draws))

@@ -2,8 +2,9 @@
 anything of ``sidecar_tpu`` (nor does ``chip_smoke.py``), its entry
 points (both models) refuse to fall back to the CPU when no GPU is
 present, options it does not port yet raise and name their ROADMAP
-item, and state, params, time configs and graphs survive the trip
-through ``convert``.
+item (those of the execution modes, once deferred, now run a round),
+and state, params, time configs and graphs survive the trip through
+``convert``.
 """
 
 import ast
@@ -19,6 +20,7 @@ from sidecar_tpu_torch.models.compressed import (
     CompressedParams,
     CompressedSim,
 )
+from sidecar_tpu_torch.models.common import DEFERRED
 from sidecar_tpu_torch.models.exact import ExactSim, SimParams
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import topology
@@ -52,7 +54,8 @@ def test_every_port_module_is_checked():
                      "publish_gather.py", "build.py", "compressed.py",
                      "timecfg.py", "convert.py", "mesh.py",
                      "sharded_compressed.py", "chip_smoke.py", "exact.py",
-                     "scatter_max.py", "common.py"):
+                     "scatter_max.py", "common.py", "sparse.py",
+                     "pipeline.py"):
         assert expected in names, expected
 
 
@@ -76,6 +79,30 @@ def test_default_device_needs_a_gpu(monkeypatch, make):
     assert make(device="cpu").device.type == "cpu"
 
 
+def one_round(sim, state, **kw):
+    """One round on the CPU through ``run_fast``; returns the state."""
+    st = sim.run_fast(state, 1, generator=torch.Generator().manual_seed(0),
+                      **kw)
+    assert st.round_idx == 1
+    return st
+
+
+def run_mode_option(sim, option, state):
+    """The item-6 options run a round: ``sparse`` a sparse dispatch
+    (stats for one round), ``pipeline="1"`` a pipelined one by default,
+    the cadence a gated lockstep round."""
+    if option == "sparse":
+        one_round(sim, state, sparse=True)
+        assert int(sim.last_sparse_stats[:2].sum()) == 1
+    else:
+        one_round(sim, state)
+        assert sim.last_sparse_stats is None
+    if option == "pipeline":
+        assert sim._pipeline_mode == "1"
+    if option.startswith("tick_"):
+        assert sim._knobs.cadence_enabled
+
+
 @pytest.mark.parametrize("option,value", [
     ("perturb", lambda st, key, now: st),
     ("cut_mask", np.zeros((16, 1), bool)),
@@ -85,8 +112,15 @@ def test_default_device_needs_a_gpu(monkeypatch, make):
     ("tick_period", 2),
 ])
 def test_deferred_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        small_sim(device="cpu", **{option: value})
+    """Options still deferred raise naming their item; the execution
+    modes' (Queue 1 item 6, deferred until it was ported) run a round."""
+    if option in DEFERRED:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 8"):
+            small_sim(device="cpu", **{option: value})
+        return
+    sim = small_sim(device="cpu", **{option: value})
+    run_mode_option(sim, option, sim.mint(sim.init_state(), [3, 17], 10))
 
 
 @pytest.mark.parametrize("option,value,item", [
@@ -98,28 +132,52 @@ def test_deferred_options_raise(option, value):
     ("tick_phase", 1, "item 6"),
 ])
 def test_exact_deferred_options_raise(option, value, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 {item}"):
-        small_exact(device="cpu", **{option: value})
+    """As :func:`test_deferred_options_raise`, on the exact model; a
+    phase alone (period 1) is accepted and gates nothing."""
+    if item != "item 6":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md Queue 1 {item}"):
+            small_exact(device="cpu", **{option: value})
+        return
+    sim = small_exact(device="cpu", **{option: value})
+    if option == "tick_phase":
+        assert not sim._knobs.cadence_enabled
+        one_round(sim, sim.init_state())
+        return
+    run_mode_option(sim, option, sim.init_state())
+
+
+def staggered_ring():
+    """A ring whose every node is off on odd rounds (period 2, phase
+    0): round 1 gossips nothing."""
+    return dataclasses.replace(topology.ring(16),
+                               stagger=np.zeros(16, np.int32),
+                               stagger_period=2)
 
 
 def test_exact_staggered_topology_raises():
-    topo = dataclasses.replace(topology.ring(16),
-                               stagger=np.zeros(16, np.int32),
-                               stagger_period=2)
-    with pytest.raises(NotImplementedError, match="item 6.*stagger"):
-        ExactSim(SimParams(n=16, services_per_node=2), topo, TimeConfig(),
-                 device="cpu")
+    """A staggered topology, deferred until item 6, now runs: round 1
+    is off for every node, so only the owners know their records."""
+    p = SimParams(n=16, services_per_node=2)
+    sim = ExactSim(p, staggered_ring(), TimeConfig(), device="cpu")
+    st = one_round(sim, sim.init_state())
+    assert torch.equal(st.known, sim.init_state().known)
+    plain = ExactSim(p, topology.ring(16), TimeConfig(), device="cpu")
+    assert not torch.equal(one_round(plain, plain.init_state()).known,
+                           st.known)
 
 
 def test_staggered_topology_raises():
+    """As :func:`test_exact_staggered_topology_raises`, on the
+    compressed model: no pull lands in round 1."""
     p = CompressedParams(n=16, services_per_node=2, cache_lines=8,
                          budget=4)
-    topo = dataclasses.replace(topology.ring(16),
-                               stagger=np.zeros(16, np.int32),
-                               stagger_period=2)
-    with pytest.raises(NotImplementedError, match="stagger"):
-        CompressedSim(p, topo, TimeConfig(), device="cpu")
+    sim = CompressedSim(p, staggered_ring(), TimeConfig(), device="cpu")
+    minted = sim.mint(sim.init_state(), [3, 17, 30], 10)
+    st = one_round(sim, minted)
+    held = (st.cache_slot >= 0).sum()
+    plain = CompressedSim(p, topology.ring(16), TimeConfig(), device="cpu")
+    assert (one_round(plain, minted).cache_slot >= 0).sum() > held
 
 
 def test_convert_round_trip():
@@ -152,18 +210,27 @@ def test_convert_round_trip_exact():
     p = SimParams(n=40, drop_prob=0.25, retransmit_limit=9)
     assert convert.exact_params_from_jax_fields(
         dict(dataclasses.asdict(p), sparse_cap=0)) == p
-    with pytest.raises(NotImplementedError, match="sparse_cap"):
-        convert.exact_params_from_jax_fields(
-            dict(dataclasses.asdict(p), sparse_cap=8))
+    # sparse_cap converts through and caps the sparse round's frontier.
+    q = convert.exact_params_from_jax_fields(
+        dict(dataclasses.asdict(p), sparse_cap=8))
+    assert q.sparse_cap == 8
+    sim = ExactSim(q, topology.ring(40), TimeConfig(), device="cpu")
+    assert sim._sparse_cap == 8
+    one_round(sim, sim.init_state(), sparse=True)
+    assert int(sim.last_sparse_stats[1]) == 1     # 40 senders overflow
 
 
 def test_convert_params_timecfg_topology():
     p = CompressedParams(n=40, drop_prob=0.25, fold_quorum=1.0)
     assert convert.params_from_jax_fields(
         dict(dataclasses.asdict(p), sparse_cap=0)) == p
-    with pytest.raises(NotImplementedError, match="sparse_cap"):
-        convert.params_from_jax_fields(
-            dict(dataclasses.asdict(p), sparse_cap=8))
+    q = convert.params_from_jax_fields(
+        dict(dataclasses.asdict(p), sparse_cap=8))
+    assert q.sparse_cap == 8
+    sim = CompressedSim(q, topology.ring(40), TimeConfig(), device="cpu")
+    assert sim._sparse_caps == (8, 24, 8)
+    one_round(sim, sim.mint(sim.init_state(), [5, 77], 10), sparse=True)
+    assert int(sim.last_sparse_stats[:2].sum()) == 1
     t = TimeConfig(push_pull_interval_s=4.0, origin_budget=3)
     assert convert.timecfg_from_fields(dataclasses.asdict(t)) == t
     er = topology.erdos_renyi(40, 4.0, seed=1)

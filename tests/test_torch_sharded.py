@@ -327,8 +327,25 @@ def small(**kw):
     ("tick_period", 2),
 ])
 def test_deferred_sharded_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    """The chaos options raise naming item 8, the twin's sparse and
+    pipelined rounds naming item 10 (at construction and per dispatch);
+    the tick cadence runs a gated round."""
+    if option == "tick_period":
+        sim = small(d=2, tick_period=value)
+        st = sim.run_fast(sim.init_state(), 1,
+                          generator=torch.Generator().manual_seed(0))
+        assert st.round_idx == 1 and sim._knobs.cadence_enabled
+        return
+    item = "item 10" if option in ("sparse", "pipeline") else "item 8"
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md Queue 1 {item}"):
         small(d=2, **{option: value})
+    if item == "item 10":
+        sim = small(d=2)
+        with pytest.raises(NotImplementedError, match="item 10"):
+            sim.run_fast(sim.init_state(), 1,
+                         generator=torch.Generator().manual_seed(0),
+                         **{option: True})
 
 
 @pytest.mark.parametrize("kw,match", [

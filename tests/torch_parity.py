@@ -110,18 +110,26 @@ def to_numpy_state(state) -> dict:
     return {f: np.asarray(getattr(state, f)) for f in STATE_FIELDS}
 
 
+def port_topology(topo):
+    """The port's copy of a reference graph, stagger included."""
+    return convert.topology_from_numpy(
+        topo.n, topo.nbrs, topo.deg, topo.name, stagger=topo.stagger,
+        stagger_period=topo.stagger_period)
+
+
 def port_pair(params_kw: dict, topo, time_kw: dict, *,
-              fused_gather: bool = True):
+              fused_gather: bool = True, **sim_kw):
     """The reference sim and the port sim (on the CPU) built from the
-    same params, time config and graph."""
+    same params, time config and graph; ``sim_kw`` (the tick cadence)
+    goes to both constructors."""
     jp = jax_compressed.CompressedParams(**params_kw)
     jt = JaxTimeConfig(**time_kw)
-    jsim = jax_compressed.CompressedSim(jp, topo, jt)
+    jsim = jax_compressed.CompressedSim(jp, topo, jt, **sim_kw)
     tsim = CompressedSim(
         convert.params_from_jax_fields(dataclasses.asdict(jp)),
-        convert.topology_from_numpy(topo.n, topo.nbrs, topo.deg, topo.name),
+        port_topology(topo),
         convert.timecfg_from_fields(dataclasses.asdict(jt)),
-        device="cpu", fused_gather=fused_gather)
+        device="cpu", fused_gather=fused_gather, **sim_kw)
     return jsim, tsim
 
 
@@ -192,16 +200,18 @@ def jax_exact_draw_seq(jsim, key, start_round: int, num_rounds: int):
             for i in range(num_rounds)]
 
 
-def exact_port_pair(params_kw: dict, topo, time_kw: dict):
+def exact_port_pair(params_kw: dict, topo, time_kw: dict, **sim_kw):
     """The reference ``ExactSim`` and the port's (on the CPU) built from
-    the same params, time config and graph."""
+    the same params, time config and graph; ``sim_kw`` goes to both
+    constructors."""
     jp = jax_exact.SimParams(**params_kw)
     jt = JaxTimeConfig(**time_kw)
-    jsim = jax_exact.ExactSim(jp, topo, jt)
+    jsim = jax_exact.ExactSim(jp, topo, jt, **sim_kw)
     tsim = ExactSim(
         convert.exact_params_from_jax_fields(dataclasses.asdict(jp)),
-        convert.topology_from_numpy(topo.n, topo.nbrs, topo.deg, topo.name),
-        convert.timecfg_from_fields(dataclasses.asdict(jt)), device="cpu")
+        port_topology(topo),
+        convert.timecfg_from_fields(dataclasses.asdict(jt)), device="cpu",
+        **sim_kw)
     return jsim, tsim
 
 
