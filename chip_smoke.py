@@ -90,7 +90,25 @@ workload — with its execution modes, plus the scatter experiment of
    pipelined and forced-sparse rounds (the last equal to the lockstep
    run field for field), rounds to 1 − 1e-3 from a cold start lockstep
    against pipelined, and uniform period 1 against per-node periods
-   {1, 2, 4}; the scatter-max kernel once a round of every run.
+   {1, 2, 4}; the scatter-max kernel once a round of every run;
+11. telemetry — the planes that ride the run loop
+   (``models/planes.py``): on the ``value`` workload each of
+   ``run_with_trace``, ``run_with_digest`` (64 buckets),
+   ``run_with_deltas`` (its cap the median of the trace's ``admitted``
+   column, which each batch's count must equal) and
+   ``run_with_provenance`` (8 tracers), 20 rounds from the untraced
+   run's seed, must end in its state and curve bit for bit, with ms a
+   round in turns against it, peak memory, and where each synchronises
+   (``set_sync_debug_mode``); on the north star the trace and
+   provenance (64 of the burst's records) over the fused run's rounds,
+   equal to it, the trace's ``behind`` equal to its curve, and the d=4
+   ``ring`` twin's trace equal to the single device's; the compressed
+   digest and deltas at n=4,096 (sparse streams equal to dense); and
+   card against CPU, dense and sparse, every stream field equal: the
+   exact model at n=1,024 × 10 (30 rounds, all planes), the compressed
+   trace and provenance at n=4,096 (50 rounds), its digest and deltas at
+   n=1,024 (20 rounds).  ``north_star_mode`` also holds the registry's
+   ``sparse.*`` counters against the arbiter's.
 
 Each phase prints one JSON line; then the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -108,7 +126,7 @@ import time
 
 PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
           "north_star", "sharded", "scatter", "exact_lockstep", "exact",
-          "exact_modes")
+          "exact_modes", "telemetry")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
@@ -1434,25 +1452,29 @@ KERNEL_FAMILIES = (("board_row_gather_kernel", "K3 board_row_gather"),
                    ("memset", "copies"), ("copy", "copies"))
 
 
-def profile_rounds(sim, state, rounds=5):
+def profile_rounds(sim, state, rounds=5, drive=None):
     """Device activity of ``rounds`` rounds from ``state`` under
     ``torch.profiler`` (after one unprofiled pass over the same draws):
     device-busy time a round (the union of the kernels' intervals), the
     host wall of the profiled window, and device time by kernel
     family.  The profiler slows the host side, so the idle share it
-    gives is an upper bound."""
+    gives is an upper bound.  ``drive(state, draws)`` runs the rounds
+    (default ``run_fast``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if drive is None:
+        def drive(st, draws):
+            return sim.run_fast(st, len(draws), draws=draws)
     gen = sim.default_generator(7)
     draws = [sim.draw(gen, state.round_idx + 1 + i) for i in range(rounds)]
-    sim.run_fast(state, rounds, draws=draws)
+    drive(state, draws)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run_fast(state, rounds, draws=draws)
+        drive(state, draws)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, families = [], {}
@@ -1734,6 +1756,7 @@ def north_star_modes(topo, reference, max_rounds, every, eps):
 
     import torch
 
+    from sidecar_tpu_torch import metrics
     from sidecar_tpu_torch.models.compressed import CompressedSim
     from sidecar_tpu_torch.ops.kernels import eligible_lines
     from sidecar_tpu_torch.ops.sparse import SparseArbiter
@@ -1782,12 +1805,14 @@ def north_star_modes(topo, reference, max_rounds, every, eps):
             return st, b
 
         torch.cuda.reset_peak_memory_stats()
+        metrics.reset()
         reset_launches()
         final, first, curve, hit_total, hit_unsettled, rounds, wall, _ = \
             run_to_eps(sim, state, gen, eps=eps, max_rounds=max_rounds,
                        every=every, advance=advance, **thr)
         counts = launches()
         all_counts.append(counts)
+        reg = metrics.snapshot()
         record = {"phase": "north_star_mode", "mode": label, "n": p.n,
                   "rounds_run": rounds, "rounds_to_eps": hit_total,
                   "rounds_to_eps_unsettled": hit_unsettled, "wall_s": wall,
@@ -1812,13 +1837,26 @@ def north_star_modes(topo, reference, max_rounds, every, eps):
         else:
             snap = arbiter.snapshot()
             diffs = states_equal(ref_final, final)
-            ok = (not diffs and curve == ref_curve and rounds == ref_rounds
+            # The process registry counted what the arbiter did.
+            registry = {name: reg["counters"].get(f"sparse.{name}", 0)
+                        for name in ("rounds", "overflow", "switches")}
+            registry["frontier_size"] = reg["gauges"].get(
+                "sparse.frontier_size")
+            registry_ok = (
+                registry["rounds"] == snap["sparse_rounds"]
+                and registry["overflow"] == snap["overflow_rounds"]
+                and registry["switches"] == snap["switches"]
+                and (registry["frontier_size"] or 0.0)
+                <= snap["frontier_hwm"])
+            ok = (registry_ok and not diffs and curve == ref_curve
+                  and rounds == ref_rounds
                   and (hit_total, hit_unsettled) == ref_hits
                   and snap["sparse_rounds"] + snap["dense_rounds"] == rounds
                   and counts == expected(
                       publish_board=snap["sparse_rounds"],
                       fused_publish_gather=rounds - snap["sparse_rounds"]))
-            record.update(arbiter=snap, field_diffs=diffs,
+            record.update(arbiter=snap, registry=registry,
+                          field_diffs=diffs,
                           curve_equal=curve == ref_curve,
                           sparse_caps=list(sim._sparse_caps))
             if label == "sparse_forced":
@@ -2306,6 +2344,508 @@ def phase_exact_modes(n=4096, rounds=60, reps=3, eps=1e-3, horizon=800):
     return counts
 
 
+# -- phase 11: the telemetry planes --------------------------------------------
+
+TELEMETRY_PLANES = ("trace", "digest", "deltas", "provenance")
+TELEMETRY_EXACT_ROUNDS = 20
+TELEMETRY_BUCKETS = 64
+
+
+def stream_host(stream) -> dict:
+    """A stream's fields on the host (tensors as numpy arrays)."""
+    return {k: (v.cpu().numpy() if hasattr(v, "cpu") else v)
+            for k, v in vars(stream).items()}
+
+
+def streams_diff(a: dict, b: dict) -> list:
+    """``plane.field`` names where two sets of host streams differ."""
+    import numpy as np
+
+    out = []
+    for plane in a:
+        for f, v in a[plane].items():
+            w = b[plane][f]
+            same = (np.array_equal(v, w) and v.dtype == w.dtype) \
+                if isinstance(v, np.ndarray) else v == w
+            if not same:
+                out.append(f"{plane}.{f}")
+    return out
+
+
+class AllPlanes:
+    """Several planes of ``models/planes.py`` over one run, so a check
+    takes every stream from one pass over the rounds."""
+
+    def __init__(self, sim, state, rounds, names, delta_cap, tracked):
+        from sidecar_tpu_torch.models import planes
+
+        make = {
+            "trace": lambda: planes.TracePlane(sim, rounds),
+            "digest": lambda: planes.DigestPlane(
+                sim, rounds, sim._resolve_digest_idents(None),
+                TELEMETRY_BUCKETS),
+            "deltas": lambda: planes.DeltaPlane(sim, state, delta_cap),
+            "provenance": lambda: planes.ProvPlane(
+                sim, planes.start_prov(sim, state, tracked, rounds, None),
+                tracked)}
+        self.planes = {name: make[name]() for name in names}
+
+    def before(self, state, draws):
+        return {k: p.before(state, draws) for k, p in self.planes.items()}
+
+    def after(self, pre, nxt, stats):
+        for k, p in self.planes.items():
+            p.after(pre[k], nxt, stats)
+
+    def streams(self) -> dict:
+        return {k: stream_host(p.result) for k, p in self.planes.items()}
+
+
+def all_streams(sim, state, rounds, draws, sparse, names, delta_cap,
+                tracked):
+    """The planes ``names`` over one run of the sim's own loop from
+    ``draws``; returns ``(final, host streams, sparse stats)``."""
+    from sidecar_tpu_torch.models.exact import ExactSim
+
+    obs = AllPlanes(sim, state, rounds, names, delta_cap, tracked)
+    if isinstance(sim, ExactSim):
+        final, _ = sim._run(state, rounds, False, None, draws, sparse,
+                            plane=obs)
+    else:
+        final, _ = sim._run(state, rounds, 1, None, None, draws, sparse,
+                            plane=obs)
+    stats = None if sim.last_sparse_stats is None \
+        else sim.last_sparse_stats.tolist()
+    return final, obs.streams(), stats
+
+
+def card_against_cpu(label, make, start, rounds, names, delta_cap,
+                     tracked, seed=1):
+    """The planes ``names`` on the card and on the CPU from one set of
+    draws, dense and ``sparse=True``: every field of the final state and
+    of every stream must be equal.  Returns the record and the card
+    runs' launch counts."""
+    import torch
+
+    cpu, gpu = make("cpu"), make("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    draws = [cpu.draw(gen, r) for r in range(1, rounds + 1)]
+    record, counts = {"rounds": rounds, "planes": list(names)}, []
+    for sparse in (False, True):
+        t0 = time.perf_counter()
+        a, sa, stats_a = all_streams(cpu, start(cpu), rounds, draws, sparse,
+                                     names, delta_cap, tracked)
+        cpu_s = time.perf_counter() - t0
+        reset_launches()
+        b, sb, stats_b = all_streams(gpu, start(gpu), rounds, draws, sparse,
+                                     names, delta_cap, tracked)
+        torch.cuda.synchronize()
+        counts.append(launches())
+        diffs = states_equal(a, b) + streams_diff(sa, sb)
+        if stats_a != stats_b:
+            diffs.append("sparse_stats")
+        record["sparse" if sparse else "dense"] = {
+            "diffs": diffs, "sparse_stats": stats_b, "cpu_s": cpu_s,
+            "launches": counts[-1]}
+    record["ok"] = not (record["dense"]["diffs"]
+                        or record["sparse"]["diffs"])
+    return {label: record}, counts
+
+
+def sync_points(fn, mode="warn"):
+    """Where ``fn()`` synchronises with the card, under
+    ``torch.cuda.set_sync_debug_mode(mode)``: with ``"warn"``, ``{file:
+    line: count}`` of the innermost frame of this repository on the
+    stack at each warning (this script's own included); with
+    ``"error"``, None where it ran through, else the first line of the
+    error."""
+    import collections
+    import pathlib
+    import traceback
+    import warnings
+
+    import torch
+
+    root = pathlib.Path(__file__).resolve().parent
+    hits = collections.Counter()
+    inside = [False]
+
+    def record(message, category, filename, lineno, *args, **kw):
+        # The first switch of the mode reports itself; count only fn's.
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(str(root))]
+        at = ours[-1] if ours else None
+        hits[f"{pathlib.Path(at.filename).relative_to(root)}:{at.lineno}"
+             if at else f"{pathlib.Path(filename).name}:{lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode(mode)
+        inside[0] = True
+        try:
+            fn()
+        except RuntimeError as exc:
+            return str(exc).splitlines()[0]
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    return None if mode == "error" else dict(hits)
+
+
+def exact_value_planes(n, rounds=TELEMETRY_EXACT_ROUNDS):
+    """Each plane on ``bench.py``'s ``value`` workload (n × 10 services,
+    ER(8, seed 3), fanout 3, budget 15), ``rounds`` rounds from a cold
+    start and ``default_generator(0)``, against the untraced ``run`` from
+    the same seed: final state and curve equal bit for bit; ms a round
+    in turns (untraced, traced, traced, untraced) and peak memory.  The
+    delta cap is the median of the trace's ``admitted`` column, so busy
+    rounds overflow and quiet ones do not, and each batch's count must
+    equal that column.  Returns the record and the launch counts."""
+    import numpy as np
+    import torch
+
+    from sidecar_tpu_torch import convert
+    from sidecar_tpu_torch.models.exact import ExactSim, SimParams
+    from sidecar_tpu_torch.ops import provenance as prov_ops
+    from sidecar_tpu_torch.ops import trace as trace_ops
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+    p = SimParams(n=n, services_per_node=10, fanout=3, budget=15)
+    sim = ExactSim(p, erdos_renyi(n, avg_degree=8.0, seed=3))
+    tracked = prov_ops.default_tracked(p.m, 8)
+    cap = {}
+
+    def run(plane, k=rounds):
+        return drive(plane, k, sim.init_state(), sim.default_generator(0))
+
+    def drive(plane, k, st, g):
+        if plane is None:
+            return sim.run(st, k, generator=g)
+        if plane == "trace":
+            return sim.run_with_trace(st, k, generator=g)
+        if plane == "digest":
+            return sim.run_with_digest(st, k, generator=g,
+                                       buckets=TELEMETRY_BUCKETS)
+        if plane == "deltas":
+            return sim.run_with_deltas(st, k, cap["deltas"], generator=g)
+        return sim.run_with_provenance(st, k, tracked, generator=g)
+
+    def peak_of(plane):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = run(plane)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated(), launches()
+
+    # The untraced run's result is held on the host, and each run's is
+    # dropped before the next, so every peak has the same resident set.
+    (u_final, u_conv), u_peak, u_counts = peak_of(None)
+    u_host, u_conv = convert.state_to_numpy(u_final), u_conv.cpu()
+    del u_final
+    counts, record = [u_counts], {"n": n, "m": p.m, "rounds": rounds,
+                                  "untraced_max_memory_allocated": u_peak}
+    ok = u_counts == expected(scatter_max_apply=rounds)
+    admitted = None
+    for plane in TELEMETRY_PLANES:
+        (final, stream, conv), peak, c = peak_of(plane)
+        counts.append(c)
+        diffs = [f for f, v in convert.state_to_numpy(final).items()
+                 if not np.array_equal(v, u_host[f])]
+        same_conv = torch.equal(u_conv, conv.cpu())
+        del final, conv
+        rec = {"final_field_diffs": diffs, "conv_equal": same_conv,
+               "max_memory_allocated": peak, "launches": c}
+        plane_ok = not diffs and same_conv and \
+            c == expected(scatter_max_apply=rounds)
+        if plane == "trace":
+            rows = stream.rec.cpu()
+            admitted = rows[:, trace_ops.TRACE_ADMITTED].tolist()
+            cap["deltas"] = sorted(admitted)[len(admitted) // 2]
+            rec["summary"] = trace_ops.summarize(stream)
+            plane_ok = plane_ok and stream.count == rounds
+        elif plane == "digest":
+            rows = stream.rec.cpu()
+            rec["records_first_last"] = [rows[0].tolist(), rows[-1].tolist()]
+            plane_ok = plane_ok and int(rows[0, 1]) == n
+        elif plane == "deltas":
+            counts_d = stream.count.tolist()
+            over = stream.overflow.tolist()
+            busy = next(i for i, o in enumerate(over) if o) \
+                if any(over) else None
+            quiet = next(i for i, o in enumerate(over) if not o) \
+                if not all(over) else None
+            rec.update(cap=cap["deltas"], counts=counts_d,
+                       busy_round=None if busy is None else
+                       {"round": busy + 1, "count": counts_d[busy],
+                        "overflow": True},
+                       quiet_round=None if quiet is None else
+                       {"round": quiet + 1, "count": counts_d[quiet],
+                        "overflow": False,
+                        "filled": int((stream.node[quiet] >= 0).sum())})
+            plane_ok = (plane_ok and counts_d == admitted
+                        and busy is not None and quiet is not None)
+        else:
+            rec["lag"] = prov_ops.pooled_lag(stream.first_seen.cpu().numpy())
+            plane_ok = plane_ok and rec["lag"]["samples"] > 0
+        del stream
+        times = {"untraced": [], "traced": []}
+        reset_launches()
+        for which in ("untraced", "traced", "traced", "untraced"):
+            plane_arg = None if which == "untraced" else plane
+            times[which].append(ms_per_round(lambda: run(plane_arg),
+                                             rounds))
+        counts.append(launches())
+        rec["ms_per_round"] = times
+        rec["ok"] = plane_ok
+        record[plane] = rec
+        ok = ok and plane_ok
+    # What synchronises in two rounds (the state and generator made
+    # first); where the untraced round has no such point, the traced
+    # round must also run under "error".
+    reset_launches()
+    sync = {}
+    for plane in (None,) + TELEMETRY_PLANES:
+        st, g = sim.init_state(), sim.default_generator(0)
+        sync[plane or "untraced"] = sync_points(
+            lambda: drive(plane, 2, st, g))
+    if not sync["untraced"]:
+        st, g = sim.init_state(), sim.default_generator(0)
+        sync["trace_under_error"] = sync_points(
+            lambda: drive("trace", 2, st, g), "error")
+    counts.append(launches())
+    record["sync_points"] = sync
+    # Device activity of three rounds from a cold start, untraced and
+    # traced (both sample the curve; the input is copied first).
+    reset_launches()
+    record["profile"] = {
+        "untraced": profile_rounds(sim, sim.init_state(), 3, drive=lambda
+                                   st, d: sim.run(st, len(d), draws=d,
+                                                  donate=False)),
+        "trace": profile_rounds(sim, sim.init_state(), 3, drive=lambda
+                                st, d: sim.run_with_trace(
+                                    st, len(d), draws=d, donate=False))}
+    counts.append(launches())
+    record["ok"] = ok
+    return record, counts
+
+
+def north_star_planes(topo, fused):
+    """The trace and provenance planes over the north star's burst for
+    the fused run's rounds, from its generator seed: each final state
+    equal to the fused run's, the trace's ``behind`` column at every
+    25th round equal to its curve, and the twin at d = 4 (``ring``)
+    recording the same trace.  Returns the record and the counts."""
+    import torch
+
+    from sidecar_tpu_torch.models.compressed import CompressedSim
+    from sidecar_tpu_torch.ops import provenance as prov_ops
+    from sidecar_tpu_torch.ops import trace as trace_ops
+    from sidecar_tpu_torch.parallel import ShardedCompressedSim
+
+    ref_final, ref_curve, _hits, rounds, ref_rps = fused
+    every = NORTH_STAR_RUN["every"]
+    p = bench_params(topo.n)
+    slots = burst(p.m, 0.001)
+    # 64 of the burst's records, spread over it (the host summary walks
+    # every (record, node) pair in Python: 64 · 10⁵ pairs, not 10⁸).
+    tracked = tuple(int(slots[i]) for i in
+                    prov_ops.default_tracked(len(slots), 64))
+    record, counts = {"rounds": rounds,
+                      "fused_untraced_rounds_per_s": ref_rps}, []
+    ok = True
+    traces = {}
+    for label, make in (
+            ("trace", lambda: CompressedSim(p, topo, bench_time())),
+            ("provenance", lambda: CompressedSim(p, topo, bench_time())),
+            ("trace_sharded_ring_d4", lambda: ShardedCompressedSim(
+                p, topo, bench_time(), d=4, board_exchange="ring"))):
+        sim = make()
+        state = sim.mint(sim.init_state(), slots, 10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        if label == "provenance":
+            final, stream = sim.run_with_provenance(
+                state, rounds, tracked, generator=sim.default_generator(0))
+        else:
+            final, stream = sim.run_with_trace(
+                state, rounds, generator=sim.default_generator(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = launches()
+        counts.append(c)
+        diffs = states_equal(ref_final, final)
+        rec = {"wall_s": wall, "rounds_per_s": rounds / wall,
+               "ms_per_round": 1e3 * wall / rounds,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "final_field_diffs": diffs, "launches": c}
+        rec_ok = not diffs
+        if label == "provenance":
+            summ = prov_ops.summarize(stream, tracked, p.services_per_node)
+            recs = summ["records"]
+            rec.update(tracked=len(tracked), lag=summ["lag"],
+                       rounds_observed=summ["rounds_observed"],
+                       reached_min=min(r["reached"] for r in recs),
+                       reached_max=max(r["reached"] for r in recs),
+                       unattributed_total=sum(r["unattributed"]
+                                              for r in recs))
+            rec_ok = rec_ok and c == expected(fused_publish_gather=rounds)
+        else:
+            rows = stream.rec.cpu()
+            traces[label] = rows
+            behind = rows[:, trace_ops.TRACE_BEHIND].tolist()
+            sampled = behind[every - 1::every]
+            want = [int(b) for b in ref_curve]
+            rec.update(summary=trace_ops.summarize(stream),
+                       behind_every_25=sampled,
+                       behind_equals_curve=sampled == want)
+            rec_ok = rec_ok and sampled == want
+            if label == "trace":
+                rec_ok = rec_ok and c == expected(
+                    fused_publish_gather=rounds)
+            else:
+                same = torch.equal(rows, traces["trace"])
+                rec["trace_equals_single_device"] = same
+                rec["dropped"] = sim.sync_exchange_metrics(final)
+                rec_ok = rec_ok and same and c == expected(
+                    publish_board=4 * rounds, board_row_gather=4 * rounds)
+        if label == "trace":
+            # Device activity of five rounds from the burst, untraced
+            # and traced.
+            reset_launches()
+            rec["profile"] = {
+                "untraced": profile_rounds(sim, state),
+                "trace": profile_rounds(sim, state, drive=lambda st, d:
+                                        sim.run_with_trace(st, len(d),
+                                                           draws=d))}
+            counts.append(launches())
+        rec["ok"] = rec_ok
+        record[label] = rec
+        ok = ok and rec_ok
+        del sim, state, final, stream
+    record["ok"] = ok
+    return record, counts
+
+
+def compressed_lockstep_planes(n=4096, rounds=50):
+    """The digest and delta planes at the lockstep size on the card
+    (n = 4,096, the 1 % burst), dense and ``sparse=True`` from one set
+    of draws: the final state equal to the untraced run's and the
+    sparse streams equal to the dense ones."""
+    import torch
+
+    from sidecar_tpu_torch.models.compressed import CompressedSim
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+    p = bench_params(n)
+    topo = erdos_renyi(n, avg_degree=8.0, seed=3)
+    sim = CompressedSim(p, topo, bench_time())
+    slots = burst(p.m, 0.01)
+    gen = torch.Generator().manual_seed(1)
+    draws = [sim.draw(gen, r) for r in range(1, rounds + 1)]
+    state = sim.mint(sim.init_state(), slots, 10)
+    plain = sim.run_fast(state, rounds, draws=draws)
+    record, counts, streams = {"n": n, "rounds": rounds}, [], {}
+    for sparse in (False, True):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        final, got, stats = all_streams(sim, state, rounds, draws, sparse,
+                                        ("digest", "deltas"), 1 << 16, ())
+        torch.cuda.synchronize()
+        counts.append(launches())
+        streams[sparse] = got
+        record["sparse" if sparse else "dense"] = {
+            "ms_per_round": 1e3 * (time.perf_counter() - t0) / rounds,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "final_field_diffs": states_equal(plain, final),
+            "sparse_stats": stats, "launches": counts[-1],
+            "digest_last_record": got["digest"]["rec"][-1].tolist(),
+            "delta_overflow_rounds": int(got["deltas"]["overflow"].sum())}
+    record["sparse_streams_diff_dense"] = streams_diff(streams[False],
+                                                       streams[True])
+    record["ok"] = (not record["dense"]["final_field_diffs"]
+                    and not record["sparse"]["final_field_diffs"]
+                    and not record["sparse_streams_diff_dense"])
+    return record, counts
+
+
+def phase_telemetry(topo, fused, exact_n=4096):
+    """The telemetry planes (``models/planes.py``) on both models: the
+    exact ``value`` workload, the compressed north star (trace and
+    provenance, and the twin's trace), the compressed digest and deltas
+    at the lockstep size, and card against CPU at the exact lockstep's
+    size (n = 1,024 × 10) and, for the compressed trace and provenance,
+    the lockstep's (n = 4,096; its digest and deltas at n = 1,024, where
+    the CPU's [N, M] belief view takes well under a second a round).
+    Returns the launch counts of the card runs."""
+    from sidecar_tpu_torch.models.compressed import CompressedSim
+    from sidecar_tpu_torch.models.exact import ExactSim, SimParams
+    from sidecar_tpu_torch.ops import provenance as prov_ops
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+    counts = []
+    t0 = time.perf_counter()
+    exact, c = exact_value_planes(exact_n)
+    counts += c
+    emit({"phase": "telemetry", "part": "exact_value",
+          "seconds": time.perf_counter() - t0, **exact})
+    ok = exact["ok"]
+    if topo is not None:
+        t0 = time.perf_counter()
+        ns, c = north_star_planes(topo, fused)
+        counts += c
+        emit({"phase": "telemetry", "part": "north_star",
+              "seconds": time.perf_counter() - t0, **ns})
+        ok = ok and ns["ok"]
+    t0 = time.perf_counter()
+    small, c = compressed_lockstep_planes()
+    counts += c
+    emit({"phase": "telemetry", "part": "compressed_lockstep",
+          "seconds": time.perf_counter() - t0, **small})
+    ok = ok and small["ok"]
+    t0 = time.perf_counter()
+
+    xn = min(1024, exact_n)
+    xp = SimParams(n=xn, services_per_node=10, fanout=3, budget=15,
+                   drop_prob=0.1)
+    xtopo = erdos_renyi(xn, avg_degree=8.0, seed=3)
+    checks = {}
+    rec, c = card_against_cpu(
+        f"exact_n{xn}",
+        lambda dev: ExactSim(xp, xtopo, exact_busy_time(), device=dev),
+        lambda sim: sim.init_state(), 30, TELEMETRY_PLANES, 1 << 16,
+        prov_ops.default_tracked(xp.m, 8))
+    checks.update(rec)
+    counts += c
+    for n, rounds, names in ((4096, 50, ("trace", "provenance")),
+                             (1024, 20, ("digest", "deltas"))):
+        p = bench_params(n)
+        ctopo = erdos_renyi(n, avg_degree=8.0, seed=3)
+        slots = burst(p.m, 0.01)
+        rec, c = card_against_cpu(
+            f"compressed_n{n}",
+            lambda dev, p=p, ctopo=ctopo: CompressedSim(
+                p, ctopo, bench_time(), device=dev),
+            lambda sim, slots=slots: sim.mint(sim.init_state(), slots, 10),
+            rounds, names, 1 << 16, tuple(int(s) for s in slots[:8]))
+        checks.update(rec)
+        counts += c
+    cok = all(r["ok"] for r in checks.values())
+    emit({"phase": "telemetry", "part": "card_against_cpu",
+          "seconds": time.perf_counter() - t0, **checks, "ok": cok})
+    if not (ok and cok):
+        raise SystemExit("telemetry phase failed")
+    return counts
+
+
 def row_gather_variants(k: int = 256) -> dict:
     """Rows a pass → the ``(source, macro definitions)`` build of the
     row-gather kernel with that window."""
@@ -2454,8 +2994,8 @@ def main(argv=None) -> int:
                                 "fused_publish_gather_kernel")},
               "ptxas": {k: [l.strip() for l in build.build_log(k).splitlines()
                             if "ptxas" in l or "spill" in l] for k in libs}})
-    topo = None
-    if "north_star" in phases or "sharded" in phases:
+    topo = fused = None
+    if phases & {"north_star", "sharded", "telemetry"}:
         from sidecar_tpu_torch.ops.topology import erdos_renyi
 
         # One graph for the kernels' ER(8) peers and both run phases:
@@ -2482,7 +3022,7 @@ def main(argv=None) -> int:
         runs += north_star_modes(topo, fused, **NORTH_STAR_RUN)
         if "sharded" in phases:
             runs += phase_sharded(topo, reference, **NORTH_STAR_RUN)
-        del topo, reference, fused
+        del reference
     if "scatter" in phases:
         runs.append(phase_scatter(args.exact_n))
     if "exact_lockstep" in phases:
@@ -2491,6 +3031,9 @@ def main(argv=None) -> int:
         runs.append(phase_exact(args.exact_n))
     if "exact_modes" in phases:
         runs.append(phase_exact_modes(args.exact_n))
+    if "telemetry" in phases:
+        runs += phase_telemetry(topo, fused, args.exact_n)
+    del topo, fused
     if records:
         emit({"kernels": [
             {"name": f"{name}_kernel", "route": "cuda",

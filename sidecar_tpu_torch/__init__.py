@@ -10,8 +10,15 @@ so each counterpart is easy to find:
   ``ops/topology.py`` — the leaf ops, plain functions on tensors;
 * ``ops/kernels/`` — the hand-written CUDA publish and board-row-gather
   kernels, their plain PyTorch versions, and the ``nvcc`` build;
-* ``models/timecfg.py``, ``models/compressed.py`` — the compressed
-  model's dense lockstep round and its drivers;
+* ``models/timecfg.py``, ``models/compressed.py``, ``models/exact.py``
+  — the two models' rounds and their run methods;
+* ``ops/trace.py``, ``ops/digest.py``, ``ops/delta.py``,
+  ``ops/provenance.py``, ``models/planes.py`` — the telemetry planes
+  that ride the run loop (``run_with_trace``, ``run_with_digest``,
+  ``run_with_deltas``, ``run_with_provenance``);
+* ``metrics.py`` — the process registry of counters and gauges;
+  ``telemetry/cost.py`` — the round's phase scopes for
+  ``torch.profiler``;
 * ``parallel/mesh.py``, ``parallel/sharded_compressed.py`` — the
   node-sharded twin of the compressed model over a shard group;
 * ``convert.py`` — moving state, params and graphs across from the

@@ -48,6 +48,16 @@ at each metric sample, where the caller reads the metric anyway).
 ``.at[].max(mode="drop")`` with a row-``n`` or slot-``m`` sentinel
 becomes ``scatter_reduce_(…, "amax")`` into a buffer padded by one
 sentinel row or column, sliced off afterwards.
+
+Telemetry: ``run_with_trace``, ``run_with_digest``, ``run_with_deltas``
+and ``run_with_provenance`` run the same rounds with a plane of
+``models/planes.py`` observing each one, and return ``(final,
+stream)``.  The round builds a new state and leaves the old one's
+tensors untouched, so the trace plane diffs against the pre-round state
+itself, with no copy.  The digest and delta planes read the ``[N, M]``
+belief view (``ops/delta.compressed_belief``), a tool of the test and
+bridge sizes.  The round's phases carry the reference's cost scopes
+(``telemetry/cost.py``), off unless switched on.
 """
 
 from __future__ import annotations
@@ -60,13 +70,17 @@ import numpy as np
 import torch
 
 from sidecar_tpu_torch.models import common
+from sidecar_tpu_torch.models import planes
 from sidecar_tpu_torch.models.timecfg import TimeConfig
+from sidecar_tpu_torch.ops import delta as delta_ops
+from sidecar_tpu_torch.ops import digest as digest_ops
 from sidecar_tpu_torch.ops import gossip as gossip_ops
 from sidecar_tpu_torch.ops import kernels as kernel_ops
 from sidecar_tpu_torch.ops import knobs as knob_ops
 from sidecar_tpu_torch.ops import pipeline as pipeline_ops
 from sidecar_tpu_torch.ops import sparse as sparse_ops
 from sidecar_tpu_torch.ops import suspicion as suspicion_ops
+from sidecar_tpu_torch.ops import trace as trace_ops
 from sidecar_tpu_torch.ops.gossip import MASK32, RoundDraws
 from sidecar_tpu_torch.ops.pipeline import Inflight
 from sidecar_tpu_torch.ops.merge import (
@@ -87,6 +101,7 @@ from sidecar_tpu_torch.ops.status import (
 )
 from sidecar_tpu_torch.ops.topology import Topology
 from sidecar_tpu_torch.ops.ttl import ttl_sweep
+from sidecar_tpu_torch.telemetry import cost
 
 _K1 = 2654435761   # Knuth multiplicative
 _K3 = 0xC2B2AE35   # murmur3 finalizer constant
@@ -301,6 +316,7 @@ class CompressedSim:
 
     # -- the round's phases -------------------------------------------------
 
+    @cost.phased("publish")
     def _publish(self, state: CompressedState, limit: int,
                  row_offset: int = 0):
         """The message board ``(bval, bslot, sent)`` — the publish-only
@@ -321,6 +337,7 @@ class CompressedSim:
         adv = (cv > wv) | ((cv == wv) & (cs > ws))
         return torch.where(adv, cv, wv), torch.where(adv, cs, ws)
 
+    @cost.phased("gather")
     def _pull_merge(self, state, sent, bval, bslot, src, alive, now: int,
                     keep=None):
         """Deliver from a materialised board: gate it once (staleness,
@@ -342,6 +359,7 @@ class CompressedSim:
         return self._merge_pulled(state, sent, pv, ps, ok, now, keep=keep,
                                   stale_filtered=True)
 
+    @cost.phased("fold")
     def _fold_pulled(self, cv0, cs0, wv, ws, pv, ps, ok, now: int,
                      keep=None, stale_filtered=False):
         """Fold pulled candidates ``pv``/``ps`` ([N, F, K]) into the
@@ -415,6 +433,7 @@ class CompressedSim:
         ev = ((cache_slot != cs0) & (cs0 >= 0)).sum()
         return cache_val, cache_slot, cache_sent, ev
 
+    @cost.phased("announce")
     def _announce_offers(self, own0, floor0, node_alive, round_idx: int,
                          now: int, row_offset: int = 0):
         """Owner refresh (a fresh version of every due, present,
@@ -460,6 +479,7 @@ class CompressedSim:
         offer_val = torch.where(offer, own, 0)
         return own, floor, offer_val, slots[:, 0]
 
+    @cost.phased("announce")
     def _announce(self, state, round_idx: int, now: int,
                   row_offset: int = 0):
         own, floor, offer_val, base_slot = self._announce_offers(
@@ -472,6 +492,7 @@ class CompressedSim:
             state, own=own, floor=floor, cache_slot=cs, cache_val=cv,
             cache_sent=se, evictions=(state.evictions + ev).to(I32))
 
+    @cost.phased("exchange", tag="push_pull")
     def _push_pull_stride(self, state, stride: int, now: int):
         """Anti-entropy: two-way exchange with the node ``stride``
         positions away — each side's full cache (line-aligned, so a
@@ -548,6 +569,7 @@ class CompressedSim:
         owner_holds = (ws >= 0) & owner_alive & (own_at >= wv)
         return ws, wv, count + owner_holds.to(I32)
 
+    @cost.phased("ttl_sweep")
     def _floor_advance_and_sweep(self, state, now: int):
         """Per-line census → floor advance → line free → TTL sweep →
         (when due) the exact below-floor free."""
@@ -624,11 +646,12 @@ class CompressedSim:
         p = self.p
         kn = self._knobs
         if self.fused_gather:
-            sent, pv, ps = kernel_ops.fused_publish_gather(
-                state.cache_val, state.cache_slot, state.cache_sent,
-                src, now, stale_ticks=kn.stale_ticks,
-                budget=min(p.budget, p.cache_lines), limit=kn.limit,
-                fanout=p.fanout, cache_lines=p.cache_lines)
+            with cost.phase("publish"):
+                sent, pv, ps = kernel_ops.fused_publish_gather(
+                    state.cache_val, state.cache_slot, state.cache_sent,
+                    src, now, stale_ticks=kn.stale_ticks,
+                    budget=min(p.budget, p.cache_lines), limit=kn.limit,
+                    fanout=p.fanout, cache_lines=p.cache_lines)
             ft = kn.future_arg()
             if ft is not None:
                 # The kernel gates staleness only; the future bound runs
@@ -1037,10 +1060,12 @@ class CompressedSim:
         return state, torch.tensor(stats, dtype=I32)
 
     def _run(self, state, num_rounds: int, every: int, metric, generator,
-             draws, sparse: bool):
+             draws, sparse: bool, plane=None):
         """``num_rounds`` lockstep (or sparse) rounds, sampling
         ``metric`` every ``every`` rounds (none where ``metric`` is
-        None); a sparse run leaves its stats in ``last_sparse_stats``."""
+        None), with ``plane`` (``models/planes.py``) observing each
+        round where given; a sparse run leaves its stats in
+        ``last_sparse_stats``."""
         if num_rounds % every:
             raise ValueError(
                 f"num_rounds={num_rounds} not divisible by every={every}")
@@ -1049,11 +1074,15 @@ class CompressedSim:
         samples = []
         for i, d in enumerate(common.round_draws(
                 self, state.round_idx + 1, num_rounds, generator, draws)):
+            pre = None if plane is None else plane.before(state, d)
+            st = None
             if sparse:
                 state, st = self._step_sparse(state, d)
                 acc = [acc[0] + st[0], acc[1] + st[1], max(acc[2], st[2])]
             else:
                 state = self._step(state, d)
+            if plane is not None:
+                plane.after(pre, state, st)
             if metric is not None and (i + 1) % every == 0:
                 samples.append(metric(state))
         if sparse:
@@ -1101,6 +1130,138 @@ class CompressedSim:
         self._check_horizon(state, num_rounds, start_round)
         return self._run(state, num_rounds, every, self.behind, generator,
                          draws, self._resolve_sparse_request(sparse))
+
+    # -- telemetry planes ---------------------------------------------------
+
+    def _trace_before(self, state: CompressedState):
+        """The pre-round state, which the round leaves intact."""
+        return state
+
+    def _trace_record(self, prev, nxt: CompressedState, stats):
+        """One round's flight-recorder record; ``behind`` goes through
+        :meth:`behind`, the twin's census included."""
+        p, kn = self.p, self._knobs
+        return trace_ops.compressed_record(
+            prev, nxt, self.behind(nxt),
+            budget=min(p.budget, p.cache_lines), fanout=p.fanout,
+            limit=p.resolved_retransmit_limit(), stats=stats,
+            tick_period=kn.tick_period, tick_phase=kn.tick_phase)
+
+    def _delta_belief(self, state: CompressedState):
+        """The ``[N, M]`` belief view ``max(floor, cache hit, own)``."""
+        return delta_ops.compressed_belief(
+            state.own, state.cache_slot, state.cache_val, state.floor,
+            self.p.services_per_node)
+
+    def _digest_record(self, nxt: CompressedState, idents, buckets: int):
+        """One round's coherence record over the belief view."""
+        return digest_ops.state_digest_record(
+            nxt.round_idx, self._delta_belief(nxt), nxt.node_alive, idents,
+            buckets)
+
+    def _resolve_digest_idents(self, idents):
+        """The caller's identity table, or the sim-slot default."""
+        return planes.digest_idents(idents, self.p.m, self.device)
+
+    def _prov_belief(self, state: CompressedState, tracked):
+        """Packed ``[N, T]`` belief of the tracked slots: the belief
+        view's columns, ``max(floor, cache hit, own row)``."""
+        p = self.p
+        s = p.services_per_node
+        tr = tracked.to(I64)
+        lines = hash_line(tr, p.cache_lines, s).to(I64)
+        hit = state.cache_slot[:, lines] == tracked[None, :]
+        cached = torch.where(hit, state.cache_val[:, lines], 0)
+        owner = torch.div(tr, s, rounding_mode="floor")
+        own_b = torch.where(
+            owner[None, :] == torch.arange(p.n, dtype=I64,
+                                           device=tr.device)[:, None],
+            state.own[:, tr - owner * s], 0)
+        return torch.maximum(torch.maximum(state.floor[tr][None, :],
+                                           cached), own_b)
+
+    def _prov_channels(self, state: CompressedState, draws: RoundDraws):
+        """The round's channels, from its draws as the step resolves
+        them: the board pulls from ``src`` and, on a push-pull round,
+        the stride exchange's two legs (the nodes ``stride`` ahead and
+        behind, where both ends are alive).  Every exchange pulls; a
+        floor fold is no channel."""
+        p = self.p
+        round_idx = state.round_idx + 1
+        pulls = [(self._sample(state, draws, round_idx), None)]
+        if round_idx % self._knobs.push_pull_rounds == 0:
+            stride = int(draws.stride)
+            alive = state.node_alive
+            idx = torch.arange(p.n, dtype=I32, device=alive.device)
+            for roll_amt, partner in ((-stride, (idx + stride) % p.n),
+                                      (stride, (idx - stride) % p.n)):
+                ok = alive & torch.roll(alive, roll_amt, 0)
+                pulls.append((partner[:, None], ok[:, None]))
+        return [], pulls
+
+    def _run_plane(self, state, num_rounds: int, make_plane, generator,
+                   draws, start_round, sparse):
+        self._check_horizon(state, num_rounds, start_round)
+        plane = make_plane(state)
+        final, _ = self._run(state, num_rounds, 1, None, generator, draws,
+                             self._resolve_sparse_request(sparse),
+                             plane=plane)
+        return final, plane.result
+
+    def run_with_trace(self, state: CompressedState, num_rounds: int, *,
+                       cap: int = 0, generator=None,
+                       draws: Optional[Sequence[RoundDraws]] = None,
+                       start_round=None, sparse=None):
+        """:meth:`run_fast` with the flight recorder (``ops/trace.py``):
+        returns ``(final, RoundTrace)``; ``cap`` bounds the record
+        buffer (0 is every round)."""
+        cap = cap or num_rounds
+        return self._run_plane(
+            state, num_rounds, lambda st: planes.TracePlane(self, cap),
+            generator, draws, start_round, sparse)
+
+    def run_with_digest(self, state: CompressedState, num_rounds: int, *,
+                        cap: int = 0,
+                        buckets: int = digest_ops.DEFAULT_BUCKETS,
+                        idents=None, generator=None,
+                        draws: Optional[Sequence[RoundDraws]] = None,
+                        start_round=None, sparse=None):
+        """:meth:`run_fast` with the coherence digest
+        (``ops/digest.py``): returns ``(final, DigestTrace)``."""
+        cap = cap or num_rounds
+        idents = self._resolve_digest_idents(idents)
+        return self._run_plane(
+            state, num_rounds,
+            lambda st: planes.DigestPlane(self, cap, idents, buckets),
+            generator, draws, start_round, sparse)
+
+    def run_with_deltas(self, state: CompressedState, num_rounds: int,
+                        cap: int, *, generator=None,
+                        draws: Optional[Sequence[RoundDraws]] = None,
+                        start_round=None, sparse=None):
+        """:meth:`run_fast` with each round's changed beliefs
+        (``ops/delta.py``): returns ``(final,
+        DeltaBatch[num_rounds])``."""
+        return self._run_plane(
+            state, num_rounds, lambda st: planes.DeltaPlane(self, st, cap),
+            generator, draws, start_round, sparse)
+
+    def run_with_provenance(self, state: CompressedState, num_rounds: int,
+                            tracked, *, cap: int = 0, prov=None,
+                            generator=None,
+                            draws: Optional[Sequence[RoundDraws]] = None,
+                            start_round=None, sparse=None):
+        """:meth:`run_fast` with the provenance tracer of the
+        ``tracked`` slots (``ops/provenance.py``): returns ``(final,
+        ProvTrace)``; ``prov`` chains a chunked run."""
+        tracked = planes.check_tracked(tracked, self.p.m)
+        cap = cap or num_rounds
+        return self._run_plane(
+            state, num_rounds,
+            lambda st: planes.ProvPlane(
+                self, planes.start_prov(self, st, tracked, cap, prov),
+                tracked),
+            generator, draws, start_round, sparse)
 
     # -- pipelined runs -----------------------------------------------------
     #

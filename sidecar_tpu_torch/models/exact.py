@@ -37,6 +37,14 @@ cadence (``tick_period``/``tick_phase``) as delivery gates.
 The reference's ``lax.cond`` on the round counter (steps 3 and 4) is a
 host branch on ``state.round_idx``, a Python int.
 
+Telemetry: ``run_with_trace``, ``run_with_digest``, ``run_with_deltas``
+and ``run_with_provenance`` run the same rounds (dense, or ``sparse=``)
+with a plane of ``models/planes.py`` observing each one, and return
+``(final, stream, conv)``.  The round rewrites ``known`` in place, so
+the trace and delta planes copy it before each round (the trace plane
+also takes the offer census then); provenance gathers only its
+``[N, T]`` columns.  The plain run methods build no plane.
+
 In place: the reference's ``run*`` drivers donate their state, so
 ``run`` and ``run_fast`` here update ``known`` and ``sent`` in place (a
 copy of ``known`` is 671 MB at the bench shape) and return a state that
@@ -55,12 +63,15 @@ import numpy as np
 import torch
 
 from sidecar_tpu_torch.models import common
+from sidecar_tpu_torch.models import planes
 from sidecar_tpu_torch.models.timecfg import TimeConfig
+from sidecar_tpu_torch.ops import digest as digest_ops
 from sidecar_tpu_torch.ops import gossip as gossip_ops
 from sidecar_tpu_torch.ops import knobs as knob_ops
 from sidecar_tpu_torch.ops import pipeline as pipeline_ops
 from sidecar_tpu_torch.ops import sparse as sparse_ops
 from sidecar_tpu_torch.ops import suspicion as suspicion_ops
+from sidecar_tpu_torch.ops import trace as trace_ops
 from sidecar_tpu_torch.ops.gossip import RoundDraws
 from sidecar_tpu_torch.ops.pipeline import Inflight
 from sidecar_tpu_torch.ops.status import (
@@ -72,6 +83,7 @@ from sidecar_tpu_torch.ops.status import (
 )
 from sidecar_tpu_torch.ops.topology import Topology
 from sidecar_tpu_torch.ops.ttl import ttl_sweep
+from sidecar_tpu_torch.telemetry import cost
 
 I32, I64 = torch.int32, torch.int64
 
@@ -195,6 +207,7 @@ class ExactSim:
 
     # -- the round's phases -------------------------------------------------
 
+    @cost.phased("announce")
     def _announce_updates(self, known, node_alive, round_idx: int,
                           now: int):
         """Update triples of the owners' refresh re-stamps (hash-spread
@@ -498,20 +511,25 @@ class ExactSim:
         return state, torch.tensor(stats, dtype=I32)
 
     def _run(self, state, num_rounds: int, conv: bool, generator, draws,
-             sparse: bool):
+             sparse: bool, plane=None):
         """``num_rounds`` lockstep (or sparse) rounds in place, sampling
-        :meth:`convergence` after each where ``conv``; a sparse run
-        leaves its stats in ``last_sparse_stats``."""
+        :meth:`convergence` after each where ``conv``, with ``plane``
+        (``models/planes.py``) observing each round where given; a
+        sparse run leaves its stats in ``last_sparse_stats``."""
         self.last_sparse_stats = None
         acc = [0, 0, 0]
         curve = []
         for d in common.round_draws(self, state.round_idx + 1, num_rounds,
                                     generator, draws):
+            pre = None if plane is None else plane.before(state, d)
+            st = None
             if sparse:
                 state, st = self._step_sparse(state, d)
                 acc = [acc[0] + st[0], acc[1] + st[1], max(acc[2], st[2])]
             else:
                 state = self._step(state, d)
+            if plane is not None:
+                plane.after(pre, state, st)
             if conv:
                 curve.append(self.convergence(state))
         if sparse:
@@ -554,6 +572,134 @@ class ExactSim:
             state = clone_state(state)
         return self._run(state, num_rounds, True, generator, draws,
                          self._resolve_sparse_request(sparse))
+
+    # -- telemetry planes ----------------------------------------------------
+
+    def _trace_before(self, state: SimState):
+        """What a trace record needs of the pre-round state, taken before
+        the round rewrites it: the offer census and a copy of
+        ``known``."""
+        p = self.p
+        census = trace_ops.offer_census(
+            gossip_ops.eligible_records(state.known, state.sent,
+                                        p.resolved_retransmit_limit()),
+            min(p.budget, p.m), p.fanout)
+        return dataclasses.replace(state, known=state.known.clone(),
+                                   sent=None), census
+
+    def _trace_record(self, prev, nxt: SimState, stats):
+        """One round's flight-recorder record; ``prev`` is
+        :meth:`_trace_before`'s."""
+        p, kn = self.p, self._knobs
+        prev, census = prev
+        return trace_ops.exact_record(
+            prev, nxt, budget=min(p.budget, p.m), fanout=p.fanout,
+            limit=p.resolved_retransmit_limit(), stats=stats,
+            tick_period=kn.tick_period, tick_phase=kn.tick_phase,
+            census=census)
+
+    def _digest_record(self, nxt: SimState, idents, buckets: int):
+        """One round's coherence record over the post-round belief."""
+        return digest_ops.state_digest_record(
+            nxt.round_idx, nxt.known, nxt.node_alive, idents, buckets)
+
+    def _resolve_digest_idents(self, idents):
+        """The caller's identity table, or the sim-slot default."""
+        return planes.digest_idents(idents, self.p.m, self.device)
+
+    def _delta_belief(self, state: SimState):
+        """The belief a delta batch diffs: a copy of ``known``."""
+        return state.known.clone()
+
+    def _prov_belief(self, state: SimState, tracked):
+        """Packed ``[N, T]`` belief of the tracked slots."""
+        return state.known[:, tracked.to(I64)]
+
+    def _prov_channels(self, state: SimState, draws: RoundDraws):
+        """The round's sampled channels, from its draws as the step
+        resolves them: the gossip pushes to ``dst`` and, on a push-pull
+        round, the two-way edge to the partner."""
+        round_idx = state.round_idx + 1
+        dst = self._sample(state.node_alive, draws, round_idx)
+        pushes, pulls = [(dst, None)], []
+        if round_idx % self._knobs.push_pull_rounds == 0:
+            partner = gossip_ops.sample_peers(
+                draws.pp_slot.to(self.device, I32), self.p.n,
+                nbrs=self._nbrs, node_alive=state.node_alive)
+            pushes.append((partner, None))
+            pulls.append((partner, None))
+        return pushes, pulls
+
+    def _run_plane(self, state, num_rounds: int, make_plane, generator,
+                   draws, donate: bool, start_round, sparse):
+        self._check_horizon(state, num_rounds, start_round)
+        if not donate:
+            state = clone_state(state)
+        plane = make_plane(state)
+        final, conv = self._run(state, num_rounds, True, generator, draws,
+                                self._resolve_sparse_request(sparse),
+                                plane=plane)
+        return final, plane.result, conv
+
+    def run_with_trace(self, state: SimState, num_rounds: int, *,
+                       cap: int = 0, generator=None,
+                       draws: Optional[Sequence[RoundDraws]] = None,
+                       donate: bool = True, start_round=None, sparse=None):
+        """:meth:`run` with the flight recorder (``ops/trace.py``):
+        returns ``(final, RoundTrace, conv)``; ``cap`` bounds the record
+        buffer (0 is every round)."""
+        cap = cap or num_rounds
+        return self._run_plane(
+            state, num_rounds, lambda st: planes.TracePlane(self, cap),
+            generator, draws, donate, start_round, sparse)
+
+    def run_with_digest(self, state: SimState, num_rounds: int, *,
+                        cap: int = 0,
+                        buckets: int = digest_ops.DEFAULT_BUCKETS,
+                        idents=None, generator=None,
+                        draws: Optional[Sequence[RoundDraws]] = None,
+                        donate: bool = True, start_round=None,
+                        sparse=None):
+        """:meth:`run` with the coherence digest (``ops/digest.py``):
+        returns ``(final, DigestTrace, conv)``."""
+        cap = cap or num_rounds
+        idents = self._resolve_digest_idents(idents)
+        return self._run_plane(
+            state, num_rounds,
+            lambda st: planes.DigestPlane(self, cap, idents, buckets),
+            generator, draws, donate, start_round, sparse)
+
+    def run_with_deltas(self, state: SimState, num_rounds: int, cap: int,
+                        *, generator=None,
+                        draws: Optional[Sequence[RoundDraws]] = None,
+                        donate: bool = True, start_round=None,
+                        sparse=None):
+        """:meth:`run` with each round's changed cells
+        (``ops/delta.py``): returns ``(final, DeltaBatch[num_rounds],
+        conv)``."""
+        return self._run_plane(
+            state, num_rounds, lambda st: planes.DeltaPlane(self, st, cap),
+            generator, draws, donate, start_round, sparse)
+
+    def run_with_provenance(self, state: SimState, num_rounds: int,
+                            tracked, *, cap: int = 0, prov=None,
+                            generator=None,
+                            draws: Optional[Sequence[RoundDraws]] = None,
+                            donate: bool = True, start_round=None,
+                            sparse=None):
+        """:meth:`run` with the provenance tracer of the ``tracked``
+        slots (``ops/provenance.py``): returns ``(final, ProvTrace,
+        conv)``.  ``cap`` bounds the coverage window (0 is
+        ``num_rounds``); a chunked caller passes the previous chunk's
+        trace as ``prov``."""
+        tracked = planes.check_tracked(tracked, self.p.m)
+        cap = cap or num_rounds
+        return self._run_plane(
+            state, num_rounds,
+            lambda st: planes.ProvPlane(
+                self, planes.start_prov(self, st, tracked, cap, prov),
+                tracked),
+            generator, draws, donate, start_round, sparse)
 
     # -- pipelined runs (draw order as in the compressed model) -------------
 

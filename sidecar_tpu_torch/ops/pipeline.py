@@ -10,9 +10,9 @@ round stale, honestly).  The mode changes round semantics, so
 mode ``"1"``, does.
 
 Modes come from the constructor argument only (None is ``"auto"``;
-``"on"``/``"off"`` alias ``"1"``/``"0"``).  The reference's
-``pipeline.mode.*`` registry counters wait for the port's registry
-(ROADMAP.md Queue 1 item 7).
+``"on"``/``"off"`` alias ``"1"``/``"0"``); each resolution is counted as
+``pipeline.mode.<mode>`` in the process registry
+(``sidecar_tpu_torch/metrics.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from sidecar_tpu_torch import metrics
 from sidecar_tpu_torch.ops.gossip import RoundDraws
 
 PIPELINE_MODES = ("auto", "0", "1")
@@ -27,13 +28,15 @@ PIPELINE_MODES = ("auto", "0", "1")
 
 def resolve_pipeline(explicit: Optional[str] = None) -> str:
     """The pipelined-execution mode of a sim, ``"auto" | "0" | "1"``,
-    from its constructor argument (None is ``"auto"``)."""
+    from its constructor argument (None is ``"auto"``), counted as
+    ``pipeline.mode.<mode>``."""
     mode = "auto" if explicit is None else explicit
     mode = {"on": "1", "off": "0"}.get(mode, mode)
     if mode not in PIPELINE_MODES:
         raise ValueError(
             f"pipeline mode must be one of {PIPELINE_MODES}, got "
             f"{explicit!r}")
+    metrics.incr(f"pipeline.mode.{mode}")
     return mode
 
 

@@ -16,12 +16,12 @@ cap runs the dense round instead (the overflow fallback).
 
 Modes come from the constructor argument only: ``None`` is ``"auto"``
 (the reference's default with its environment variable unset), and
-``"on"``/``"off"`` are aliases of ``"1"``/``"0"``.  The reference's
-process-registry counters (``sparse.mode.*``, ``sparse.rounds``,
-``sparse.switches``, ``sparse.overflow``, the ``sparse.frontier_size``
-gauge) wait for the port's registry (ROADMAP.md Queue 1 item 7); the
-arbiter's per-run instance counters (:meth:`SparseArbiter.snapshot`)
-are here.
+``"on"``/``"off"`` are aliases of ``"1"``/``"0"``.  The process registry
+(``sidecar_tpu_torch/metrics.py``) counts each resolution
+(``sparse.mode.<mode>``) and the arbiter's chunks (``sparse.rounds``,
+``sparse.overflow``, ``sparse.switches``, the ``sparse.frontier_size``
+gauge) from the host ints it already holds; the per-run view is
+:meth:`SparseArbiter.snapshot`.
 
 :func:`compact_rows` runs without a host sync: ``jnp.nonzero(mask,
 size=cap, fill_value=n)`` becomes a running count (``cumsum``) and a
@@ -35,6 +35,8 @@ from typing import Optional
 
 import torch
 
+from sidecar_tpu_torch import metrics
+
 SPARSE_MODES = ("auto", "0", "1")
 
 # The stats vector every sparse step and run reports, int32 [3]:
@@ -47,12 +49,14 @@ STAT_FRONTIER_HWM = 2
 
 def resolve_sparse(explicit: Optional[str] = None) -> str:
     """The sparse-execution mode of a sim, ``"auto" | "0" | "1"``, from
-    its constructor argument (None is ``"auto"``)."""
+    its constructor argument (None is ``"auto"``), counted as
+    ``sparse.mode.<mode>``."""
     mode = "auto" if explicit is None else explicit
     mode = {"on": "1", "off": "0"}.get(mode, mode)
     if mode not in SPARSE_MODES:
         raise ValueError(
             f"sparse mode must be one of {SPARSE_MODES}, got {explicit!r}")
+    metrics.incr(f"sparse.mode.{mode}")
     return mode
 
 
@@ -143,7 +147,8 @@ class SparseArbiter:
       for ``cooldown`` decisions.
 
     Per-run counters live on the instance (:meth:`snapshot`) and
-    :meth:`new_trajectory` zeroes them."""
+    :meth:`new_trajectory` zeroes them; the process registry keeps
+    adding up across runs."""
 
     @classmethod
     def for_census(cls, mode: str, n: int) -> "SparseArbiter":
@@ -176,6 +181,7 @@ class SparseArbiter:
         self.run_frontier_hwm = 0
         self._cooldown_left = 0
         self._sparse = self.mode == "1"
+        metrics.set_gauge("sparse.frontier_size", 0.0)
 
     def snapshot(self) -> dict:
         """The per-run record."""
@@ -211,9 +217,14 @@ class SparseArbiter:
         self.run_dense_rounds += rounds - sparse_rounds
         self.run_overflow_rounds += overflow
         self.run_frontier_hwm = max(self.run_frontier_hwm, frontier)
-        if overflow and self.mode == "auto":
-            self._cooldown_left = self.cooldown
-            self._switch(False)
+        if sparse_rounds:
+            metrics.incr("sparse.rounds", sparse_rounds)
+        if overflow:
+            metrics.incr("sparse.overflow", overflow)
+            if self.mode == "auto":
+                self._cooldown_left = self.cooldown
+                self._switch(False)
+        metrics.set_gauge("sparse.frontier_size", float(frontier))
 
     def update_census(self, census: float) -> bool:
         """Feed the latest census sample; returns the next chunk's
@@ -233,3 +244,4 @@ class SparseArbiter:
         if self._sparse != to_sparse:
             self._sparse = to_sparse
             self.run_switches += 1
+            metrics.incr("sparse.switches")

@@ -1,8 +1,9 @@
 """Cluster topologies — the numpy builders of
 ``sidecar_tpu/ops/topology.py`` (``Topology``, ``complete``, ``ring``,
 ``erdos_renyi``, ``with_stagger``), copied so both packages build
-bit-identical graphs from the same seed, and the static plan of the
-sharded round's zoned board exchange (``zoned_exchange_plan``).
+bit-identical graphs from the same seed, the overlay-name resolver
+(``from_name``, over the families the port has), and the static plan of
+the sharded round's zoned board exchange (``zoned_exchange_plan``).
 
 A :class:`Topology` is a padded neighbour list ``nbrs[N, D]`` (int32,
 padded with the node's own index) plus a degree vector ``deg[N]``;
@@ -14,9 +15,12 @@ shift so no O(N²) structure exists.  Builders run on the host in numpy
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 import numpy as np
+
+from sidecar_tpu_torch import metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +117,39 @@ def with_stagger(topo: Topology, period: int,
             f"stagger offsets must be shape ({topo.n},), got {offsets.shape}")
     return dataclasses.replace(topo, stagger=offsets,
                                stagger_period=int(period))
+
+
+# The reference's overlay families; the port builds the first three.
+_NAME_RE = re.compile(
+    r"(complete|chord)"
+    r"|ring(\d+)|expander(\d+)|er(\d+(?:\.\d+)?)|ba(\d+)"
+    r"|zoned(\d+)|mesh(\d+)x(\d+)")
+
+
+def from_name(name: str, n: int, seed: int = 0) -> Topology:
+    """An overlay by NAME, as the reference's ``from_name`` resolves it:
+    ``complete``, ``ring<hops>`` and ``er<avg degree>`` (seeded), and
+    the resolution counted as ``topology.from_name.<family>``.  The
+    reference's other families (``chord``, ``expander<k>``, ``ba<m>``,
+    ``zoned<z>``, ``mesh<r>x<c>``) are not in the port and raise, as
+    does an unknown name."""
+    s = str(name).strip().lower()
+    m = _NAME_RE.fullmatch(s)
+    if m is None:
+        raise ValueError(f"unknown topology {name!r}: the port builds "
+                         "complete, ring<hops> and er<avg degree>")
+    if m.group(1) == "complete":
+        family, topo = "complete", complete(n)
+    elif m.group(2):
+        family, topo = "ring", ring(n, hops=int(m.group(2)))
+    elif m.group(4):
+        family, topo = "er", erdos_renyi(n, avg_degree=float(m.group(4)),
+                                         seed=seed)
+    else:
+        raise ValueError(f"topology {name!r} is not in the port: it builds "
+                         "complete, ring<hops> and er<avg degree>")
+    metrics.incr(f"topology.from_name.{family}")
+    return topo
 
 
 # -- the zoned board-exchange plan --------------------------------------------

@@ -21,6 +21,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from sidecar_tpu_torch import metrics
+
 # The cross-shard board exchange of the sharded round (the reference's
 # docs/sharding.md): the whole board to every shard, the sampled rows
 # only, a ring of block hops, or the overlay's statically reachable
@@ -32,13 +34,15 @@ def resolve_board_exchange(explicit: Optional[str] = None, *,
                            supported: Sequence[str] = BOARD_EXCHANGES
                            ) -> str:
     """The board-exchange mode: the explicit argument, ``all_gather``
-    when it is None.  A mode the twin does not support raises.  (The
-    reference also reads an environment variable; the port reads
+    when it is None, counted as ``parallel.exchange.mode.<mode>``.  A
+    mode the twin does not support raises.  (The reference also reads
+    an environment variable, and counts its fallback; the port reads
     none.)"""
     mode = "all_gather" if explicit is None else explicit
     if mode not in supported:
         raise ValueError(f"board_exchange must be one of {tuple(supported)}, "
                          f"got {mode!r}")
+    metrics.incr(f"parallel.exchange.mode.{mode}")
     return mode
 
 

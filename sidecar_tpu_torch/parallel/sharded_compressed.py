@@ -62,6 +62,7 @@ from typing import Optional
 
 import torch
 
+from sidecar_tpu_torch import metrics
 from sidecar_tpu_torch.models.compressed import (
     I32,
     I64,
@@ -73,6 +74,7 @@ from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import kernels as kernel_ops
 from sidecar_tpu_torch.ops.merge import admit_gate
 from sidecar_tpu_torch.ops.topology import Topology, zoned_exchange_plan
+from sidecar_tpu_torch.telemetry import cost
 from sidecar_tpu_torch.parallel.mesh import (
     LocalShardGroup,
     resolve_board_exchange,
@@ -181,6 +183,10 @@ class ShardedCompressedSim(CompressedSim):
                     for a in (h.rows.astype("int64"), h.valid,
                               h.pos.astype("int64")))
                 for h in self._zoned_plan.hops)
+            metrics.set_gauge("parallel.exchange.zoned_rows",
+                              float(self._zoned_plan.total_rows))
+        # The host watermark of sync_exchange_metrics.
+        self._overflow_synced = 0
 
         # Per-round, per-shard receive bytes of the board exchange: the
         # int32 bval + bslot payloads each mode moves.
@@ -192,14 +198,25 @@ class ShardedCompressedSim(CompressedSim):
             "zoned": (0 if self._zoned_plan is None
                       else self._zoned_plan.total_rows * k * 4 * 2),
         }[self.board_exchange]
+        metrics.set_gauge("parallel.exchange.bytes",
+                          float(self.exchange_bytes_per_round))
 
     def sync_exchange_metrics(self, state) -> int:
-        """The cumulative count of ``all_to_all`` pulls dropped at a
-        full bucket (``state.dropped``); reads one device scalar.  (The
-        reference also publishes it to its metrics registry as
-        ``parallel.exchange.overflow``; the port's registry comes with
-        ROADMAP.md Queue 1 item 7.)"""
-        return int(state.dropped)
+        """Publish the cumulative count of ``all_to_all`` pulls dropped
+        at a full bucket (``state.dropped``) to the registry as
+        ``parallel.exchange.overflow`` and return it.  Reads one device
+        scalar, so call it after a run, not between chunks.  The
+        watermark is per trajectory: a count below it (a fresh state on
+        a reused sim) resets it, so the new trajectory counts from
+        zero."""
+        dropped = int(state.dropped)
+        if dropped < self._overflow_synced:
+            self._overflow_synced = 0
+        delta = dropped - self._overflow_synced
+        if delta > 0:
+            metrics.incr("parallel.exchange.overflow", delta)
+        self._overflow_synced = dropped
+        return dropped
 
     # -- the rounds not ported yet ------------------------------------------
 
@@ -288,7 +305,8 @@ class ShardedCompressedSim(CompressedSim):
         if a2a:
             for x in shards:
                 x.route = self._a2a_route(x.dst, x.index, nl)
-            req_in = g.all_to_all([x.route.req for x in shards])
+            with cost.phase("exchange"):
+                req_in = g.all_to_all([x.route.req for x in shards])
 
         # 2. Each shard's board, gated once before it travels.
         for x in shards:
@@ -325,15 +343,19 @@ class ShardedCompressedSim(CompressedSim):
         if stub:
             pass
         elif mode == "all_gather":
-            boards = zip(g.all_gather([x.bval for x in shards]),
-                         g.all_gather([x.bslot for x in shards]))
+            with cost.phase("exchange"):
+                boards = zip(g.all_gather([x.bval for x in shards]),
+                             g.all_gather([x.bslot for x in shards]))
             for x, (bval, bslot) in zip(shards, boards):
                 pv, ps = kernel_ops.board_row_gather(bval, bslot, x.dst, 0)
                 self._fold(x, pv, ps, x.ok, now)
         elif a2a:
             rows = [torch.clamp(r, 0, nl - 1).to(I64) for r in req_in]
-            resp_v = g.all_to_all([x.bval[r] for x, r in zip(shards, rows)])
-            resp_s = g.all_to_all([x.bslot[r] for x, r in zip(shards, rows)])
+            with cost.phase("exchange"):
+                resp_v = g.all_to_all([x.bval[r]
+                                       for x, r in zip(shards, rows)])
+                resp_s = g.all_to_all([x.bslot[r]
+                                       for x, r in zip(shards, rows)])
             for x, rv, rs in zip(shards, resp_v, resp_s):
                 rt = x.route
                 shard = torch.where(rt.valid, rt.src_shard, 0)
@@ -354,12 +376,15 @@ class ShardedCompressedSim(CompressedSim):
                     continue
                 zrows, zvalid, zpos = self._zoned_tabs[h - 1]
                 perm = [(i, (i - h) % d) for i in range(d)]
-                got_v = g.ppermute([torch.where(
-                    zvalid[x.index][:, None], x.bval[zrows[x.index]], 0)
-                    for x in shards], perm)
-                got_s = g.ppermute([torch.where(
-                    zvalid[x.index][:, None], x.bslot[zrows[x.index]], -1)
-                    for x in shards], perm)
+                blk_v = [torch.where(zvalid[x.index][:, None],
+                                     x.bval[zrows[x.index]], 0)
+                         for x in shards]
+                blk_s = [torch.where(zvalid[x.index][:, None],
+                                     x.bslot[zrows[x.index]], -1)
+                         for x in shards]
+                with cost.phase("exchange"):
+                    got_v = g.ppermute(blk_v, perm)
+                    got_s = g.ppermute(blk_s, perm)
                 for x, bv, bs in zip(shards, got_v, got_s):
                     ss = (x.index + h) % d
                     sel = x.src_shard == ss
@@ -372,8 +397,9 @@ class ShardedCompressedSim(CompressedSim):
             cur_v = [x.bval for x in shards]
             cur_s = [x.bslot for x in shards]
             for h in range(1, d):
-                cur_v = g.ppermute(cur_v, perm)
-                cur_s = g.ppermute(cur_s, perm)
+                with cost.phase("exchange"):
+                    cur_v = g.ppermute(cur_v, perm)
+                    cur_s = g.ppermute(cur_s, perm)
                 for x, bv, bs in zip(shards, cur_v, cur_s):
                     sel = x.src_shard == (x.index + h) % d
                     rows_h = torch.where(sel, x.src_row, 0).to(I64)

@@ -574,3 +574,50 @@ def test_cadence_run_on_card_equals_cpu(card, model):
     gpu2 = type(gpu)(gpu.p, topo, gpu.t)
     assert_same(cpu2.run_fast(start(cpu2), 30, draws=draws),
                 gpu2.run_fast(start(gpu2), 30, draws=draws))
+
+
+def plane_run(sim, plane, draws, rounds, sparse):
+    """One telemetry plane's run; returns ``(final, stream)``."""
+    st = start(sim)
+    kw = dict(draws=draws, sparse=sparse)
+    if plane == "trace":
+        out = sim.run_with_trace(st, rounds, **kw)
+    elif plane == "digest":
+        out = sim.run_with_digest(st, rounds, buckets=32, **kw)
+    elif plane == "deltas":
+        out = sim.run_with_deltas(st, rounds, 512, **kw)
+    else:
+        out = sim.run_with_provenance(st, rounds, (0, 41, 287, 510), **kw)
+    return out[0], out[1]
+
+
+def stream_fields(stream) -> dict:
+    return {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in vars(stream).items()}
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("plane", ["trace", "digest", "deltas",
+                                   "provenance"])
+@pytest.mark.parametrize("model", ["compressed", "exact"])
+def test_plane_on_card_equals_cpu(card, model, plane, sparse):
+    """Each telemetry plane, 40 rounds at n = 256 from one set of
+    draws (sparse: some rounds overflow, some run compacted): every
+    field of the stream and of the final state equal."""
+    cpu, gpu = mode_pair(model)
+    gen = torch.Generator().manual_seed(2)
+    draws = [cpu.draw(gen, r) for r in range(1, 41)]
+    a, sa = plane_run(cpu, plane, draws, 40, sparse)
+    b, sb = plane_run(gpu, plane, draws, 40, sparse)
+    assert_same(a, b)
+    if sparse:
+        stats = gpu.last_sparse_stats.tolist()
+        assert stats == cpu.last_sparse_stats.tolist()
+        assert stats[0] > 0 and stats[1] > 0
+    fa, fb = stream_fields(sa), stream_fields(sb)
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        if isinstance(fa[k], torch.Tensor):
+            assert torch.equal(fa[k], fb[k]), (plane, k)
+        else:
+            assert fa[k] == fb[k], (plane, k)

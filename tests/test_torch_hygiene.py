@@ -55,7 +55,8 @@ def test_every_port_module_is_checked():
                      "timecfg.py", "convert.py", "mesh.py",
                      "sharded_compressed.py", "chip_smoke.py", "exact.py",
                      "scatter_max.py", "common.py", "sparse.py",
-                     "pipeline.py"):
+                     "pipeline.py", "metrics.py", "trace.py", "digest.py",
+                     "delta.py", "provenance.py", "planes.py", "cost.py"):
         assert expected in names, expected
 
 

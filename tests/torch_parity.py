@@ -233,3 +233,34 @@ def assert_exact_states_equal(jax_state, port_state, ctx: str = ""):
                                       err_msg=f"{ctx} field {f}")
         assert got[f].dtype == want[f].dtype, (ctx, f, got[f].dtype,
                                                want[f].dtype)
+
+
+# -- the telemetry planes -------------------------------------------------------
+
+PLANES = ("trace", "digest", "deltas", "provenance")
+PLANE_FIELDS = {"trace": ("count", "rec", "overflow"),
+                "digest": ("count", "rec", "overflow"),
+                "deltas": ("count", "node", "slot", "val", "overflow"),
+                "provenance": ("ref", "first_seen", "parent", "hops",
+                               "coverage", "count", "overflow")}
+
+
+def np_of(x):
+    """A tensor, a JAX array or a host scalar as numpy."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_stream_equal(jax_stream, port_stream, plane, ctx=""):
+    """Every field of a telemetry stream; the port's host
+    ``count``/``overflow`` against the JAX scalars."""
+    for f in PLANE_FIELDS[plane]:
+        np.testing.assert_array_equal(
+            np_of(getattr(port_stream, f)), np_of(getattr(jax_stream, f)),
+            err_msg=f"{ctx} {plane}.{f}")
+
+
+def assert_port_states_equal(a, b, ctx=""):
+    """Two port states, field for field."""
+    x, y = convert.state_to_numpy(a), convert.state_to_numpy(b)
+    for f in x:
+        np.testing.assert_array_equal(x[f], y[f], err_msg=f"{ctx} {f}")
