@@ -8,8 +8,8 @@ them: the compressed model's dense lockstep round — the bench's
 north-star workload — on one device and over node shards, its
 sparse-frontier and software-pipelined rounds, and the exact
 record-level model's dense round — the bench's headline ``value``
-workload — with its execution modes, plus the scatter experiment of
-``benchmarks/pallas_scatter.py``:
+workload — with its execution modes and over node shards, plus the
+scatter experiment of ``benchmarks/pallas_scatter.py``:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — ``nvcc`` builds the kernels from
@@ -67,7 +67,13 @@ workload — with its execution modes, plus the scatter experiment of
    seed: each must reach ε in the same rounds with the same behind
    curve and final state as the single-device unfused run, drop no
    pull, and launch the publish and board-row-gather kernels d times a
-   round;
+   round; then the twin's execution modes at d = 4
+   (``sharded_mode``): forced sparse in ``ring`` and ``all_to_all``,
+   each equal to the same run, with the compacted round's kernels (the
+   publish kernel with global row ids, the board row gather) held
+   against their plain versions and timed on a shard of its tail, and
+   the pipelined twin equal to the single-device pipelined run for 100
+   rounds;
 7. scatter  — ``benchmarks/pallas_scatter.py``'s experiment at its
    shape (4,096 × 40,960, U = n·45 + m updates, ``default_rng(0)``):
    the scatter-max kernel must equal the library scatter, then four
@@ -108,7 +114,21 @@ workload — with its execution modes, plus the scatter experiment of
    exact model at n=1,024 × 10 (30 rounds, all planes), the compressed
    trace and provenance at n=4,096 (50 rounds), its digest and deltas at
    n=1,024 (20 rounds).  ``north_star_mode`` also holds the registry's
-   ``sparse.*`` counters against the arbiter's.
+   ``sparse.*`` counters against the arbiter's;
+12. sharded exact — the node-sharded exact twin (``ShardedSim``) on the
+   ``value`` workload at full size, its shards sharing the card, in
+   every board-exchange mode at d ∈ {1, 4}: 200 warm rounds then 200
+   timed, rounds/s, a 5-round profile, peak memory and the exchange
+   bytes, the scatter-max kernel once a shard a round, and every cell's
+   final state and convergence curve equal to the d = 1 ``all_gather``
+   run's; then the forced-sparse ``ring`` and the digest-gated ``zoned``
+   rounds at d = 4 equal to it, the pipelined twin equal to
+   ``ExactSim``'s pipelined run (100 rounds), every mode at d = 4 equal
+   to ``ExactSim`` with push-pull past the horizon (50 rounds, the same
+   draws), and the card equal to the CPU at n=1,024 × 10 (loss 0.1,
+   push-pull every 10 rounds, 30 rounds).  The kernels phase also holds
+   the scatter-max kernel on the d = 4 shard's row slice of ``known``
+   against its plain version.
 
 Each phase prints one JSON line; then the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -126,7 +146,7 @@ import time
 
 PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
           "north_star", "sharded", "scatter", "exact_lockstep", "exact",
-          "exact_modes", "telemetry")
+          "exact_modes", "telemetry", "sharded_exact")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
@@ -1141,6 +1161,31 @@ def check_scatter_kernels(ex_n: int, ex_m: int):
     other = draw(1, 1 << 20, (ex_n, ex_m))
     check_apply("exact-model shape", known, sent, rows, cols, vals, adv)
     check_rmw("exact-model shape", known, other)
+    # The d = 4 exact twin's shard: the kernel on the row slice
+    # known[r0:r0 + nl] of the whole buffer, local row nl the dropped
+    # pad, as many triples as a shard's all_gather round; the rows
+    # outside the slice must stay as they were.
+    nl = ex_n // 4
+    r0 = nl
+    u_s = ex_n * 45 + nl * (ex_m // ex_n)
+    shard_in = (draw(0, nl + 1, (u_s,)), draw(0, ex_m + 1, (u_s,)),
+                draw(1, 1 << 22, (u_s,)),
+                torch.rand(u_s, generator=gen, device=DEVICE) < 0.5)
+    want_k, want_s = known.clone(), sent.clone()
+    sm.scatter_max_apply_torch(want_k[r0:r0 + nl], *shard_in[:3],
+                               want_s[r0:r0 + nl], shard_in[3])
+    got_k, got_s = known.clone(), sent.clone()
+    sm.scatter_max_apply_cuda(got_k[r0:r0 + nl], *shard_in[:3],
+                              got_s[r0:r0 + nl], shard_in[3])
+    torch.cuda.synchronize()
+    worst["scatter_max_apply"] = max(
+        worst["scatter_max_apply"],
+        max_abs_diff([got_k, got_s], [want_k, want_s]))
+    if not (torch.equal(got_k, want_k) and torch.equal(got_s, want_s)):
+        failures.append("scatter_max_apply d=4 shard row slice")
+    shard_ms = cuda_time_ms(lambda: sm.scatter_max_apply_cuda(
+        got_k[r0:r0 + nl], *shard_in[:3], got_s[r0:r0 + nl], shard_in[3]))
+    del want_k, want_s, got_k, got_s
 
     # Times, at the exact model's shape.  Bounds from these inputs: the
     # scatter reads each triple once and each 32-byte sector of known it
@@ -1174,7 +1219,9 @@ def check_scatter_kernels(ex_n: int, ex_m: int):
         library_device_ms=device_time_ms(
             lambda: k_a.view(-1).scatter_reduce_(0, flat_in, vals_in,
                                                  "amax")),
-        bytes=apply_bytes, bound_ms=apply_bytes / PEAK_BYTES_PER_S * 1e3)
+        bytes=apply_bytes, bound_ms=apply_bytes / PEAK_BYTES_PER_S * 1e3,
+        d4_shard_row_slice={"rows": nl, "row_offset": r0, "updates": u_s,
+                            "ms": shard_ms})
     # Device-only times, warm and after an L2 flush, in both orders; and
     # after a restore of known (also a 671 MB pass that evicts the L2),
     # where every triple that reaches a cell advances it again.
@@ -1215,7 +1262,7 @@ def check_scatter_kernels(ex_n: int, ex_m: int):
         library_device_ms=device_time_ms(
             lambda: torch.maximum(known, other, out=known)),
         bytes=rmw_bytes, bound_ms=rmw_bytes / PEAK_BYTES_PER_S * 1e3)
-    n_cases = 2 * (len(scatter_cases()) + 2) + len(RMW_CASES) + 1
+    n_cases = 2 * (len(scatter_cases()) + 2) + len(RMW_CASES) + 2
     return ({"scatter_max_apply": rec_apply, "rmw_max": rec_rmw},
             failures, n_cases)
 
@@ -1929,6 +1976,180 @@ def phase_sharded(topo, reference, max_rounds, every, eps):
         if not ok:
             raise SystemExit(f"sharded phase failed ({mode}, d={d})")
         del sim, state, final, first
+    return all_counts + sharded_modes(topo, reference, max_rounds, every,
+                                      eps)
+
+
+SHARDED_SPARSE_MODES = ("ring", "all_to_all")
+
+
+def compacted_kernel_times(sim, state, failures) -> dict:
+    """The compacted round's two kernels at shard 1 of ``state`` (a
+    state of the twin's forced-sparse run; rows from r0 = N/d on),
+    as that round calls them: the publish kernel on the shard's
+    compacted senders with global row ids ``idx + r0``, and the board
+    row gather kernel for its compacted receivers' own-shard pulls
+    (``base = r0``); each against its plain version (equal outputs, CUDA
+    events).  Uncounted."""
+    import torch
+
+    from sidecar_tpu_torch.ops import gossip as gossip_ops
+    from sidecar_tpu_torch.ops import kernels as k
+    from sidecar_tpu_torch.ops.sparse import compact_rows
+
+    p, kn = sim.p, sim._knobs
+    nl = p.n // sim.d
+    r0 = nl
+    rows = slice(r0, r0 + nl)
+    cs_cap, cr_cap, _ = sim._sparse_caps_shard
+    r = state.round_idx + 1
+    src = gossip_ops.sample_peers(
+        sim.draw(sim.default_generator(6), r).peer_slot, p.n,
+        nbrs=sim._nbrs, node_alive=state.node_alive)
+    sender = k.eligible_lines(state.cache_slot, state.cache_sent,
+                              kn.limit).any(dim=1)
+    recv = state.node_alive & sender[src.long()].any(dim=1)
+    idx, row, valid, pos = compact_rows(sender[rows], cs_cap)
+    rs = (r0 + row).long()
+    cv = torch.where(valid[:, None], state.cache_val[rs], 0)
+    cs = torch.where(valid[:, None], state.cache_slot[rs], -1)
+    se = state.cache_sent[rs]
+    bkw = dict(budget=min(p.budget, p.cache_lines), limit=kn.limit,
+               fanout=p.fanout, cache_lines=p.cache_lines,
+               row_ids=idx + r0)
+    got = k.publish_board_cuda(cv, cs, se, **bkw)
+    want = k.publish_board_torch(cv, cs, se, **bkw)
+    err = max_abs_diff(got, want)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        failures.append("compacted publish_board")
+    snd = sender[rows, None]
+    bval = torch.where(snd, got[0][pos.long()], 0)
+    bslot = torch.where(snd, got[1][pos.long()], -1)
+    _, row_r, _, _ = compact_rows(recv[rows], cr_cap)
+    dst = src[rows][row_r.long()].contiguous()
+    g = k.board_row_gather_cuda(bval, bslot, dst, r0)
+    w = k.board_row_gather_torch(bval, bslot, dst, r0)
+    if not all(torch.equal(a, b) for a, b in zip(g, w)):
+        failures.append("compacted board_row_gather")
+    return {
+        "round": state.round_idx, "shard": 1, "row_offset": r0,
+        "senders": int(sender[rows].sum()),
+        "receivers": int(recv[rows].sum()), "caps": [cs_cap, cr_cap],
+        "publish_board_row_ids": {
+            "rows": cs_cap, "max_abs_err": err,
+            "ms": cuda_time_ms(lambda: k.publish_board_cuda(cv, cs, se,
+                                                            **bkw)),
+            "plain_ms": cuda_time_ms(lambda: k.publish_board_torch(
+                cv, cs, se, **bkw))},
+        "board_row_gather": {
+            "rows": cr_cap, "board_rows": nl,
+            "max_abs_err": max_abs_diff(g, w),
+            "ms": cuda_time_ms(lambda: k.board_row_gather_cuda(
+                bval, bslot, dst, r0)),
+            "plain_ms": cuda_time_ms(lambda: k.board_row_gather_torch(
+                bval, bslot, dst, r0))}}
+
+
+def sharded_modes(topo, reference, max_rounds, every, eps):
+    """The twin's execution modes at d = 4: forced sparse in ``ring``
+    and ``all_to_all`` (the caps as in ``north_star_mode``, split over
+    the shards), each equal to the single-device unfused run, with the
+    compacted round's kernels timed on its tail; and the pipelined twin
+    against the single-device pipelined run for 100 rounds.  Returns
+    the launch counts of each run."""
+    import torch
+
+    from sidecar_tpu_torch.models.compressed import CompressedSim
+    from sidecar_tpu_torch.parallel import ShardedCompressedSim
+
+    ref_final, ref_curve, ref_hits, ref_rounds = reference
+    p = bench_params(topo.n)
+    slots = burst(p.m, 0.001)
+    thr = north_star_thresholds(p, slots, eps)
+    all_counts = []
+    for mode in SHARDED_SPARSE_MODES:
+        sim = ShardedCompressedSim(p, topo, bench_time(), d=4,
+                                   board_exchange=mode, sparse="1")
+        state = sim.mint(sim.init_state(), slots, 10)
+        sim.run_fast(state, 2, generator=sim.default_generator(99),
+                     sparse=True)
+        torch.cuda.synchronize()
+        gen = sim.default_generator(0)
+        acc, compacted = [0, 0, 0], {}
+
+        def advance(st, k):
+            start = st
+            st, behind = sim.run_behind(st, k, k, generator=gen,
+                                        sparse=True)
+            s = sim.last_sparse_stats.tolist()
+            acc[:] = [acc[0] + s[0], acc[1] + s[1], max(acc[2], s[2])]
+            if s[0] and not compacted:
+                # The start of the first chunk with a compacted round.
+                compacted["start"] = start
+            return st, float(behind[-1])
+
+        reset_launches()
+        final, _first, curve, hit_total, hit_unsettled, rounds, wall, _ = \
+            run_to_eps(sim, state, gen, eps=eps, max_rounds=max_rounds,
+                       every=every, advance=advance, **thr)
+        counts = launches()
+        all_counts.append(counts)
+        failures = []
+        kernels = {"first_compacted_chunk_start": compacted_kernel_times(
+                       sim, compacted["start"], failures),
+                   "end": compacted_kernel_times(sim, final, failures)}
+        diffs = states_equal(ref_final, final)
+        ok = (not diffs and curve == ref_curve and rounds == ref_rounds
+              and (hit_total, hit_unsettled) == ref_hits
+              and acc[0] + acc[1] == rounds and not failures
+              and int(final.dropped) == 0
+              and counts == expected(publish_board=4 * rounds,
+                                     board_row_gather=4 * rounds))
+        emit({"phase": "sharded_mode", "mode": "sparse_forced",
+              "board_exchange": mode, "d": 4, "rounds_run": rounds,
+              "rounds_to_eps_unsettled": hit_unsettled, "wall_s": wall,
+              "rounds_per_s": rounds / wall, "sparse_stats": acc,
+              "sparse_caps_shard": list(sim._sparse_caps_shard),
+              "launches": counts, "field_diffs": diffs,
+              "curve_equal": curve == ref_curve,
+              "compacted_kernels": kernels, "failures": failures,
+              "ok": ok})
+        if not ok:
+            raise SystemExit(f"sharded sparse run failed ({mode})")
+        del sim, state, final, compacted
+
+    # The pipelined twin (the single-device program on the global
+    # state) against the single-device pipelined run.
+    rounds = 100
+    out = {}
+    for label, sim in (
+            ("twin", ShardedCompressedSim(p, topo, bench_time(), d=4,
+                                          board_exchange="ring",
+                                          pipeline="1")),
+            ("single", CompressedSim(p, topo, bench_time(),
+                                     pipeline="1"))):
+        state = sim.mint(sim.init_state(), slots, 10)
+        reset_launches()
+        t0 = time.perf_counter()
+        final, curve, inflight = sim.run_pipelined(
+            state, rounds, every, generator=sim.default_generator(0))
+        torch.cuda.synchronize()
+        out[label] = (final, curve.cpu(), launches(),
+                      time.perf_counter() - t0)
+        all_counts.append(out[label][2])
+        del sim, state
+    diffs = states_equal(out["single"][0], out["twin"][0])
+    ok = (not diffs and torch.equal(out["single"][1], out["twin"][1])
+          and all(out[l][2] == expected(publish_board=rounds + 1)
+                  for l in out))
+    emit({"phase": "sharded_mode", "mode": "pipelined", "d": 4,
+          "board_exchange": "ring", "rounds": rounds,
+          "convergence_curve": out["twin"][1].tolist(),
+          "wall_s": {l: out[l][3] for l in out},
+          "launches": {l: out[l][2] for l in out}, "field_diffs": diffs,
+          "ok": ok})
+    if not ok:
+        raise SystemExit("sharded pipelined run failed")
     return all_counts
 
 
@@ -2846,6 +3067,222 @@ def phase_telemetry(topo, fused, exact_n=4096):
     return counts
 
 
+# -- phase 12: the node-sharded exact twin -------------------------------------
+
+SHARDED_EXACT_RUNS = [(mode, d) for mode in ("all_gather", "ring", "zoned")
+                      for d in (1, 4)]
+
+
+def exact_fields_differ(a, b) -> list:
+    """Names of the fields where two exact-model states differ, compared
+    on ``a``'s device (no host copy of ``known``)."""
+    import torch
+
+    return [f for f in ("known", "sent", "node_alive")
+            if not torch.equal(getattr(a, f),
+                               getattr(b, f).to(getattr(a, f).device))] + \
+        ([] if a.round_idx == b.round_idx else ["round_idx"])
+
+
+def curve_list(conv) -> list:
+    return [float(c) for c in conv.cpu()]
+
+
+def phase_sharded_exact(n=4096, warm=200, timed=200, cpu_n=1024,
+                        cpu_rounds=30):
+    """The node-sharded exact twin (``ShardedSim``) on ``bench.py``'s
+    ``value`` workload at full size (n = 4,096 × 10 services, fanout 3,
+    budget 15, the default ``TimeConfig``, ER(8, seed 3)), the shards
+    sharing the one card: in each board-exchange mode at d ∈ {1, 4},
+    ``run`` for ``warm`` rounds then ``run_fast`` for ``timed`` rounds
+    from ``default_generator(0)`` — rounds/s, a 5-round profile, peak
+    memory, the exchange bytes, the scatter kernel once a shard a round
+    — each cell's final state and warm convergence curve equal to the
+    d = 1 ``all_gather`` run's.  Then, each equal to its reference: the
+    forced-sparse round at d = 4 ``ring`` and the digest-gated d = 4
+    ``zoned`` round over the warm rounds (the gate's skip predicate on
+    the host at the end, and the hops it skipped); ``run_pipelined`` at
+    d = 4 against the single-device ``ExactSim``'s for 100 rounds; with
+    push-pull past the horizon, every mode at d = 4 against ``ExactSim``
+    for 50 rounds from the same draws; and the card against the CPU at
+    n = ``cpu_n`` × 10 with loss 0.1 and push-pull every 10 rounds for
+    ``cpu_rounds`` rounds.  Returns the launch counts of every run."""
+    import math
+
+    import torch
+
+    from sidecar_tpu_torch.models.exact import (
+        ExactSim,
+        SimParams,
+        clone_state,
+    )
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+    from sidecar_tpu_torch.parallel import ShardedSim
+
+    p = SimParams(n=n, services_per_node=10, fanout=3, budget=15)
+    topo = erdos_renyi(n, avg_degree=8.0, seed=3)
+    all_counts, ref = [], None
+    for mode, d in SHARDED_EXACT_RUNS:
+        sim = ShardedSim(p, topo, d=d, board_exchange=mode)
+        state = sim.init_state()
+        gen = sim.default_generator(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, conv = sim.run(state, warm, generator=gen)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_state = clone_state(state) if ref is None else None
+        t0 = time.perf_counter()
+        state = sim.run_fast(state, timed, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        all_counts.append(counts)
+        peak = torch.cuda.max_memory_allocated()
+        curve = curve_list(conv)
+        final_conv = float(sim.convergence(state))
+        if ref is None:
+            ref = {"final": clone_state(state), "curve": curve,
+                   "warm": warm_state, "conv": final_conv}
+        diffs = exact_fields_differ(ref["final"], state)
+        profile = profile_rounds(sim, state)
+        ok = (not diffs and curve == ref["curve"]
+              and counts == expected(scatter_max_apply=d * (warm + timed))
+              and math.isfinite(final_conv) and 0.0 < final_conv <= 1.0)
+        emit({"phase": "sharded_exact", "board_exchange": mode, "d": d,
+              "n": n, "m": p.m, "warm_rounds": warm, "warm_s": warm_s,
+              "rounds": timed, "wall_s": wall, "rounds_per_s": timed / wall,
+              "max_memory_allocated": peak,
+              "exchange_bytes_per_round": sim.exchange_bytes_per_round,
+              "convergence": final_conv, "launches": counts,
+              "field_diffs": diffs, "curve_equal": curve == ref["curve"],
+              "profile": profile, "ok": ok})
+        if not ok:
+            raise SystemExit(f"sharded exact phase failed ({mode}, d={d})")
+        del sim, state
+    checks = {}
+
+    def check(label, ok, counts, **info):
+        all_counts.append(counts)
+        checks[label] = dict(info, launches=counts, ok=bool(ok))
+
+    # Forced sparse at d = 4 ring, and the digest-gated zoned exchange,
+    # each over the warm rounds against the reference's warm state.
+    for label, kw in (("sparse_forced_ring", dict(board_exchange="ring",
+                                                  sparse="1")),
+                      ("digest_gate_zoned", dict(board_exchange="zoned",
+                                                 digest_gate=True))):
+        sim = ShardedSim(p, topo, d=4, **kw)
+        skipped, offered = [], []
+        if label.startswith("digest"):
+            gate_skips = sim._gate_skips
+
+            def spy(shards, live, gate_skips=gate_skips):
+                out = gate_skips(shards, live)
+                skipped.append(len(out))
+                offered.append(len(live))
+                return out
+
+            sim._gate_skips = spy
+        reset_launches()
+        t0 = time.perf_counter()
+        st, conv = sim.run(sim.init_state(), warm,
+                           generator=sim.default_generator(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        diffs = exact_fields_differ(ref["warm"], st)
+        info = dict(field_diffs=diffs, rounds=warm,
+                    ms_per_round=wall * 1e3 / warm,
+                    curve_equal=curve_list(conv) == ref["curve"])
+        if label.startswith("sparse"):
+            info["sparse_stats"] = sim.last_sparse_stats.tolist()
+        else:
+            info.update(hops_skipped=sum(skipped),
+                        hops_offered=sum(offered),
+                        gate_predicates_at_end=sim.gate_predicates(
+                            st).tolist())
+        check(label, not diffs and info["curve_equal"]
+              and counts == expected(scatter_max_apply=4 * warm),
+              counts, **info)
+        del sim, st
+
+    # The pipelined round by delegation against ExactSim's, 100 rounds.
+    reset_launches()
+    twin = ShardedSim(p, topo, d=4, board_exchange="ring")
+    a, ca, _ = twin.run_pipelined(twin.init_state(), 100,
+                                  generator=twin.default_generator(0))
+    single = ExactSim(p, topo)
+    b, cb, _ = single.run_pipelined(single.init_state(), 100,
+                                    generator=single.default_generator(0))
+    torch.cuda.synchronize()
+    counts = launches()
+    diffs = exact_fields_differ(a, b)
+    check("pipelined", not diffs and torch.equal(ca, cb)
+          and counts == expected(scatter_max_apply=200), counts,
+          field_diffs=diffs, rounds=100, convergence=float(ca[-1]))
+    del twin, single, a, b
+
+    # Push-pull past the horizon: every mode at d = 4 equals ExactSim.
+    t_no_pp = TimeConfig(push_pull_interval_s=1e6)
+    single = ExactSim(p, topo, t_no_pp)
+    gen = single.default_generator(3)
+    draws = [single.draw(gen, r) for r in range(1, 51)]
+    reset_launches()
+    want, want_conv = single.run(single.init_state(), 50, draws=draws)
+    ok, diffs = True, {}
+    for mode in ("all_gather", "ring", "zoned"):
+        twin = ShardedSim(p, topo, t_no_pp, d=4, board_exchange=mode)
+        got, got_conv = twin.run(twin.init_state(), 50, draws=draws)
+        diffs[mode] = exact_fields_differ(want, got)
+        ok = ok and not diffs[mode] and torch.equal(want_conv, got_conv)
+        del twin, got
+    torch.cuda.synchronize()
+    counts = launches()
+    check("exact_sim_no_push_pull", ok and counts == expected(
+        scatter_max_apply=50 + 3 * 4 * 50), counts, field_diffs=diffs,
+        rounds=50)
+    del single, want, draws
+
+    # The card against the CPU at n = cpu_n.
+    pc = SimParams(n=cpu_n, services_per_node=10, fanout=3, budget=15,
+                   drop_prob=0.1)
+    tc = TimeConfig(push_pull_interval_s=2.0)
+    topo_c = erdos_renyi(cpu_n, avg_degree=8.0, seed=3)
+    cpu = ShardedSim(pc, topo_c, tc, d=4, board_exchange="ring",
+                     device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    draws = [cpu.draw(gen, r) for r in range(1, cpu_rounds + 1)]
+    t0 = time.perf_counter()
+    host, host_conv = cpu.run(cpu.init_state(), cpu_rounds, draws=draws)
+    cpu_s = time.perf_counter() - t0
+    reset_launches()
+    ok, diffs, errs = True, {}, {}
+    for mode in ("all_gather", "ring", "zoned"):
+        card = ShardedSim(pc, topo_c, tc, d=4, board_exchange=mode)
+        got, got_conv = card.run(card.init_state(), cpu_rounds,
+                                 draws=draws)
+        diffs[mode] = exact_fields_differ(got, host)
+        errs[mode] = float((host_conv - got_conv.cpu()).abs().max())
+        ok = ok and not diffs[mode] and errs[mode] <= 1e-6
+        del card, got
+    torch.cuda.synchronize()
+    counts = launches()
+    check("card_against_cpu", ok and counts == expected(
+        scatter_max_apply=3 * 4 * cpu_rounds), counts, n=cpu_n,
+        rounds=cpu_rounds, field_diffs=diffs, conv_max_abs_err=errs,
+        cpu_s=cpu_s, push_pull_rounds=cpu._knobs.push_pull_rounds)
+    ok = all(c["ok"] for c in checks.values())
+    emit({"phase": "sharded_exact", "part": "equalities", **checks,
+          "ok": ok})
+    if not ok:
+        raise SystemExit("sharded exact equalities failed")
+    return all_counts
+
+
 def row_gather_variants(k: int = 256) -> dict:
     """Rows a pass → the ``(source, macro definitions)`` build of the
     row-gather kernel with that window."""
@@ -3034,6 +3471,9 @@ def main(argv=None) -> int:
     if "telemetry" in phases:
         runs += phase_telemetry(topo, fused, args.exact_n)
     del topo, fused
+    if "sharded_exact" in phases:
+        runs += phase_sharded_exact(args.exact_n,
+                                    cpu_n=min(1024, args.exact_n))
     if records:
         emit({"kernels": [
             {"name": f"{name}_kernel", "route": "cuda",

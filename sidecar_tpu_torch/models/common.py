@@ -14,10 +14,6 @@ DEFERRED = {
     "perturb": "Queue 1 item 8 (chaos and adversary)",
     "cut_mask": "Queue 1 item 8 (chaos and adversary)",
     "node_side": "Queue 1 item 8 (chaos and adversary)",
-    "sharded sparse": "Queue 1 item 10 (sharded twins: sparse and "
-                      "pipelined rounds)",
-    "sharded pipeline": "Queue 1 item 10 (sharded twins: sparse and "
-                        "pipelined rounds)",
 }
 
 

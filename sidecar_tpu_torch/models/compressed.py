@@ -830,9 +830,7 @@ class CompressedSim:
         keep = self._keep(draws)
         sender, recv, announcer, ann = self._sparse_frontiers(
             state, src, round_idx, now)
-        sizes = torch.stack([sender.sum(), recv.sum(),
-                             announcer.sum()]).tolist()
-        overflow = any(c > cap for c, cap in zip(sizes, self._sparse_caps))
+        overflow, frontier = self._sparse_overflow(sender, recv, announcer)
         if overflow:
             state = self._round_gossip_announce(state, src, keep, round_idx,
                                                 now, ann=ann)
@@ -840,7 +838,15 @@ class CompressedSim:
             state = self._round_gossip_announce_sparse(
                 state, src, keep, now, sender, recv, announcer, ann)
         state = self._tail(state, draws, round_idx, now)
-        return state, (int(not overflow), int(overflow), max(sizes))
+        return state, (int(not overflow), int(overflow), frontier)
+
+    def _sparse_overflow(self, sender, recv, announcer):
+        """Whether a frontier exceeds its cap, and the largest frontier
+        size, from the three sizes read on the host."""
+        sizes = torch.stack([sender.sum(), recv.sum(),
+                             announcer.sum()]).tolist()
+        return (any(c > cap for c, cap in zip(sizes, self._sparse_caps)),
+                max(sizes))
 
     # -- the software-pipelined round ---------------------------------------
 

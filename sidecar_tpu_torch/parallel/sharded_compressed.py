@@ -41,18 +41,31 @@ between them:
 The push-pull and the sweep then run on the global tensors, as in the
 reference.  The round stagger and the tick cadence gate the sampled
 peers in the inherited round, on the global node ids, as the
-reference's sharded round does; the sparse-frontier and pipelined
-rounds of the twin are not ported yet (ROADMAP.md Queue 1 item 10) and
-raise.  With the same peers, the same loss mask and no dropped
-pull, every mode at every ``d`` ends each round in the single-device
-model's state: the line fold is a max, so the order in which groups of
-pulled rows fold does not matter.
+reference's sharded round does.  With the same peers, the same loss
+mask and no dropped pull, every mode at every ``d`` ends each round in
+the single-device model's state: the line fold is a max, so the order
+in which groups of pulled rows fold does not matter.
+
+The sparse-frontier round (the inherited ``_step_sparse``) takes the
+frontiers and the announce's own/floor half over all rows, then one
+overflow decision for every shard from the per-shard frontier sizes
+against the per-shard caps (:meth:`ShardedCompressedSim.
+_sparse_overflow`, one host read): the dense shard body,
+or the compacted one — the publish kernel on each shard's compacted
+senders with explicit global ids, scattered back to its ``[nl, K]``
+block so every exchange mode runs unchanged, and the pulls (the board
+row gather kernel), the fold, the finalize and the announce insert on
+the compacted receiver and announcer rows.  The software-pipelined round
+is the single-device model's, inherited and run on the global tensors,
+as in the reference.
 
 Randomness comes through the ``RoundDraws`` seam as one ``[N, F]``
 ``peer_slot`` (and ``[N, F, K]`` ``keep``) per round, so with the
 port's generator this twin draws exactly what the single-device model
 draws.  The reference draws per shard (``fold_in(k_peers, shard)``);
 the tests rebuild those streams and feed them in through ``draws=``.
+Its pipelined round is the single-device program and draws the
+single-device stream.
 """
 
 from __future__ import annotations
@@ -69,9 +82,9 @@ from sidecar_tpu_torch.models.compressed import (
     CompressedParams,
     CompressedSim,
 )
-from sidecar_tpu_torch.models.common import deferred
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import kernels as kernel_ops
+from sidecar_tpu_torch.ops import sparse as sparse_ops
 from sidecar_tpu_torch.ops.merge import admit_gate
 from sidecar_tpu_torch.ops.topology import Topology, zoned_exchange_plan
 from sidecar_tpu_torch.telemetry import cost
@@ -122,12 +135,18 @@ class _Shard:
     bslot: Optional[torch.Tensor] = None
     sent: Optional[torch.Tensor] = None
     route: Optional[A2aRoute] = None
+    # The sparse round's compacted receivers: the frontier mask [nl],
+    # the rows [Cr] (int64) and the inverse map [nl].  The pull and fold
+    # fields above then hold the compacted rows only.
+    recv: Optional[torch.Tensor] = None
+    rr: Optional[torch.Tensor] = None
+    pos_r: Optional[torch.Tensor] = None
 
 
 class ShardedCompressedSim(CompressedSim):
     """The compressed model over ``d`` node shards (default 1).  Same
-    ``run*`` methods as :class:`CompressedSim`, without the sparse and
-    pipelined rounds; ``board_exchange`` (default ``all_gather``),
+    ``run*`` methods as :class:`CompressedSim`, the sparse and pipelined
+    rounds included; ``board_exchange`` (default ``all_gather``),
     ``a2a_slack`` and ``exchange_stub`` as in the reference.  The shards
     share one device (a :class:`LocalShardGroup`)."""
 
@@ -137,13 +156,10 @@ class ShardedCompressedSim(CompressedSim):
                  exchange_stub: bool = False, device="cuda",
                  perturb=None, cut_mask=None, node_side=None, sparse=None,
                  pipeline=None, tick_period=None, tick_phase=None):
-        if sparse is not None:
-            raise deferred("sharded sparse")
-        if pipeline is not None:
-            raise deferred("sharded pipeline")
         super().__init__(params, topo, timecfg, device=device,
                          fused_gather=False, perturb=perturb,
                          cut_mask=cut_mask, node_side=node_side,
+                         sparse=sparse, pipeline=pipeline,
                          tick_period=tick_period, tick_phase=tick_phase)
         if board_exchange == "zoned" and topo.nbrs is None:
             raise ValueError(
@@ -168,6 +184,11 @@ class ShardedCompressedSim(CompressedSim):
         self.group = LocalShardGroup(d)
         nl = params.n // d
         self._a2a_cap = max(16, -(-nl * params.fanout // d) * a2a_slack)
+        # Per-shard sparse frontier caps (senders, receivers,
+        # announcers): the global caps split over the shards with 2x
+        # slack for imbalance.
+        self._sparse_caps_shard = tuple(
+            min(nl, max(16, -(-c // d) * 2)) for c in self._sparse_caps)
 
         self._zoned_plan = None
         self._zoned_tabs = None
@@ -218,24 +239,6 @@ class ShardedCompressedSim(CompressedSim):
         self._overflow_synced = dropped
         return dropped
 
-    # -- the rounds not ported yet ------------------------------------------
-
-    def _resolve_sparse_request(self, sparse) -> bool:
-        if sparse:
-            raise deferred("sharded sparse")
-        return False
-
-    def _resolve_pipeline_request(self, pipeline) -> bool:
-        if pipeline:
-            raise deferred("sharded pipeline")
-        return False
-
-    def _step_sparse(self, state, draws):
-        raise deferred("sharded sparse")
-
-    def _select_inflight(self, state, draws, round_sel):
-        raise deferred("sharded pipeline")
-
     # -- the all_to_all request routing -----------------------------------
 
     def _a2a_route(self, dst, shard: int, nl: int) -> A2aRoute:
@@ -267,6 +270,7 @@ class ShardedCompressedSim(CompressedSim):
                         is_local=is_local, valid=valid, rank=rank,
                         n_dropped=n_dropped)
 
+
     # -- the shard body -----------------------------------------------------
 
     def _open_shard(self, state, src, keep, s: int, nl: int) -> _Shard:
@@ -282,74 +286,104 @@ class ShardedCompressedSim(CompressedSim):
             wv=state.cache_val[rows], ws=state.cache_slot[rows],
             src_shard=src_shard, src_row=dst - src_shard * nl)
 
+    def _gate_board(self, bval, bslot, now: int, r0: int, idx=None):
+        """The admission gate on a shard's board; its row r is published
+        by global node ``r0 + r``, or ``r0 + idx[r]`` for a compacted
+        board (the per-origin budget's owner)."""
+        kn = self._knobs
+        tb = kn.budget_arg()
+        b_own = None
+        if tb is not None:
+            if idx is None:
+                idx = torch.arange(bval.shape[0], dtype=I32,
+                                   device=bval.device)
+            b_own = torch.div(bslot, self.p.services_per_node,
+                              rounding_mode="floor") == (r0 + idx)[:, None]
+        return admit_gate(bval, now, kn.stale_ticks, kn.future_arg(), tb,
+                          b_own)
+
+    def _publish_block(self, state, x: _Shard, now: int):
+        """Shard ``x``'s board — the publish kernel at ``row_offset =
+        r0`` — gated once before it travels."""
+        block = dataclasses.replace(
+            state, cache_val=state.cache_val[x.rows],
+            cache_slot=state.cache_slot[x.rows],
+            cache_sent=state.cache_sent[x.rows])
+        bval, x.bslot, x.sent = self._publish(block, self._knobs.limit,
+                                              row_offset=x.r0)
+        x.bval = self._gate_board(bval, x.bslot, now, x.r0)
+
+    def _publish_compacted(self, state, x: _Shard, sender, now: int):
+        """Shard ``x``'s board from its compacted senders — the publish
+        kernel with explicit global ids ``idx + r0`` — scattered back to
+        the dense ``[nl, K]`` block (a row without an eligible line
+        publishes ``(0, -1)`` in the dense form too), so every exchange
+        mode runs on it unchanged."""
+        p = self.p
+        k = p.cache_lines
+        idx_s, row_s, valid_s, pos_s = sparse_ops.compact_rows(
+            sender, self._sparse_caps_shard[0])
+        rs = (x.r0 + row_s).to(I64)
+        cv_s = torch.where(valid_s[:, None], state.cache_val[rs], 0)
+        sl_s = torch.where(valid_s[:, None], state.cache_slot[rs], -1)
+        with cost.phase("publish"):
+            bval_c, bslot_c, sent_c = kernel_ops.publish_board(
+                cv_s, sl_s, state.cache_sent[rs], budget=min(p.budget, k),
+                limit=self._knobs.limit, fanout=p.fanout, cache_lines=k,
+                row_ids=idx_s + x.r0)
+        snd = sender[:, None]
+        pos = pos_s.to(I64)
+        x.sent = torch.where(snd, sent_c[pos], state.cache_sent[x.rows])
+        bval_c = self._gate_board(bval_c, bslot_c, now, x.r0, idx_s)
+        x.bval = torch.where(snd, bval_c[pos], 0)
+        x.bslot = torch.where(snd, bslot_c[pos], -1)
+
+    def _compact_receivers(self, x: _Shard, recv, alive):
+        """Narrow shard ``x``'s pull and fold fields to its compacted
+        receivers (rows that sampled a sender); pad rows fold nothing."""
+        nl, f = x.dst.shape
+        _idx, row_r, valid_r, pos_r = sparse_ops.compact_rows(
+            recv, self._sparse_caps_shard[1])
+        rr = row_r.to(I64)
+        x.recv, x.rr, x.pos_r = recv, rr, pos_r.to(I64)
+        x.dst = x.dst[rr]
+        x.ok = alive[x.dst.to(I64)] & (alive[x.r0 + rr] & valid_r)[:, None]
+        x.keep = None if x.keep is None else x.keep[rr]
+        x.cv0, x.cs0 = x.cv0[rr], x.cs0[rr]
+        x.wv, x.ws = x.cv0, x.cs0
+        x.src_shard, x.src_row = x.src_shard[rr], x.src_row[rr]
+        if x.route is not None:
+            rt = x.route
+
+            def narrow(t):
+                return t.reshape(nl, f)[rr].reshape(-1)
+
+            x.route = dataclasses.replace(
+                rt, src_shard=narrow(rt.src_shard),
+                src_row=narrow(rt.src_row), is_local=narrow(rt.is_local),
+                valid=narrow(rt.valid), rank=narrow(rt.rank))
+
     def _fold(self, x: _Shard, pv, ps, ok, now: int):
         """Fold one group of pulled rows into shard ``x``'s winners."""
         x.wv, x.ws = self._fold_pulled(x.cv0, x.cs0, x.wv, x.ws, pv, ps,
                                        ok, now, keep=x.keep,
                                        stale_filtered=True)
 
-    def _round_gossip_announce(self, state, src, keep, round_idx: int,
-                               now: int):
-        """Publish, exchange, pull and merge, then announce — shard by
-        shard, phase by phase (see the module docstring)."""
-        p, kn, g, d = self.p, self._knobs, self.group, self.d
-        nl, f, k = p.n // d, p.fanout, p.cache_lines
+    def _exchange_fold(self, shards, req_in, now: int):
+        """The board exchange in the mode's order, and the fold of the
+        remote rows into each shard's winners (over its receiver rows:
+        all of them, or the compacted ones)."""
+        g, d, nl = self.group, self.d, self.p.n // self.d
+        k = self.p.cache_lines
         mode = self.board_exchange
-        stub = self._exchange_stub
-        tb = kn.budget_arg()
-        shards = [self._open_shard(state, src, keep, s, nl)
-                  for s in range(d)]
-
-        # 1. The all_to_all request leg: index math over the peers only.
-        a2a = mode == "all_to_all" and not stub
-        if a2a:
-            for x in shards:
-                x.route = self._a2a_route(x.dst, x.index, nl)
-            with cost.phase("exchange"):
-                req_in = g.all_to_all([x.route.req for x in shards])
-
-        # 2. Each shard's board, gated once before it travels.
-        for x in shards:
-            block = dataclasses.replace(
-                state, cache_val=state.cache_val[x.rows],
-                cache_slot=state.cache_slot[x.rows],
-                cache_sent=state.cache_sent[x.rows])
-            bval, x.bslot, x.sent = self._publish(block, kn.limit,
-                                                  row_offset=x.r0)
-            b_own = None
-            if tb is not None:
-                # Per-origin budget: local row r is published by global
-                # node r0 + r.
-                gi = x.r0 + torch.arange(nl, dtype=I32, device=bval.device)
-                b_own = torch.div(x.bslot, p.services_per_node,
-                                  rounding_mode="floor") == gi[:, None]
-            x.bval = admit_gate(bval, now, kn.stale_ticks, kn.future_arg(),
-                                tb, b_own)
-
-        # 3. Own-shard rows fold at once.  all_gather skips this: its
-        # remote buffer is the whole board, local rows included.
-        if mode != "all_gather" or stub:
-            for x in shards:
-                pv, ps = kernel_ops.board_row_gather(x.bval, x.bslot, x.dst,
-                                                     x.r0)
-                self._fold(x, pv, ps, x.ok & (x.src_shard == x.index), now)
-
-        # 4. The announce's own/floor half, on each shard's floor replica.
-        offers = [self._announce_offers(
-            state.own[x.rows], state.floor, state.node_alive[x.rows],
-            round_idx, now, row_offset=x.r0) for x in shards]
-
-        # 5. The exchange, and the fold of the remote rows.
-        if stub:
-            pass
-        elif mode == "all_gather":
+        if mode == "all_gather":
             with cost.phase("exchange"):
                 boards = zip(g.all_gather([x.bval for x in shards]),
                              g.all_gather([x.bslot for x in shards]))
             for x, (bval, bslot) in zip(shards, boards):
                 pv, ps = kernel_ops.board_row_gather(bval, bslot, x.dst, 0)
                 self._fold(x, pv, ps, x.ok, now)
-        elif a2a:
+        elif mode == "all_to_all":
             rows = [torch.clamp(r, 0, nl - 1).to(I64) for r in req_in]
             with cost.phase("exchange"):
                 resp_v = g.all_to_all([x.bval[r]
@@ -358,13 +392,14 @@ class ShardedCompressedSim(CompressedSim):
                                        for x, r in zip(shards, rows)])
             for x, rv, rs in zip(shards, resp_v, resp_s):
                 rt = x.route
+                f = x.dst.shape[1]
                 shard = torch.where(rt.valid, rt.src_shard, 0)
                 rank = torch.where(rt.valid, rt.rank, 0)
                 on = rt.valid[:, None]
-                pv = torch.where(on, rv[shard, rank], 0).reshape(nl, f, k)
-                ps = torch.where(on, rs[shard, rank], -1).reshape(nl, f, k)
-                self._fold(x, pv, ps,
-                           x.ok & ~rt.is_local.reshape(nl, f), now)
+                pv = torch.where(on, rv[shard, rank], 0).reshape(-1, f, k)
+                ps = torch.where(on, rs[shard, rank], -1).reshape(-1, f, k)
+                self._fold(x, pv, ps, x.ok & ~rt.is_local.reshape(-1, f),
+                           now)
         elif mode == "zoned":
             # Hop h carries each shard's statically reachable rows to
             # shard (s - h) mod d; the receiver looks sampled rows up
@@ -405,25 +440,127 @@ class ShardedCompressedSim(CompressedSim):
                     rows_h = torch.where(sel, x.src_row, 0).to(I64)
                     self._fold(x, bv[rows_h], bs[rows_h], x.ok & sel, now)
 
-        # 6. One batch resolution against the pre-round cache, then the
-        # owner-offer insert: the single-device op sequence.
+    def _finalize_dense(self, state, x: _Shard, offer_val, base_slot):
+        """One batch resolution against the pre-round cache, then the
+        owner-offer insert: the single-device op sequence.  Returns the
+        shard's cache triple and its evictions."""
+        changed = (x.wv != x.cv0) | (x.ws != x.cs0)
+        sent = torch.where(changed, 0, x.sent)
+        ev_merge = ((x.cs0 >= 0) & (x.ws != x.cs0)).sum(dtype=I32)
+        cv, cs, se, ev_ann = self._insert_own_offers(
+            x.wv, x.ws, sent, offer_val, base_slot, reset_on_hold=True)
+        return cv, cs, se, ev_merge + ev_ann.to(I32)
+
+    def _finalize_compacted(self, state, x: _Shard, announcer, offer_val,
+                            base_slot):
+        """The finalize on the compacted receiver rows and the announce
+        insert on the compacted announcer rows, each written back into
+        the shard's block by a gather and a select."""
+        changed = (x.wv != x.cv0) | (x.ws != x.cs0)
+        sent_r = torch.where(changed, 0, x.sent[x.rr])
+        ev_merge = ((x.cs0 >= 0) & (x.ws != x.cs0)).sum(dtype=I32)
+        rc = x.recv[:, None]
+        cv = torch.where(rc, x.wv[x.pos_r], state.cache_val[x.rows])
+        cs = torch.where(rc, x.ws[x.pos_r], state.cache_slot[x.rows])
+        se = torch.where(rc, sent_r[x.pos_r], x.sent)
+        _idx, row_a, valid_a, pos_a = sparse_ops.compact_rows(
+            announcer, self._sparse_caps_shard[2])
+        ra = row_a.to(I64)
+        off_a = torch.where(valid_a[:, None], offer_val[ra], 0)
+        cv2, cs2, se2, ev_ann = self._insert_own_offers(
+            cv[ra], cs[ra], se[ra], off_a, base_slot[ra],
+            reset_on_hold=True)
+        pa = pos_a.to(I64)
+        ac = announcer[:, None]
+        return (torch.where(ac, cv2[pa], cv), torch.where(ac, cs2[pa], cs),
+                torch.where(ac, se2[pa], se), ev_merge + ev_ann.to(I32))
+
+    def _round_gossip_announce(self, state, src, keep, round_idx: int,
+                               now: int, ann=None):
+        """Publish, exchange, pull and merge, then announce — shard by
+        shard, phase by phase (see the module docstring).  ``ann`` is
+        the announce's own/floor half when the sparse round has computed
+        it already (its overflow fallback)."""
+        return self._shard_round(state, src, keep, round_idx, now, ann)
+
+    def _round_gossip_announce_sparse(self, st, src, keep, now: int,
+                                      sender, recv, announcer, ann):
+        """The shard body on the compacted frontiers (the caller checked
+        that no shard's frontier overflows its cap)."""
+        return self._shard_round(st, src, keep, None, now, ann,
+                                 (sender, recv, announcer))
+
+    def _shard_round(self, state, src, keep, round_idx, now: int, ann,
+                     frontiers=None):
+        p, g, d = self.p, self.group, self.d
+        nl = p.n // d
+        mode = self.board_exchange
+        stub = self._exchange_stub
+        shards = [self._open_shard(state, src, keep, s, nl)
+                  for s in range(d)]
+
+        # 1. The all_to_all request leg: index math over the peers only
+        # (on the sparse round too: requests to a row without an
+        # eligible line return its empty board).
+        a2a = mode == "all_to_all" and not stub
+        req_in = None
+        if a2a:
+            for x in shards:
+                x.route = self._a2a_route(x.dst, x.index, nl)
+            with cost.phase("exchange"):
+                req_in = g.all_to_all([x.route.req for x in shards])
+
+        # 2. Each shard's board, gated once before it travels; on the
+        # sparse round from the compacted senders, and the pulls narrow
+        # to the compacted receivers.
+        for x in shards:
+            if frontiers is None:
+                self._publish_block(state, x, now)
+            else:
+                self._publish_compacted(state, x, frontiers[0][x.rows], now)
+                self._compact_receivers(x, frontiers[1][x.rows],
+                                        state.node_alive)
+
+        # 3. Own-shard rows fold at once.  all_gather skips this: its
+        # remote buffer is the whole board, local rows included.
+        if mode != "all_gather" or stub:
+            for x in shards:
+                pv, ps = kernel_ops.board_row_gather(x.bval, x.bslot, x.dst,
+                                                     x.r0)
+                self._fold(x, pv, ps, x.ok & (x.src_shard == x.index), now)
+
+        # 4. The announce's own/floor half, on each shard's floor replica
+        # (or the sparse round's, computed once for all rows).
+        if ann is None:
+            offers = [self._announce_offers(
+                state.own[x.rows], state.floor, state.node_alive[x.rows],
+                round_idx, now, row_offset=x.r0) for x in shards]
+        else:
+            own1, floor1, offer_val, base_slot = ann
+            offers = [(own1[x.rows], floor1, offer_val[x.rows],
+                       base_slot[x.rows]) for x in shards]
+
+        # 5. The exchange, and the fold of the remote rows.
+        if not stub:
+            self._exchange_fold(shards, req_in, now)
+
+        # 6. Finalize and insert the owner offers.
         own, cv, cs, se, ev = [], [], [], [], []
         for x, (own_s, _floor_s, offer_val, base_slot) in zip(shards,
                                                                offers):
-            changed = (x.wv != x.cv0) | (x.ws != x.cs0)
-            sent = torch.where(changed, 0, x.sent)
-            ev_merge = ((x.cs0 >= 0) & (x.ws != x.cs0)).sum(dtype=I32)
-            cv_s, cs_s, se_s, ev_ann = self._insert_own_offers(
-                x.wv, x.ws, sent, offer_val, base_slot, reset_on_hold=True)
+            if frontiers is None:
+                out = self._finalize_dense(state, x, offer_val, base_slot)
+            else:
+                out = self._finalize_compacted(
+                    state, x, frontiers[2][x.rows], offer_val, base_slot)
             own.append(own_s)
-            cv.append(cv_s)
-            cs.append(cs_s)
-            se.append(se_s)
-            ev.append(ev_merge + ev_ann.to(I32))
+            for acc, v in zip((cv, cs, se, ev), out):
+                acc.append(v)
 
         # 7. Re-merge the floor replicas (each announce wrote only its
         # own slice); sum the counters.
-        floor = g.pmax([o[1] for o in offers])[0]
+        floor = g.pmax([o[1] for o in offers])[0] if ann is None \
+            else ann[1]
         evictions = g.psum(ev)[0]
         zero = torch.zeros((), dtype=I32, device=state.own.device)
         dropped = g.psum([zero if x.route is None else x.route.n_dropped
@@ -433,3 +570,16 @@ class ShardedCompressedSim(CompressedSim):
             cache_sent=_cat(se), floor=floor,
             evictions=(state.evictions + evictions).to(I32),
             dropped=(state.dropped + dropped).to(I32))
+
+    # -- the sparse-frontier round ------------------------------------------
+
+    def _sparse_overflow(self, sender, recv, announcer):
+        """ONE overflow decision for every shard: whether any shard's
+        frontier exceeds its per-shard cap, from the ``3 × d`` sizes read
+        on the host; and the largest global frontier size."""
+        d, nl = self.d, self.p.n // self.d
+        sizes = torch.stack([m.reshape(d, nl).sum(dim=1)
+                             for m in (sender, recv, announcer)]).tolist()
+        return (any(c > cap for row, cap in
+                    zip(sizes, self._sparse_caps_shard) for c in row),
+                max(sum(row) for row in sizes))

@@ -621,3 +621,87 @@ def test_plane_on_card_equals_cpu(card, model, plane, sparse):
             assert torch.equal(fa[k], fb[k]), (plane, k)
         else:
             assert fa[k] == fb[k], (plane, k)
+
+
+# -- the node-sharded exact twin, and the compressed twin's sparse round -------
+
+
+@pytest.mark.parametrize("mode", ["all_gather", "ring", "zoned"])
+def test_sharded_exact_run_on_card_equals_cpu(card, mode):
+    """20 rounds of the exact twin at d = 4 (M = 5,120, the two-stage
+    select), with loss, the stride push-pull and the sweep firing, on
+    the card and on the CPU from one set of draws; the scatter kernel
+    launches once a shard a round."""
+    from sidecar_tpu_torch.parallel import ShardedSim
+
+    p = SimParams(n=64, services_per_node=80, drop_prob=0.1)
+    topo = topology.erdos_renyi(64, 8.0, seed=3)
+    t = TimeConfig(push_pull_interval_s=1.0, suspicion_window_s=1.0,
+                   alive_lifespan_s=3.0, refresh_interval_s=2.0)
+    cpu = ShardedSim(p, topo, t, d=4, board_exchange=mode, device="cpu")
+    gpu = ShardedSim(p, topo, t, d=4, board_exchange=mode)
+    gen = torch.Generator().manual_seed(0)
+    draws = [cpu.draw(gen, r) for r in range(1, 21)]
+    a, ca = cpu.run(cpu.init_state(), 20, draws=draws)
+    before = sm.scatter_max_apply_cuda.launches
+    b, cb = gpu.run(gpu.init_state(), 20, draws=draws)
+    torch.cuda.synchronize()
+    assert sm.scatter_max_apply_cuda.launches - before == 4 * 20
+    np.testing.assert_allclose(cb.cpu().numpy(), ca.numpy(), rtol=0,
+                               atol=1e-6)
+    assert_same(a, b)
+
+
+@pytest.mark.parametrize("r0,nl", [(0, 16), (16, 16), (48, 16), (8, 40)])
+def test_scatter_max_apply_kernel_on_a_row_slice(card, r0, nl):
+    """K4a on a shard's contiguous row slice ``known[r0:r0+nl]`` of a
+    larger buffer, local row ``nl`` the dropped pad: equal to the plain
+    version, and the rows outside the slice untouched."""
+    n, m, u = 64, 200, 3000
+    rng = np.random.default_rng(r0 + nl)
+    known = torch.tensor(rng.integers(1, 1 << 20, (n, m)),
+                         dtype=torch.int32).cuda()
+    sent = torch.tensor(rng.integers(0, 10, (n, m)), dtype=torch.int8).cuda()
+    rows, cols = (torch.tensor(rng.integers(0, hi + 1, u),
+                               dtype=torch.int32).cuda()
+                  for hi in (nl, m))
+    vals = torch.tensor(rng.integers(1, 1 << 22, u), dtype=torch.int32).cuda()
+    adv = torch.tensor(rng.random(u) < 0.5).cuda()
+    want_k, want_s = known.clone(), sent.clone()
+    sm.scatter_max_apply_torch(want_k[r0:r0 + nl], rows, cols, vals,
+                               want_s[r0:r0 + nl], adv)
+    before = sm.scatter_max_apply_cuda.launches
+    sm.scatter_max_apply_cuda(known[r0:r0 + nl], rows, cols, vals,
+                              sent[r0:r0 + nl], adv)
+    torch.cuda.synchronize()
+    assert sm.scatter_max_apply_cuda.launches - before == 1
+    assert torch.equal(known, want_k) and torch.equal(sent, want_s)
+
+
+@pytest.mark.parametrize("mode", ["ring", "all_to_all"])
+def test_sharded_sparse_run_on_card_equals_cpu(card, mode):
+    """The compressed twin's forced-sparse run at d = 4: equal states
+    and stats; the publish kernel (compacted, with global row ids, or
+    the block's on an overflow round) and the board row gather kernel
+    each launch once a shard a round."""
+    p = CompressedParams(n=256, services_per_node=10, cache_lines=256,
+                         fold_quorum=0.995, deep_sweep_every=0,
+                         drop_prob=0.1, sparse_cap=32)
+    topo = topology.erdos_renyi(256, 8.0, seed=3)
+    t = TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
+    cpu, gpu = (ShardedCompressedSim(p, topo, t, d=4, board_exchange=mode,
+                                     device=dev) for dev in ("cpu", "cuda"))
+    gen = torch.Generator().manual_seed(2)
+    draws = [cpu.draw(gen, r) for r in range(1, 41)]
+    a = cpu.run_fast(start(cpu), 40, draws=draws, sparse=True)
+    kernels = (pg.publish_board_cuda, pg.fused_publish_gather_cuda,
+               pg.board_row_gather_cuda)
+    before = [k.launches for k in kernels]
+    b = gpu.run_fast(start(gpu), 40, draws=draws, sparse=True)
+    torch.cuda.synchronize()
+    got = [k.launches - x for k, x in zip(kernels, before)]
+    assert_same(a, b)
+    stats = gpu.last_sparse_stats.tolist()
+    assert stats == cpu.last_sparse_stats.tolist()
+    assert stats[0] > 0 and stats[1] > 0
+    assert got == [4 * 40, 0, 4 * 40]

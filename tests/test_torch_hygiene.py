@@ -53,7 +53,8 @@ def test_every_port_module_is_checked():
                      "gossip.py", "knobs.py", "topology.py",
                      "publish_gather.py", "build.py", "compressed.py",
                      "timecfg.py", "convert.py", "mesh.py",
-                     "sharded_compressed.py", "chip_smoke.py", "exact.py",
+                     "sharded_compressed.py", "sharded.py", "chip_smoke.py",
+                     "exact.py",
                      "scatter_max.py", "common.py", "sparse.py",
                      "pipeline.py", "metrics.py", "trace.py", "digest.py",
                      "delta.py", "provenance.py", "planes.py", "cost.py"):

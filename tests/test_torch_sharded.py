@@ -36,7 +36,10 @@ from sidecar_tpu.parallel.sharded_compressed import (
     ShardedCompressedSim as JShardedCompressedSim,
 )
 from sidecar_tpu_torch import convert
-from sidecar_tpu_torch.models.compressed import CompressedParams
+from sidecar_tpu_torch.models.compressed import (
+    CompressedParams,
+    CompressedSim,
+)
 from sidecar_tpu_torch.ops import topology as ttopo
 from sidecar_tpu_torch.ops.status import ALIVE, TOMBSTONE
 from sidecar_tpu_torch.parallel import (
@@ -45,6 +48,7 @@ from sidecar_tpu_torch.parallel import (
     resolve_board_exchange,
 )
 from tests.torch_parity import (
+    assert_port_states_equal,
     assert_states_equal,
     jax_draw_seq,
     jax_sharded_draws,
@@ -181,6 +185,75 @@ def test_equals_reference_sharded_twin(mode, d, slack, stub):
     dropped = tsim.sync_exchange_metrics(got[-1])
     assert dropped == int(want[-1].dropped)
     assert (dropped > 0) == (slack == 1), dropped
+
+
+# -- the sparse and pipelined rounds against the reference's twin ---------
+
+SPARSE_TIME = dict(TIME, sweep_interval_s=1.0)
+
+
+def sparse_twin_pair(mode, d, slack=2, **kw):
+    """The reference's twin and the port's at n = 64 with a sparse cap
+    of 4 (per-shard caps of 16 rows: at d = 2 the frontiers overflow
+    in the burst's busy rounds, at d = 4 a shard has 16 rows)."""
+    n = 64
+    params = dict(PARAMS, n=n, drop_prob=0.1, sparse_cap=4,
+                  fanout=3 if mode == "all_to_all" else 2)
+    topo = zoned_graph(n, 4) if mode == "zoned" else jtopo.complete(n)
+    kw = dict(kw, board_exchange=mode, a2a_slack=slack)
+    jsim = JShardedCompressedSim(
+        jc.CompressedParams(**params), topo, JTimeConfig(**SPARSE_TIME),
+        mesh=make_mesh(jax.devices()[:d]), **kw)
+    return jsim, port_sharded(jsim, d=d, **kw)
+
+
+SPARSE_ROUNDS = 16
+
+
+@pytest.mark.parametrize("mode,d,slack", [
+    (mode, d, 2) for mode in MODES for d in (2, 4)] + [
+    ("all_to_all", 2, 1)])
+def test_sparse_round_equals_reference_twin(mode, d, slack):
+    """``sparse="1"`` through the reference's own twin from a burst: the
+    same states, behind curve, sparse stats and dropped pulls."""
+    jsim, tsim = sparse_twin_pair(mode, d, slack, sparse="1")
+    slots = mints(jsim.p.m, 1)[0]
+    key = jax.random.PRNGKey(7)
+    js = jsim.mint(jsim.init_state(), jnp.asarray(slots), 7)
+    jf, jb = jsim.run_behind(js, key, SPARSE_ROUNDS, every=1, donate=False,
+                             sparse=True)
+    draws = jax_sharded_draws(jsim, key, 0, SPARSE_ROUNDS)
+    ts = tsim.mint(tsim.init_state(), slots, 7)
+    tf, tb = tsim.run_behind(ts, SPARSE_ROUNDS, 1, draws=draws,
+                             sparse=True)
+    assert_states_equal(jf, tf, f"sparse {mode}/d={d}")
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    stats = tsim.last_sparse_stats.numpy()
+    np.testing.assert_array_equal(stats, np.asarray(jsim.last_sparse_stats))
+    dropped = tsim.sync_exchange_metrics(tf)
+    assert dropped == int(jf.dropped)
+    assert (dropped > 0) == (slack == 1), dropped
+    # Premise: compacted rounds ran, and at d = 2 some overflowed.
+    assert stats[0] > 0 and (stats[1] > 0) == (d == 2), stats
+
+
+def test_pipelined_twin_equals_reference_twin():
+    """The pipelined round through the reference's twin: the inherited
+    single-device program on the global state, drawing the
+    single-device stream."""
+    jsim, tsim = sparse_twin_pair("ring", 4)
+    slots = mints(jsim.p.m, 1)[0]
+    key = jax.random.PRNGKey(8)
+    js = jsim.mint(jsim.init_state(), jnp.asarray(slots), 7)
+    jf, jc_, jinf = jsim.run_pipelined(js, key, SPARSE_ROUNDS, 1,
+                                       donate=False)
+    draws = jax_draw_seq(jsim, key, 0, SPARSE_ROUNDS + 1)
+    ts = tsim.mint(tsim.init_state(), slots, 7)
+    tf, tc, tinf = tsim.run_pipelined(ts, SPARSE_ROUNDS, 1, draws=draws)
+    assert_states_equal(jf, tf, "pipelined twin")
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc_))
+    for got, want in zip(tinf.publish, jinf):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # -- row_offset: the shard's view of the single-device phases -------------
@@ -327,25 +400,35 @@ def small(**kw):
     ("tick_period", 2),
 ])
 def test_deferred_sharded_options_raise(option, value):
-    """The chaos options raise naming item 8, the twin's sparse and
-    pipelined rounds naming item 10 (at construction and per dispatch);
-    the tick cadence runs a gated round."""
-    if option == "tick_period":
-        sim = small(d=2, tick_period=value)
-        st = sim.run_fast(sim.init_state(), 1,
-                          generator=torch.Generator().manual_seed(0))
-        assert st.round_idx == 1 and sim._knobs.cadence_enabled
+    """The chaos options raise naming item 8; the twin's sparse and
+    pipelined rounds (item 10, ported) and the tick cadence run a round:
+    the sparse round equals the twin's dense one, the pipelined round
+    the single-device model's pipelined one."""
+    if option in ("perturb", "cut_mask", "node_side"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 8"):
+            small(d=2, **{option: value})
         return
-    item = "item 10" if option in ("sparse", "pipeline") else "item 8"
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 {item}"):
-        small(d=2, **{option: value})
-    if item == "item 10":
-        sim = small(d=2)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            sim.run_fast(sim.init_state(), 1,
-                         generator=torch.Generator().manual_seed(0),
-                         **{option: True})
+    sim = small(d=2, **{option: value})
+    st = sim.mint(sim.init_state(), [3, 17], 10)
+
+    def one_round(s, **kw):
+        out = s.run_fast(st, 1, generator=torch.Generator().manual_seed(0),
+                         **kw)
+        assert out.round_idx == 1
+        return out
+
+    if option == "tick_period":
+        one_round(sim)
+        assert sim._knobs.cadence_enabled
+    elif option == "sparse":
+        got = one_round(sim, sparse=True)
+        assert int(sim.last_sparse_stats[:2].sum()) == 1
+        assert_port_states_equal(got, one_round(sim, sparse=False))
+    else:
+        single = CompressedSim(sim.p, sim.topo, sim.t, device="cpu",
+                               fused_gather=False, pipeline="1")
+        assert_port_states_equal(one_round(sim), one_round(single))
 
 
 @pytest.mark.parametrize("kw,match", [

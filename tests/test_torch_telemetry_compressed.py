@@ -16,10 +16,12 @@ exchange modes, streams what the single-device model streams.
 """
 
 import jax
+import numpy as np
 import pytest
 import torch
 
 from sidecar_tpu.ops import topology as jtopo
+from sidecar_tpu_torch.ops.trace import TRACE_FIELDS
 from sidecar_tpu_torch.parallel import ShardedCompressedSim
 from tests.torch_parity import (
     BENCH_TIME,
@@ -144,8 +146,10 @@ def test_provenance_chunks_chain(case):
 @pytest.mark.parametrize("plane", PLANES)
 def test_sharded_twin_streams_equal_single_device(case, plane, mode):
     """The node-sharded twin at d = 2 (no pull dropped) streams what the
-    single-device port streams from the same draws; its sparse round is
-    still item 10's."""
+    single-device port streams from the same draws, dense and on its
+    sparse round: equal in every field, but for the trace's record of
+    which rounds ran compacted (the twin's per-shard caps are not the
+    single device's)."""
     tsim, slots, draws, tracked, _ = case
     twin = ShardedCompressedSim(tsim.p, tsim.topo, tsim.t, d=2,
                                 board_exchange=mode, device="cpu")
@@ -154,5 +158,16 @@ def test_sharded_twin_streams_equal_single_device(case, plane, mode):
     assert int(b[0].dropped) == 0
     assert_port_states_equal(a[0], b[0], f"sharded {mode}")
     assert_stream_equal(a[1], b[1], plane, f"sharded {mode}")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        twin.run_with_trace(twin.init_state(), 1, draws=draws, sparse=True)
+    c = plane_run(twin, slots, plane, tracked, draws=draws, sparse=True)
+    assert_port_states_equal(a[0], c[0], f"sharded sparse {mode}")
+    stats = np_of(twin.last_sparse_stats)
+    assert stats[0] > 0 and stats[0] + stats[1] == ROUNDS
+    if plane == "trace":
+        keep = [i for i, f in enumerate(TRACE_FIELDS)
+                if f not in ("sparse", "overflow")]
+        np.testing.assert_array_equal(np_of(c[1].rec)[:, keep],
+                                      np_of(a[1].rec)[:, keep])
+        assert np_of(c[1].rec)[:, TRACE_FIELDS.index("sparse")].sum() \
+            == stats[0]
+    else:
+        assert_stream_equal(a[1], c[1], plane, f"sharded sparse {mode}")

@@ -221,8 +221,12 @@ def exact_to_numpy(state) -> dict:
 
 
 def exact_port_state(jax_state):
-    """The port's copy of a JAX exact-model state, on the CPU."""
-    return convert.exact_state_from_numpy(exact_to_numpy(jax_state), "cpu")
+    """The port's copy of a JAX exact-model state, on the CPU, on fresh
+    writable buffers (the exact drivers update their state in place, and
+    a CPU tensor made from a JAX array's numpy view would share it)."""
+    return convert.exact_state_from_numpy(
+        {f: np.array(v) for f, v in exact_to_numpy(jax_state).items()},
+        "cpu")
 
 
 def assert_exact_states_equal(jax_state, port_state, ctx: str = ""):
@@ -264,3 +268,69 @@ def assert_port_states_equal(a, b, ctx=""):
     x, y = convert.state_to_numpy(a), convert.state_to_numpy(b)
     for f in x:
         np.testing.assert_array_equal(x[f], y[f], err_msg=f"{ctx} {f}")
+
+
+def jax_sharded_exact_draws(jsim, key, start_round: int, num_rounds: int):
+    """The draws of the reference's exact ``ShardedSim`` ``jsim`` for
+    ``num_rounds`` rounds from ``start_round``, as the port's
+    single-stream :class:`RoundDraws`.
+
+    The reference (``parallel/sharded.py`` ``_step_impl``,
+    ``_gossip_shard``) splits ``fold_in(key, r)`` into ``(k_round,
+    k_pp)``; shard s splits ``fold_in(k_round, s)`` into its peer and
+    loss keys, draws its ``[nl, F]`` peer slots and a FULL ``[N, F, B]``
+    keep mask, and applies that mask to the messages that target its
+    rows.  So the loss of message ``(s, f, b)`` is the mask of the shard
+    that owns ``dst[s, f]``: the folded ``[N, F, B]`` mask takes row
+    ``(s, f)`` from that shard's mask (the sender's own where the round's
+    stagger or cadence gates the sender, which then sends to itself).
+    Liveness needs no fold: a dead sender's or receiver's messages are
+    zeroed whatever the mask.  The stride comes from ``k_pp``."""
+    p, d = jsim.p, jsim.d
+    n, f, nl = p.n, p.fanout, p.n // jsim.d
+    b = min(p.budget, p.m)
+    nbrs = None if jsim.topo.nbrs is None else np.asarray(jsim.topo.nbrs)
+    deg = None if jsim.topo.deg is None else np.asarray(jsim.topo.deg)
+    ids = np.arange(n, dtype=np.int32)
+    out = []
+    for i in range(num_rounds):
+        r = start_round + i
+        k_round, k_pp = jax.random.split(jax.random.fold_in(key, r))
+        slots, keeps = [], []
+        for s in range(d):
+            k_peers, k_drop = jax.random.split(jax.random.fold_in(k_round, s))
+            hi = n - 1 if deg is None else jnp.maximum(
+                jnp.asarray(deg[s * nl:(s + 1) * nl]), 1)[:, None]
+            slots.append(np.asarray(jax.random.randint(
+                k_peers, (nl, f), 0, hi, dtype=jnp.int32)))
+            if p.drop_prob > 0.0:
+                keeps.append(np.asarray(jax.random.bernoulli(
+                    k_drop, 1.0 - p.drop_prob, (n, f, b))))
+        slot = np.concatenate(slots)
+        if nbrs is None:
+            dst = slot + (slot >= ids[:, None])
+        else:
+            dst = np.take_along_axis(nbrs, slot, axis=1)
+        dst = np.asarray(jsim._stagger_gate(jnp.asarray(dst, jnp.int32),
+                                            jnp.asarray(ids), r + 1))
+        keep = None
+        if keeps:
+            keep = torch.tensor(np.stack(keeps)[
+                dst // nl, ids[:, None], np.arange(f)[None, :]])
+        stride = int(jax.random.randint(k_pp, (), 1, n, dtype=jnp.int32))
+        out.append(RoundDraws(peer_slot=torch.tensor(slot), stride=stride,
+                              keep=keep))
+    return out
+
+
+def sharded_exact_port(jsim, **kw):
+    """The port's ``ShardedSim`` built from a reference exact sim's
+    params, graph and time config, on the CPU; ``kw`` goes to its
+    constructor."""
+    from sidecar_tpu_torch.parallel import ShardedSim
+
+    return ShardedSim(
+        convert.exact_params_from_jax_fields(dataclasses.asdict(jsim.p)),
+        port_topology(jsim.topo),
+        convert.timecfg_from_fields(dataclasses.asdict(jsim.t)),
+        device="cpu", **kw)
