@@ -8,8 +8,10 @@ them: the compressed model's dense lockstep round — the bench's
 north-star workload — on one device and over node shards, its
 sparse-frontier and software-pipelined rounds, and the exact
 record-level model's dense round — the bench's headline ``value``
-workload — with its execution modes and over node shards, plus the
-scatter experiment of ``benchmarks/pallas_scatter.py``:
+workload — with its execution modes and over node shards, the chaos
+round and the partition hooks (config 5 and config 6 of
+``sidecar_tpu/sim/scenarios.py``), plus the scatter experiment of
+``benchmarks/pallas_scatter.py``:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — ``nvcc`` builds the kernels from
@@ -111,8 +113,8 @@ scatter experiment of ``benchmarks/pallas_scatter.py``:
    ``ring`` twin's trace equal to the single device's; the compressed
    digest and deltas at n=4,096 (sparse streams equal to dense); and
    card against CPU, dense and sparse, every stream field equal: the
-   exact model at n=1,024 × 10 (30 rounds, all planes), the compressed
-   trace and provenance at n=4,096 (50 rounds), its digest and deltas at
+   exact model at n=1,024 × 10 (20 rounds, all planes), the compressed
+   trace and provenance at n=4,096 (30 rounds), its digest and deltas at
    n=1,024 (20 rounds).  ``north_star_mode`` also holds the registry's
    ``sparse.*`` counters against the arbiter's;
 12. sharded exact — the node-sharded exact twin (``ShardedSim``) on the
@@ -128,7 +130,33 @@ scatter experiment of ``benchmarks/pallas_scatter.py``:
    draws), and the card equal to the CPU at n=1,024 × 10 (loss 0.1,
    push-pull every 10 rounds, 30 rounds).  The kernels phase also holds
    the scatter-max kernel on the d = 4 shard's row slice of ``known``
-   against its plain version.
+   against its plain version;
+13. chaos — ``ChaosExactSim`` and the partition hooks, three parts, each
+   its own line: (a) the chaos round at the ``value`` size (nothing cut,
+   the defences on) under a config6-shaped plan scaled to 4,096 nodes
+   (A→B loss, a split over rounds 20–80, a B→A delay ring with
+   duplicates, a pause, a crash, a skewed clock, a tombstone bomb and
+   the side-A churn hook), 200 rounds: rounds/s, a 5-round profile,
+   peak memory, the injection counts, the convergence at rounds 20, 80,
+   120 and 200 and the host syncs a round (0), with an empty plan equal
+   to ``ExactSim``, 100 + 100 chunked rounds equal to 200 straight, two
+   driver seeds on one set of fault draws, the card equal to the CPU
+   at n = 1,024 × 10 for 30 rounds, and the scatter-max kernel held
+   against its plain version, and timed beside it, on one round's own
+   triples (immediate, matured-ring with the sentinel rows, announce)
+   taken from the end of the 200-round run; (b) config6 at its own size (n =
+   256, the complete graph), 200 rounds, the card equal to the CPU, and
+   the round at which ε = 1e-3 is reached; (c) config5's split and heal
+   at the declared 1,000,000 nodes (``mesh2d(1000, 1000)``, K = 64): 150
+   split rounds with the cut and the sides, 450 heal rounds without,
+   fused, the split's peak convergence below 1, the heal's round to ε =
+   1e-5, each stage's rounds/s, profile and peak memory, and the fused
+   publish gather at this shape in turns with the unfused pair (its own
+   peak memory apart); then, each 50 rounds
+   with the cut and the sides, fused equal to unfused equal to the CPU
+   on ``mesh2d(64, 64)``, the compressed twin at d = 4 (``ring``,
+   ``all_to_all``) equal to one device, and ``ShardedSim`` at d = 4
+   (every mode) equal to d = 1 on ``mesh2d(32, 32)``.
 
 Each phase prints one JSON line; then the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -146,7 +174,7 @@ import time
 
 PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
           "north_star", "sharded", "scatter", "exact_lockstep", "exact",
-          "exact_modes", "telemetry", "sharded_exact")
+          "exact_modes", "telemetry", "sharded_exact", "chaos")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
@@ -3042,11 +3070,11 @@ def phase_telemetry(topo, fused, exact_n=4096):
     rec, c = card_against_cpu(
         f"exact_n{xn}",
         lambda dev: ExactSim(xp, xtopo, exact_busy_time(), device=dev),
-        lambda sim: sim.init_state(), 30, TELEMETRY_PLANES, 1 << 16,
+        lambda sim: sim.init_state(), 20, TELEMETRY_PLANES, 1 << 16,
         prov_ops.default_tracked(xp.m, 8))
     checks.update(rec)
     counts += c
-    for n, rounds, names in ((4096, 50, ("trace", "provenance")),
+    for n, rounds, names in ((4096, 30, ("trace", "provenance")),
                              (1024, 20, ("digest", "deltas"))):
         p = bench_params(n)
         ctopo = erdos_renyi(n, avg_degree=8.0, seed=3)
@@ -3283,6 +3311,638 @@ def phase_sharded_exact(n=4096, warm=200, timed=200, cpu_n=1024,
     return all_counts
 
 
+# -- phase 13: chaos and the partition hooks -----------------------------------
+
+CHAOS_ROUNDS = 200
+CHAOS_CONV_AT = (20, 80, 120, 200)
+CONFIG5_SIDE = 1000                # mesh2d(1000, 1000): config 5's 1M nodes
+CONFIG5_RUN = dict(split_rounds=150, heal_rounds=450, every=5, eps=1e-5)
+EQUAL_ROUNDS = 50
+
+
+class SideChurn:
+    """config6's side-A churn (``sidecar_tpu/sim/scenarios.py``
+    ``config6_chaos``) as a port hook: from round ``start`` to ``end``
+    the slots of side A (owners below ``n / 2``) that ``masks[round]``
+    picks restart, ALIVE ↔ TOMBSTONE at ``now``, their transmit counts
+    reset.  The masks are drawn up front (``churn_masks``), so the round
+    reads no host value and a card and a CPU run see the same ones."""
+
+    def __init__(self, n, spn, round_ticks, masks, start=30, end=60):
+        self.n, self.m = n, n * spn
+        self.spn, self.round_ticks = spn, round_ticks
+        self.masks, self.start, self.end = masks, start, end
+
+    def __call__(self, state, now):
+        import torch
+
+        from sidecar_tpu_torch.ops.status import (
+            ALIVE,
+            TOMBSTONE,
+            pack,
+            unpack_status,
+            unpack_ts,
+        )
+
+        r = now // self.round_ticks
+        if not self.start <= r < self.end:
+            return state
+        dev = state.known.device
+        cols = torch.arange(self.m, device=dev)
+        owner = torch.div(cols, self.spn, rounding_mode="floor")
+        own = state.known[owner, cols]
+        flip = self.masks[r].to(dev) & (owner < self.n // 2) & \
+            (unpack_ts(own) > 0) & state.node_alive[owner]
+        new_status = torch.where(unpack_status(own) == ALIVE, TOMBSTONE,
+                                 ALIVE)
+        state.known[owner, cols] = torch.where(flip, pack(now, new_status),
+                                               own)
+        state.sent[owner, cols] = torch.where(flip, 0,
+                                              state.sent[owner, cols])
+        return state
+
+
+def churn_masks(m, prob, rounds, seed, device):
+    """``{round: bool [m]}`` of the side churn, each slot picked with
+    ``prob``, from a CPU generator (the same masks on any device)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return {r: (torch.rand(m, generator=gen) < prob).to(device)
+            for r in range(rounds[0], rounds[1])}
+
+
+def chaos_value_plan(n):
+    """The config6-shaped plan scaled to ``n`` nodes, sides A (the lower
+    half) and B: A→B loss 0.2 all run, a full split over rounds 20–80,
+    B→A delay of 3 rounds at 0.1 with duplicates at 0.05, a pause of 64
+    A nodes over rounds 30–60, a crash of 64 B nodes over rounds 40–70,
+    a clock 30 s ahead with drift on 16 nodes over rounds 0–150, and a
+    tombstone bomb from 8 A nodes against B over rounds 90–150 at rate
+    0.2.  Returns ``(FaultPlan, AdversaryPlan)``."""
+    from sidecar_tpu_torch.chaos import (
+        AdversaryPlan,
+        Attack,
+        ClockFault,
+        EdgeFault,
+        FaultPlan,
+        NodeFault,
+    )
+
+    a, b = tuple(range(n // 2)), tuple(range(n // 2, n))
+    plan = FaultPlan(
+        seed=6,
+        edges=(EdgeFault(src=a, dst=b, drop_prob=0.2),
+               EdgeFault(src=b, dst=a, delay_rounds=3, delay_prob=0.1,
+                         duplicate_prob=0.05)),
+        nodes=(NodeFault(nodes=a[64:128], start_round=30, end_round=60),
+               NodeFault(nodes=b[64:128], start_round=40, end_round=70,
+                         kind="crash")),
+        clocks=(ClockFault(nodes=a[200:216], start_round=0, end_round=150,
+                           offset_ticks=30_000,
+                           drift_ticks_per_round=12.5),),
+    ).with_edges(*FaultPlan.partition(a, b, 20, 80))
+    adversary = AdversaryPlan(seed=6, attacks=(
+        Attack("tombstone_bomb", nodes=a[-8:], victims=b, start_round=90,
+               end_round=150, rate=0.2),))
+    return plan, adversary
+
+
+def chaos_time():
+    """The default ``TimeConfig`` with the defences on: the future bound
+    (0.5 s), the per-origin budget (2 suspicious records a packet, below
+    the bomb's 3 forged columns) and the quarantine (16 violations)."""
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+
+    return TimeConfig(future_fudge_s=0.5, origin_budget=2,
+                      origin_quarantine=16)
+
+
+def chaos_fields_differ(a, b) -> list:
+    """Names of the fields where two chaos states differ: the exact
+    fields, the rings and the counters, compared on ``a``'s device."""
+    import torch
+
+    out = exact_fields_differ(a.sim, b.sim)
+    for i, (ra, rb) in enumerate(zip(a.rings, b.rings)):
+        out += [f"ring{i}.{k}" for k, x, y in zip(("rows", "cols", "vals"),
+                                                  ra, rb)
+                if not torch.equal(x, y.to(x.device))]
+    return out + [f for f in ("injected_drops", "injected_delays",
+                              "injected_dups", "rejected_future",
+                              "forged_records", "rejected_budget",
+                              "origin_violations")
+                  if not torch.equal(getattr(a, f),
+                                     getattr(b, f).to(getattr(a, f).device))]
+
+
+def chaos_sim(n, plan, adversary, device=None, **kw):
+    """The ``value`` workload's graph and params (ER(8, seed 3), 10
+    services a node, fanout 3, budget 15) under ``plan``, with the side
+    churn hook over rounds 30–60."""
+    from sidecar_tpu_torch.chaos import ChaosExactSim
+    from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+    device = DEVICE if device is None else device
+    p = SimParams(n=n, services_per_node=10, fanout=3, budget=15)
+    t = kw.pop("timecfg", chaos_time())
+    hook = SideChurn(n, 10, t.round_ticks,
+                     churn_masks(p.m, 0.02 / 10, (30, 60), 6, device))
+    return ChaosExactSim(p, kw.pop("topo", None) or erdos_renyi(
+        n, avg_degree=8.0, seed=3), t, plan, device=device, perturb=hook,
+        adversary=adversary, **kw)
+
+
+def chaos_scatter_point(sim, state) -> dict:
+    """The scatter-max kernel on the chaos path's own input: one round
+    from ``state`` (a clone) hands its triples — the immediate batch,
+    each delay ring's matured batch with its sentinel rows ``N``, and the
+    announce — to ``apply_updates``, which is watched to copy them and
+    the pre-scatter ``known``/``sent``.  On copies of those, the kernel
+    is held against its plain version and both are timed (repeated
+    calls on the merged state).  Returns the counts of the round and the
+    fields; ``equal`` is False where any cell differs."""
+    import torch
+
+    from sidecar_tpu_torch.ops import gossip as gossip_ops
+    from sidecar_tpu_torch.ops.kernels import scatter_max as sm
+
+    taken = []
+    apply = gossip_ops.apply_updates
+
+    def watch(known, sent, rows, cols, vals, adv):
+        taken.append((known.clone(), sent.clone(), rows, cols, vals, adv))
+        return apply(known, sent, rows, cols, vals, adv)
+
+    reset_launches()
+    gossip_ops.apply_updates = watch
+    try:
+        sim._run(sim._clone_state(state), 1, False,
+                 sim.default_generator(8), None, False)
+    finally:
+        gossip_ops.apply_updates = apply
+    torch.cuda.synchronize()
+    counts = launches()
+    known, sent, rows, cols, vals, adv = taken[0]
+    n = known.shape[0]
+    batch = sim.p.n * sim.p.fanout * min(sim.p.budget, sim.p.m)
+    ring = rows[batch:batch * (1 + len(sim._prog.ring_specs))]
+    want_k, want_s = known.clone(), sent.clone()
+    sm.scatter_max_apply_torch(want_k, rows, cols, vals, want_s, adv)
+    got_k, got_s = known, sent
+    sm.scatter_max_apply_cuda(got_k, rows, cols, vals, got_s, adv)
+    torch.cuda.synchronize()
+    err = max_abs_diff([got_k, got_s], [want_k, want_s])
+    equal = torch.equal(got_k, want_k) and torch.equal(got_s, want_s)
+    turns = paired_ms({
+        "ms": lambda: sm.scatter_max_apply_cuda(got_k, rows, cols, vals,
+                                                got_s, adv),
+        "plain_ms": lambda: sm.scatter_max_apply_torch(want_k, rows, cols,
+                                                       vals, want_s, adv)})
+    return counts, dict(
+        updates=int(rows.numel()), sentinel_rows=int((rows == n).sum()),
+        matured_ring_rows=int((ring < n).sum()),
+        advanced=int(adv.sum()), max_abs_err=err, equal=equal, **turns)
+
+
+def chaos_value(n=4096, rounds=CHAOS_ROUNDS, cpu_n=1024, cpu_rounds=30):
+    """Part (a): the chaos round at the ``value`` size under the
+    config6-shaped plan, and its equalities.  Returns ``(launch counts
+    of each run, the line's fields)``."""
+    import torch
+
+    from sidecar_tpu_torch.chaos import FaultPlan
+    from sidecar_tpu_torch.models.exact import ExactSim
+
+    plan, adversary = chaos_value_plan(n)
+    sim = chaos_sim(n, plan, adversary)
+    all_counts, checks = [], {}
+
+    def check(label, ok, counts, **info):
+        all_counts.append(counts)
+        checks[label] = dict(info, launches=counts, ok=bool(ok))
+
+    # The straight run: 200 rounds with the convergence every round.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    straight, conv = sim.run(sim.init_state(), rounds,
+                             generator=sim.default_generator(0))
+    torch.cuda.synchronize()
+    wall_conv = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    curve = curve_list(conv)
+    injections = sim.injection_counts(straight)
+    check("straight", counts == expected(scatter_max_apply=rounds)
+          and all(0.0 <= c <= 1.0 for c in curve), counts, rounds=rounds)
+    # 100 + 100 chunked rounds, no convergence samples: timed, and equal
+    # to the straight run, rings and counters included.
+    gen = sim.default_generator(0)
+    reset_launches()
+    t0 = time.perf_counter()
+    half = sim.run_fast(sim.init_state(), rounds // 2, generator=gen)
+    chunked = sim.run_fast(half, rounds - rounds // 2, generator=gen,
+                           start_round=rounds // 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    diffs = chaos_fields_differ(straight, chunked)
+    check("chunked_equals_straight", not diffs and counts == expected(
+        scatter_max_apply=rounds), counts, field_diffs=diffs)
+    del half, chunked
+    # The profile and the host reads, from the end of the run.
+    state = sim._clone_state(straight)
+    profile = profile_rounds(sim, state)
+    syncs = sync_points(lambda: sim._run(
+        sim._clone_state(straight), 10, False, sim.default_generator(5),
+        None, False))
+    run_syncs = sync_points(lambda: sim.run_fast(
+        sim._clone_state(straight), 10, generator=sim.default_generator(5)))
+    del state
+    # K4a on one round's own triples, sentinel rows included.
+    counts, scatter = chaos_scatter_point(sim, straight)
+    check("scatter_max_apply_on_chaos_triples", scatter["equal"]
+          and scatter["sentinel_rows"] > 0
+          and scatter["matured_ring_rows"] > 0
+          and counts == expected(scatter_max_apply=1), counts, **scatter)
+
+    # Two driver seeds consume the same fault draws.
+    seen = {}
+    round_fault = sim._round_fault
+    reset_launches()
+    for seed in (1, 2):
+        got = seen.setdefault(seed, [])
+
+        def spy(i, r, got=got):
+            fd = round_fault(i, r)
+            got.append(fd)
+            return fd
+
+        sim._round_fault = spy
+        sim._run(sim.init_state(), 5, False, sim.default_generator(seed),
+                 None, False)
+    sim._round_fault = round_fault
+    torch.cuda.synchronize()
+    counts = launches()
+    same = all(
+        all((u is None and v is None) or torch.equal(u, v)
+            for u, v in zip((x.drop_u,) + x.delay_u + x.dup_u,
+                            (y.drop_u,) + y.delay_u + y.dup_u))
+        for x, y in zip(seen[1], seen[2]))
+    check("fault_draws_ignore_driver_seed", same and len(seen[1]) == 5
+          and counts == expected(scatter_max_apply=10), counts, rounds=5)
+    del straight
+
+    # An empty plan equals ExactSim for the same draws.
+    empty = chaos_sim(n, FaultPlan(seed=0), None)
+    empty.perturb = None
+    plain = ExactSim(empty.p, empty.topo, empty.t)
+    gen = plain.default_generator(3)
+    draws = [plain.draw(gen, r) for r in range(1, EQUAL_ROUNDS + 1)]
+    reset_launches()
+    a = empty.run_fast(empty.init_state(), EQUAL_ROUNDS, draws=draws)
+    b = plain.run_fast(plain.init_state(), EQUAL_ROUNDS, draws=draws)
+    torch.cuda.synchronize()
+    counts = launches()
+    diffs = exact_fields_differ(a.sim, b)
+    check("empty_plan_equals_exact_sim", not diffs and counts == expected(
+        scatter_max_apply=2 * EQUAL_ROUNDS), counts, field_diffs=diffs,
+        rounds=EQUAL_ROUNDS)
+    del empty, plain, a, b, draws
+
+    # The card equals the CPU at n = cpu_n under the same plan.
+    plan_c, adversary_c = chaos_value_plan(cpu_n)
+    cpu = chaos_sim(cpu_n, plan_c, adversary_c, device="cpu")
+    card = chaos_sim(cpu_n, plan_c, adversary_c, topo=cpu.topo)
+    gen = torch.Generator().manual_seed(1)
+    draws = [cpu.draw(gen, r) for r in range(1, cpu_rounds + 1)]
+    faults = [cpu.fault_draw(r) for r in range(1, cpu_rounds + 1)]
+    t0 = time.perf_counter()
+    host, host_conv = cpu.run(cpu.init_state(), cpu_rounds, draws=draws,
+                              fault_draws=faults)
+    cpu_s = time.perf_counter() - t0
+    reset_launches()
+    got, got_conv = card.run(card.init_state(), cpu_rounds, draws=draws,
+                             fault_draws=faults)
+    torch.cuda.synchronize()
+    counts = launches()
+    diffs = chaos_fields_differ(host, got)
+    err = float((host_conv - got_conv.cpu()).abs().max())
+    check("card_against_cpu", not diffs and err <= 1e-6
+          and counts == expected(scatter_max_apply=cpu_rounds), counts,
+          n=cpu_n, rounds=cpu_rounds, field_diffs=diffs,
+          conv_max_abs_err=err, cpu_s=cpu_s,
+          injections=cpu.injection_counts(host))
+    del cpu, card, host, got
+
+    line = {"part": "value", "n": n, "m": sim.p.m, "rounds": rounds,
+            "rounds_per_s": rounds / wall, "rounds_per_s_with_conv":
+            rounds / wall_conv, "max_memory_allocated": peak,
+            "injection_counts": injections,
+            "convergence_at": {r: curve[r - 1] for r in CHAOS_CONV_AT
+                               if r <= rounds},
+            "host_syncs_per_round": sum((syncs or {}).values()) / 10,
+            "host_syncs_round": syncs,
+            "host_syncs_run_fast_10_rounds": run_syncs,
+            "profile": profile, "checks": checks}
+    ok = all(c["ok"] for c in checks.values()) and not syncs
+    return all_counts, line, ok
+
+
+def chaos_config6(rounds=CHAOS_ROUNDS, eps=1e-3):
+    """Part (b): config6 at its own size (``sim/scenarios.py``
+    ``config6_chaos``): n = 256, 4 services a node, the complete graph,
+    push-pull every 2 s, A→B loss 0.2 and a full split over rounds
+    20–80, side-A churn over rounds 30–60; the card equal to the CPU
+    from one set of draws, and the round at which ε is reached."""
+    import torch
+
+    from sidecar_tpu_torch.chaos import (
+        ChaosExactSim,
+        EdgeFault,
+        FaultPlan,
+    )
+    from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+    from sidecar_tpu_torch.ops.topology import complete
+
+    n, spn = 256, 4
+    a, b = tuple(range(n // 2)), tuple(range(n // 2, n))
+    plan = FaultPlan(seed=6, edges=(EdgeFault(src=a, dst=b,
+                                              drop_prob=0.2),)).with_edges(
+        *FaultPlan.partition(a, b, 20, 80))
+    p = SimParams(n=n, services_per_node=spn, fanout=3, budget=15)
+    t = TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
+
+    def make(device):
+        hook = SideChurn(n, spn, t.round_ticks,
+                         churn_masks(p.m, 0.02 / spn, (30, 60), 6, device))
+        return ChaosExactSim(p, complete(n), t, plan, device=device,
+                             perturb=hook)
+
+    cpu, card = make("cpu"), make(DEVICE)
+    gen = torch.Generator().manual_seed(6)
+    draws = [cpu.draw(gen, r) for r in range(1, rounds + 1)]
+    faults = [cpu.fault_draw(r) for r in range(1, rounds + 1)]
+    host, host_conv = cpu.run(cpu.init_state(), rounds, draws=draws,
+                              fault_draws=faults)
+    reset_launches()
+    t0 = time.perf_counter()
+    got, got_conv = card.run(card.init_state(), rounds, draws=draws,
+                             fault_draws=faults)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    diffs = chaos_fields_differ(host, got)
+    err = float((host_conv - got_conv.cpu()).abs().max())
+    curve = curve_list(got_conv)
+    hits = [i + 1 for i, c in enumerate(curve) if c >= 1.0 - eps]
+    ok = (not diffs and err <= 1e-6
+          and counts == expected(scatter_max_apply=rounds))
+    return counts, {"part": "config6", "n": n, "m": p.m, "rounds": rounds,
+                    "rounds_per_s": rounds / wall,
+                    "eps": eps, "eps_round": hits[0] if hits else None,
+                    "convergence_at": {r: curve[r - 1]
+                                       for r in CHAOS_CONV_AT},
+                    "field_diffs": diffs, "conv_max_abs_err": err,
+                    "injection_counts": card.injection_counts(got),
+                    "launches": counts}, ok
+
+
+def config5_params(n):
+    from sidecar_tpu_torch.models.compressed import CompressedParams
+
+    return CompressedParams(n=n, services_per_node=4, fanout=3, budget=15,
+                            cache_lines=64, deep_sweep_every=5)
+
+
+def config5_time():
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+
+    return TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
+
+
+def config5_burst(p, halves, frac, seed=5):
+    """The burst of ``sim/scenarios.py`` ``_mint_churn`` on side 0:
+    ``frac`` of all slots, drawn from side 0's, sorted."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    count = max(1, int(p.m * frac))
+    pool = np.nonzero(np.repeat(halves == 0, p.services_per_node))[0]
+    return np.sort(rng.choice(pool, size=min(count, pool.size),
+                              replace=False)).astype(np.int32)
+
+
+def config5_split_heal(side=CONFIG5_SIDE, split_rounds=150, heal_rounds=450,
+                       every=5, eps=1e-5):
+    """Part (c): config5 at the declared size (``sim/scenarios.py``
+    ``config5_split_heal``): ``mesh2d(side, side)``, a burst of 1e-4 of
+    the slots minted on side 0 at tick 10, ``split_rounds`` with the cut
+    and the sides, then ``heal_rounds`` without the cut, fused, the
+    convergence every ``every`` rounds; and K1 at this shape in turns
+    with the unfused pair."""
+    import numpy as np
+    import torch
+
+    from sidecar_tpu_torch.models.compressed import CompressedSim
+    from sidecar_tpu_torch.ops.topology import mesh2d, partition_mask
+
+    t0 = time.perf_counter()
+    topo = mesh2d(side, side)
+    n = topo.n
+    halves = (np.arange(n) % side >= side // 2).astype(np.int32)
+    cut = partition_mask(topo, halves)
+    graph_s = time.perf_counter() - t0
+    p, t = config5_params(n), config5_time()
+    split_sim = CompressedSim(p, topo, t, cut_mask=cut, node_side=halves)
+    heal_sim = CompressedSim(p, topo, t)
+    slots = config5_burst(p, halves, 1e-4)
+    gen = split_sim.default_generator(5)
+    state = split_sim.mint(split_sim.init_state(), slots, 10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, conv_split = split_sim.run(state, split_rounds, every,
+                                      generator=gen)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    split_counts = launches()
+    split_profile = profile_rounds(split_sim, state)
+    split_peak_bytes = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # K1 at this shape: the split's cache and a round's requests.
+    failures = []
+    src = split_sim._sample(state, split_sim.draw(
+        split_sim.default_generator(21), state.round_idx + 1),
+        state.round_idx + 1)
+    gkw = dict(stale_ticks=t.stale_ticks, budget=min(p.budget, 64),
+               limit=p.resolved_retransmit_limit(), fanout=p.fanout,
+               cache_lines=p.cache_lines)
+    k1 = fused_gather_point("config5 split", (state.cache_val,
+                                              state.cache_slot,
+                                              state.cache_sent), src,
+                            state.round_idx * t.round_ticks, gkw, failures)
+    del src
+    k1_peak_bytes = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, conv_heal = heal_sim.run(state, heal_rounds, every,
+                                    generator=gen)
+    torch.cuda.synchronize()
+    heal_s = time.perf_counter() - t0
+    heal_counts = launches()
+    heal_profile = profile_rounds(heal_sim, state)
+    heal_peak_bytes = torch.cuda.max_memory_allocated()
+    split_curve, heal_curve = curve_list(conv_split), curve_list(conv_heal)
+    curve = split_curve + heal_curve
+    hits = [(i + 1) * every for i, c in enumerate(curve) if c >= 1.0 - eps]
+    split_peak = max(split_curve)
+    ok = (split_peak < 1.0 and not failures
+          and split_counts == expected(fused_publish_gather=split_rounds)
+          and heal_counts == expected(fused_publish_gather=heal_rounds)
+          and all(0.0 <= c <= 1.0 for c in curve))
+    line = {"part": "config5", "n": n, "m": p.m, "cache_lines": 64,
+            "burst": int(slots.size), "graph_s": graph_s,
+            "split_rounds": split_rounds, "heal_rounds": heal_rounds,
+            "split_peak_convergence": split_peak,
+            "split_rounds_per_s": split_rounds / split_s,
+            "heal_rounds_per_s": heal_rounds / heal_s,
+            "eps": eps, "eps_round": hits[0] if hits else None,
+            "convergence_every_5": curve,
+            "split_profile": split_profile, "heal_profile": heal_profile,
+            "fused_publish_gather_at_1m_x_64": k1,
+            "max_memory_allocated": max(split_peak_bytes, heal_peak_bytes),
+            "max_memory_allocated_split": split_peak_bytes,
+            "max_memory_allocated_heal": heal_peak_bytes,
+            "max_memory_allocated_k1_timing": k1_peak_bytes,
+            "failures": failures,
+            "launches": {"split": split_counts, "heal": heal_counts}}
+    return [split_counts, heal_counts], line, ok
+
+
+def config5_equalities(rounds=EQUAL_ROUNDS):
+    """config5's round with the cut and the sides, each for ``rounds``
+    rounds from one set of draws: on ``mesh2d(64, 64)`` fused equals
+    unfused equals the CPU, and the compressed twin at d = 4 (``ring``,
+    ``all_to_all``) equals the single device; ``ShardedSim`` at d = 4
+    (``all_gather``, ``ring``, ``zoned``) equals d = 1 at n = 1,024 × 10
+    on ``mesh2d(32, 32)``, push-pull every 10 rounds."""
+    import numpy as np
+    import torch
+
+    from sidecar_tpu_torch.models.compressed import CompressedSim
+    from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+    from sidecar_tpu_torch.ops.topology import mesh2d, partition_mask
+    from sidecar_tpu_torch.parallel import ShardedCompressedSim, ShardedSim
+
+    all_counts, checks = [], {}
+
+    def check(label, ok, counts, **info):
+        all_counts.append(counts)
+        checks[label] = dict(info, launches=counts, ok=bool(ok))
+
+    topo = mesh2d(64, 64)
+    halves = (np.arange(topo.n) % 64 >= 32).astype(np.int32)
+    kw = dict(cut_mask=partition_mask(topo, halves), node_side=halves)
+    p, t = config5_params(topo.n), config5_time()
+    slots = config5_burst(p, halves, 1e-2)
+    cpu = CompressedSim(p, topo, t, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(5)
+    draws = [cpu.draw(gen, r) for r in range(1, rounds + 1)]
+    host, host_b = cpu.run(cpu.mint(cpu.init_state(), slots, 10), rounds,
+                           draws=draws)
+    runs = {}
+    for label, fused in (("fused", True), ("unfused", False)):
+        sim = CompressedSim(p, topo, t, fused_gather=fused, **kw)
+        reset_launches()
+        runs[label] = sim.run(sim.mint(sim.init_state(), slots, 10),
+                              rounds, draws=draws)
+        torch.cuda.synchronize()
+        counts = launches()
+        diffs = states_equal(runs[label][0], host)
+        err = float((host_b - runs[label][1].cpu()).abs().max())
+        kernel = "fused_publish_gather" if fused else "publish_board"
+        check(f"mesh64_{label}_equals_cpu", not diffs and err <= 1e-6
+              and counts == expected(**{kernel: rounds}), counts,
+              field_diffs=diffs, conv_max_abs_err=err)
+    for mode in ("ring", "all_to_all"):
+        twin = ShardedCompressedSim(p, topo, t, d=4, board_exchange=mode,
+                                    **kw)
+        reset_launches()
+        got, got_b = twin.run(twin.mint(twin.init_state(), slots, 10),
+                              rounds, draws=draws)
+        torch.cuda.synchronize()
+        counts = launches()
+        diffs = states_equal(got, runs["fused"][0])
+        dropped = twin.sync_exchange_metrics(got)
+        check(f"twin_d4_{mode}_equals_single", not diffs and dropped == 0
+              and torch.equal(got_b, runs["fused"][1])
+              and counts == expected(publish_board=4 * rounds,
+                                     board_row_gather=4 * rounds), counts,
+              field_diffs=diffs, dropped=dropped)
+        del twin, got
+    del runs, host, cpu
+
+    topo = mesh2d(32, 32)
+    halves = (np.arange(topo.n) % 32 >= 16).astype(np.int32)
+    kw = dict(cut_mask=partition_mask(topo, halves), node_side=halves)
+    px = SimParams(n=topo.n, services_per_node=10, fanout=3, budget=15)
+    tx = TimeConfig(push_pull_interval_s=2.0)
+    ref = ShardedSim(px, topo, tx, d=1, **kw)
+    gen = ref.default_generator(5)
+    draws = [ref.draw(gen, r) for r in range(1, rounds + 1)]
+    reset_launches()
+    want, want_conv = ref.run(ref.init_state(), rounds, draws=draws)
+    torch.cuda.synchronize()
+    counts = launches()
+    check("sharded_exact_d1", counts == expected(scatter_max_apply=rounds),
+          counts)
+    for mode in ("all_gather", "ring", "zoned"):
+        twin = ShardedSim(px, topo, tx, d=4, board_exchange=mode, **kw)
+        reset_launches()
+        got, got_conv = twin.run(twin.init_state(), rounds, draws=draws)
+        torch.cuda.synchronize()
+        counts = launches()
+        diffs = exact_fields_differ(want, got)
+        check(f"sharded_exact_d4_{mode}_equals_d1", not diffs
+              and torch.equal(want_conv, got_conv)
+              and counts == expected(scatter_max_apply=4 * rounds), counts,
+              field_diffs=diffs)
+        del twin, got
+    return all_counts, {"part": "config5_equalities", "rounds": rounds,
+                        "checks": checks}, \
+        all(c["ok"] for c in checks.values())
+
+
+def phase_chaos(n=4096, cpu_n=1024):
+    """The chaos phase: (a) the chaos round at the ``value`` size, (b)
+    config6 at its own size, (c) config5's split and heal at the
+    declared size with its equalities.  Returns the launch counts of
+    every counted run, and the worst difference of each kernel held
+    against its plain version on the chaos path's own input."""
+    all_counts = []
+    for part in (lambda: chaos_value(n, CHAOS_ROUNDS, cpu_n),
+                 lambda: chaos_config6(CHAOS_ROUNDS),
+                 lambda: config5_split_heal(CONFIG5_SIDE, **CONFIG5_RUN),
+                 lambda: config5_equalities(EQUAL_ROUNDS)):
+        counts, line, ok = part()
+        all_counts += counts if isinstance(counts, list) else [counts]
+        emit({"phase": "chaos", **line, "ok": ok})
+        if not ok:
+            raise SystemExit(f"chaos phase failed ({line['part']})")
+        if line["part"] == "value":
+            scatter_err = line["checks"][
+                "scatter_max_apply_on_chaos_triples"]["max_abs_err"]
+    return all_counts, {"scatter_max_apply": scatter_err}
+
+
 def row_gather_variants(k: int = 256) -> dict:
     """Rows a pass → the ``(source, macro definitions)`` build of the
     row-gather kernel with that window."""
@@ -3474,6 +4134,14 @@ def main(argv=None) -> int:
     if "sharded_exact" in phases:
         runs += phase_sharded_exact(args.exact_n,
                                     cpu_n=min(1024, args.exact_n))
+    if "chaos" in phases:
+        counts, errs = phase_chaos(args.exact_n, cpu_n=min(1024, args.exact_n))
+        runs += counts
+        # The kernels' worst differences include the chaos path's own.
+        for name, err in errs.items():
+            if name in records:
+                records[name]["max_abs_err"] = max(
+                    records[name]["max_abs_err"], err)
     if records:
         emit({"kernels": [
             {"name": f"{name}_kernel", "route": "cuda",

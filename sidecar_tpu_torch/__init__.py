@@ -8,8 +8,9 @@ so each counterpart is easy to find:
 * ``ops/status.py``, ``ops/merge.py``, ``ops/ttl.py``,
   ``ops/suspicion.py``, ``ops/gossip.py``, ``ops/knobs.py``,
   ``ops/topology.py`` — the leaf ops, plain functions on tensors;
-* ``ops/kernels/`` — the hand-written CUDA publish and board-row-gather
-  kernels, their plain PyTorch versions, and the ``nvcc`` build;
+* ``ops/kernels/`` — the hand-written CUDA publish, board-row-gather
+  and scatter-max kernels, their plain PyTorch versions, and the
+  ``nvcc`` build;
 * ``models/timecfg.py``, ``models/compressed.py``, ``models/exact.py``
   — the two models' rounds and their run methods;
 * ``ops/trace.py``, ``ops/digest.py``, ``ops/delta.py``,
@@ -19,8 +20,12 @@ so each counterpart is easy to find:
 * ``metrics.py`` — the process registry of counters and gauges;
   ``telemetry/cost.py`` — the round's phase scopes for
   ``torch.profiler``;
-* ``parallel/mesh.py``, ``parallel/sharded_compressed.py`` — the
-  node-sharded twin of the compressed model over a shard group;
+* ``parallel/mesh.py``, ``parallel/sharded_compressed.py``,
+  ``parallel/sharded.py`` — the node-sharded twins of both models over
+  a shard group;
+* ``chaos/plan.py``, ``chaos/adversary.py``, ``chaos/sim_inject.py`` —
+  the FaultPlan and AdversaryPlan and ``ChaosExactSim``, the exact
+  round under them;
 * ``convert.py`` — moving state, params and graphs across from the
   reference's numpy form.
 

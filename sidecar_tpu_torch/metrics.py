@@ -14,10 +14,17 @@ The port records under the reference's names:
   ``parallel.exchange.zoned_rows`` gauges and ``parallel.exchange.
   overflow`` — the sharded twin's board exchange
   (``parallel/sharded_compressed.py``);
-* ``topology.from_name.<family>`` — ``ops/topology.from_name``.
+* ``topology.from_name.<family>`` — ``ops/topology.from_name``;
+* ``chaos.sim.droppedPackets``, ``chaos.sim.delayedPackets``,
+  ``chaos.sim.duplicatedPackets``, ``clock.sim.rejectedFuture``,
+  ``adversary.sim.forgedRecords``, ``defense.sim.rejectedBudget``,
+  ``defense.sim.originViolations`` and ``defense.sim.quarantinedOrigins``
+  — a chaos run's counter deltas (``chaos/sim_inject.py``), read on the
+  host once a run.
 
 Every update is host-side: it reads only values the caller already
-holds on the host, so recording adds no device read.  The reference's
+holds on the host (the chaos counters: one read at the end of a run),
+so recording adds no device read a round.  The reference's
 statsd sink, timers and histograms are not ported: no port code records
 them.
 """

@@ -1,35 +1,71 @@
 """What the port's models share: the checks at construction — the
 device (the card unless the caller asks for the CPU), the tick cadence
-(:func:`resolve_cadence`) and the options not ported yet, each of which
-raises naming its ROADMAP item — and the draw schedule of the
-``run*`` methods (:func:`round_draws`)."""
+(:func:`resolve_cadence`) and the partition cut (:func:`cut_tensor`) —
+the scenario hook's call (:func:`apply_perturb`) and the draw schedule
+of the ``run*`` methods (:func:`round_draws`)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-# Where each deferred option is queued (ROADMAP.md, Queue 1).
-DEFERRED = {
-    "perturb": "Queue 1 item 8 (chaos and adversary)",
-    "cut_mask": "Queue 1 item 8 (chaos and adversary)",
-    "node_side": "Queue 1 item 8 (chaos and adversary)",
-}
+
+def apply_perturb(perturb, state, now: int, kn):
+    """Run the scenario hook ``perturb`` on ``state`` before the round's
+    sample, as the reference does: ``perturb(state, now)``, or
+    ``perturb(state, now, kn)`` when the hook sets ``wants_knobs``.
+
+    The hook contract of the port: the reference hands its hook the
+    round's ``k_perturb`` key, and the port draws no threefry, so a
+    port hook takes its randomness from a generator of its own (or from
+    masks it was given).  It returns the state; on the exact model it
+    may write ``known`` and ``sent`` in place.  None returns ``state``
+    untouched."""
+    if perturb is None:
+        return state
+    if getattr(perturb, "wants_knobs", False):
+        return perturb(state, now, kn)
+    return perturb(state, now)
 
 
-def deferred(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported yet: ROADMAP.md {DEFERRED[option]}")
+def cut_tensor(cut_mask, topo, device):
+    """``cut_mask`` (bool ``[N, D]``, the partitioned edges of ``topo``'s
+    neighbour list) as a bool tensor on ``device``; None stays None.  A
+    complete graph has no edges to cut and raises."""
+    if cut_mask is None:
+        return None
+    if topo.nbrs is None:
+        raise ValueError(
+            "cut_mask requires a neighbor-list topology (mesh/ring/ER/BA);"
+            " a complete graph has no edge structure to cut")
+    cut = torch.as_tensor(np.asarray(cut_mask, dtype=bool), device=device)
+    if tuple(cut.shape) != tuple(np.shape(topo.nbrs)):
+        raise ValueError(f"cut_mask must be shaped like the neighbour list "
+                         f"{tuple(np.shape(topo.nbrs))}, got "
+                         f"{tuple(cut.shape)}")
+    return cut
 
 
-def reject_deferred(**options) -> None:
-    """Raise :func:`deferred` for the first of ``options`` (``perturb``,
-    ``cut_mask``, ``node_side``) that is not None."""
-    for name, value in options.items():
-        if name not in DEFERRED:
-            raise TypeError(f"unknown option {name!r}")
-        if value is not None:
-            raise deferred(name)
+def side_tensor(node_side, n: int, device):
+    """``node_side`` (int ``[N]``, each node's side of a partition) as an
+    int32 tensor on ``device``; None stays None."""
+    if node_side is None:
+        return None
+    side = torch.as_tensor(np.asarray(node_side, dtype=np.int32),
+                           device=device)
+    if tuple(side.shape) != (n,):
+        raise ValueError(f"node_side must be [{n}], got {tuple(side.shape)}")
+    return side
+
+
+def exchange_ok(alive, side, roll_amt: int):
+    """The stride push-pull's pairing gate: node i and the node
+    ``roll_amt`` rolls onto it exchange where both are alive and, with
+    partition sides ``side`` (None: no sides), on one side."""
+    ok = alive & torch.roll(alive, roll_amt, 0)
+    if side is not None:
+        ok = ok & (side == torch.roll(side, roll_amt, 0))
+    return ok
 
 
 def resolve_device(device, model: str) -> torch.device:

@@ -33,7 +33,12 @@ Two more forms of the round, chosen per dispatch (``sparse=``,
   publish-only kernel.
 
 Peer sampling takes the topology's round stagger and the per-node tick
-cadence (``tick_period``/``tick_phase``) as delivery gates.
+cadence (``tick_period``/``tick_phase``) as delivery gates, and the
+partition cut (``cut_mask``); ``node_side`` (int ``[N]``) keeps the
+stride push-pull within a side, and the quorum fold is off while a cut
+is modelled.  A scenario hook (``perturb``, the contract of
+``models/common.apply_perturb``) runs before each round's sample in
+every form of the round and returns the new state.
 
 Idiom of the port: plain functions on tensors, a dataclass state, an
 explicit device.  The reference's ``lax.cond`` on the round counter
@@ -226,8 +231,6 @@ class CompressedSim:
                  perturb=None, cut_mask=None, node_side=None,
                  sparse=None, pipeline=None, tick_period=None,
                  tick_phase=None):
-        common.reject_deferred(perturb=perturb, cut_mask=cut_mask,
-                               node_side=node_side)
         if topo.n != params.n:
             raise ValueError(
                 f"topology has {topo.n} nodes, params say {params.n}")
@@ -244,6 +247,12 @@ class CompressedSim:
         self._deg = None if topo.deg is None else \
             torch.as_tensor(np.asarray(topo.deg), dtype=I32,
                             device=self.device)
+        # The scenario hook (common.apply_perturb), the partition cut
+        # (gossip sample) and each node's side (the stride push-pull
+        # exchanges only within a side).
+        self.perturb = perturb
+        self._cut = common.cut_tensor(cut_mask, topo, self.device)
+        self._side = common.side_tensor(node_side, params.n, self.device)
         self._sparse_mode = sparse_ops.resolve_sparse(sparse)
         self._pipeline_mode = pipeline_ops.resolve_pipeline(pipeline)
         tick_period, tick_phase = common.resolve_cadence(
@@ -512,7 +521,7 @@ class CompressedSim:
         wv, ws = cv0, cs0
         sent = state.cache_sent
         for roll_amt in (-stride, stride):
-            ok = alive & torch.roll(alive, roll_amt, 0)
+            ok = common.exchange_ok(alive, self._side, roll_amt)
             okc = ok[:, None]
             p_slot = torch.roll(cs0, roll_amt, 0)
             p_val = torch.roll(cv0, roll_amt, 0)
@@ -580,9 +589,11 @@ class CompressedSim:
         safe_ws = ws.clamp(min=0).to(I64)
         above = (ws >= 0) & (wv > state.floor[safe_ws])
         caught_up = above & (hits >= n_alive)
-        if p.fold_quorum < 1.0:
+        if p.fold_quorum < 1.0 and self._cut is None:
             # Quorum fold (the straggler-tail model): float32 ceiling,
-            # as in the reference.
+            # as in the reference.  Off while a cut is modelled: a
+            # minority side would be handed, through the shared floor,
+            # records it could never have received.
             q_hits = torch.ceil(
                 torch.tensor(p.fold_quorum, dtype=torch.float32,
                              device=ws.device)
@@ -693,7 +704,7 @@ class CompressedSim:
         return gossip_ops.sample_peers(
             draws.peer_slot.to(self.device, I32), self.p.n,
             nbrs=self._nbrs, node_alive=state.node_alive,
-            **common.gate_kwargs(self, round_idx))
+            cut_mask=self._cut, **common.gate_kwargs(self, round_idx))
 
     def _keep(self, draws: RoundDraws):
         """The round's loss mask on this device, or None without loss."""
@@ -716,6 +727,7 @@ class CompressedSim:
         """One dense lockstep round from this round's draws."""
         round_idx = state.round_idx + 1
         now = round_idx * self.t.round_ticks
+        state = common.apply_perturb(self.perturb, state, now, self._knobs)
         src = self._sample(state, draws, round_idx)
         state = self._round_gossip_announce(state, src, self._keep(draws),
                                             round_idx, now)
@@ -826,6 +838,7 @@ class CompressedSim:
         round's one host sync."""
         round_idx = state.round_idx + 1
         now = round_idx * self.t.round_ticks
+        state = common.apply_perturb(self.perturb, state, now, self._knobs)
         src = self._sample(state, draws, round_idx)
         keep = self._keep(draws)
         sender, recv, announcer, ann = self._sparse_frontiers(
@@ -874,6 +887,7 @@ class CompressedSim:
                 f"the carried publish is round {inflight.round_idx}'s, "
                 f"the state's next round is {round_idx}")
         now = round_idx * self.t.round_ticks
+        state = common.apply_perturb(self.perturb, state, now, self._knobs)
         src, bval, bslot = inflight.publish
         draws = inflight.draws
         nxt, sent = self._select_inflight(state, draws_next, round_idx + 1)
@@ -1188,12 +1202,14 @@ class CompressedSim:
 
     def _prov_channels(self, state: CompressedState, draws: RoundDraws):
         """The round's channels, from its draws as the step resolves
-        them: the board pulls from ``src`` and, on a push-pull round,
-        the stride exchange's two legs (the nodes ``stride`` ahead and
-        behind, where both ends are alive).  Every exchange pulls; a
-        floor fold is no channel."""
+        them, given the post-round ``state`` (its liveness is the one
+        the round sampled with, after the hook): the board pulls from
+        ``src`` and, on a push-pull round, the stride exchange's two
+        legs (the nodes ``stride`` ahead and behind, where both ends are
+        alive and on one side).  Every exchange pulls; a floor fold is
+        no channel."""
         p = self.p
-        round_idx = state.round_idx + 1
+        round_idx = state.round_idx
         pulls = [(self._sample(state, draws, round_idx), None)]
         if round_idx % self._knobs.push_pull_rounds == 0:
             stride = int(draws.stride)
@@ -1201,7 +1217,7 @@ class CompressedSim:
             idx = torch.arange(p.n, dtype=I32, device=alive.device)
             for roll_amt, partner in ((-stride, (idx + stride) % p.n),
                                       (stride, (idx - stride) % p.n)):
-                ok = alive & torch.roll(alive, roll_amt, 0)
+                ok = common.exchange_ok(alive, self._side, roll_amt)
                 pulls.append((partner[:, None], ok[:, None]))
         return [], pulls
 

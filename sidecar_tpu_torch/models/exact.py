@@ -32,7 +32,16 @@ Two more forms of the round, chosen per dispatch (``sparse=``,
   the pre-apply belief (one round stale), with one K4a scatter.
 
 Peer sampling takes the topology's round stagger and the per-node tick
-cadence (``tick_period``/``tick_phase``) as delivery gates.
+cadence (``tick_period``/``tick_phase``) as delivery gates, and the
+partition cut (``cut_mask``, bool ``[N, D]`` over the neighbour list; a
+cut edge sends to itself) on both the gossip and the push-pull sample.
+A scenario hook (``perturb``) runs before each round's sample, in every
+form of the round: the reference hands its hook the round's
+``k_perturb`` key, and the port draws no threefry, so a port hook is
+called ``perturb(state, now)`` — or ``perturb(state, now, knobs)`` when
+it sets ``wants_knobs`` — takes its randomness from a generator (or
+masks) of its own, may write ``known`` and ``sent`` in place, and
+returns the state (``models/common.apply_perturb``).
 
 The reference's ``lax.cond`` on the round counter (steps 3 and 4) is a
 host branch on ``state.round_idx``, a Python int.
@@ -148,7 +157,6 @@ class ExactSim:
                  timecfg: TimeConfig = TimeConfig(), *, device="cuda",
                  perturb=None, cut_mask=None, sparse=None, pipeline=None,
                  tick_period=None, tick_phase=None):
-        common.reject_deferred(perturb=perturb, cut_mask=cut_mask)
         if topo.n != params.n:
             raise ValueError(
                 f"topology has {topo.n} nodes, params say {params.n}")
@@ -161,6 +169,13 @@ class ExactSim:
             torch.as_tensor(np.asarray(topo.nbrs), dtype=I32, device=dev)
         self._deg = None if topo.deg is None else \
             torch.as_tensor(np.asarray(topo.deg), dtype=I32, device=dev)
+        # The scenario hook (common.apply_perturb) and the partition cut,
+        # which gates the gossip and the push-pull sample alike.
+        self.perturb = perturb
+        self._cut = common.cut_tensor(cut_mask, topo, dev)
+        # Ticks past the global clock that a stamp can reach (the chaos
+        # round's skewed clocks and forged stamps), for the horizon check.
+        self._skew_ticks = 0
         self._sparse_mode = sparse_ops.resolve_sparse(sparse)
         self._pipeline_mode = pipeline_ops.resolve_pipeline(pipeline)
         self._sparse_cap = min(
@@ -182,6 +197,12 @@ class ExactSim:
                                rounding_mode="floor")
         self._own_flat = self.owner.to(I64) * params.m + \
             torch.arange(params.m, dtype=I64, device=dev)
+
+    @staticmethod
+    def _clone_state(state):
+        """A copy of ``state`` on fresh buffers (the drivers' ``donate=
+        False`` and the ``step*`` methods)."""
+        return clone_state(state)
 
     # -- state construction -------------------------------------------------
 
@@ -306,7 +327,7 @@ class ExactSim:
         p, kn = self.p, self._knobs
         partner = gossip_ops.sample_peers(
             pp_slot.to(known.device, I32), p.n, nbrs=self._nbrs,
-            node_alive=node_alive)[:, 0]
+            node_alive=node_alive, cut_mask=self._cut)[:, 0]
         tb = kn.budget_arg()
         merged = gossip_ops.push_pull(
             known, partner, now_tick=now, stale_ticks=kn.stale_ticks,
@@ -332,7 +353,7 @@ class ExactSim:
         the stagger and the tick cadence at that round."""
         return gossip_ops.sample_peers(
             draws.peer_slot.to(self.device, I32), self.p.n,
-            nbrs=self._nbrs, node_alive=node_alive,
+            nbrs=self._nbrs, node_alive=node_alive, cut_mask=self._cut,
             **common.gate_kwargs(self, round_idx))
 
     def _keep(self, draws: RoundDraws):
@@ -361,6 +382,7 @@ class ExactSim:
         ``state.known`` and ``state.sent`` in place."""
         round_idx = state.round_idx + 1
         now = round_idx * self.t.round_ticks
+        state = common.apply_perturb(self.perturb, state, now, self._knobs)
         dst = self._sample(state.node_alive, draws, round_idx)
         self._round_deliver_announce(state.known, state.sent,
                                      state.node_alive, dst,
@@ -374,6 +396,7 @@ class ExactSim:
         senders))`` as host ints."""
         round_idx = state.round_idx + 1
         now = round_idx * self.t.round_ticks
+        state = common.apply_perturb(self.perturb, state, now, self._knobs)
         known, sent, alive = state.known, state.sent, state.node_alive
         dst = self._sample(alive, draws, round_idx)
         keep = self._keep(draws)
@@ -419,6 +442,7 @@ class ExactSim:
                 f"the carried publish is round {inflight.round_idx}'s, "
                 f"the state's next round is {round_idx}")
         now = round_idx * self.t.round_ticks
+        state = common.apply_perturb(self.perturb, state, now, self._knobs)
         known, sent, alive = state.known, state.sent, state.node_alive
         dst, svc_idx, msg = inflight.publish
         draws = inflight.draws
@@ -455,7 +479,8 @@ class ExactSim:
     def _check_horizon(self, state, num_rounds: int, start_round=None):
         if start_round is None:
             start_round = state.round_idx
-        self.t.validate_horizon(start_round + num_rounds)
+        self.t.validate_horizon(start_round + num_rounds,
+                                skew_ticks=self._skew_ticks)
 
     def _resolve_sparse_request(self, sparse) -> bool:
         return sparse_ops.resolve_request(self._sparse_mode, sparse,
@@ -497,7 +522,7 @@ class ExactSim:
         self._check_horizon(state, 1)
         (d,) = common.round_draws(self, state.round_idx + 1, 1, generator,
                                   common.one_draw(draws))
-        return self._step(clone_state(state), d)
+        return self._step(self._clone_state(state), d)
 
     def step_sparse(self, state: SimState, *, generator=None,
                     draws: Optional[RoundDraws] = None):
@@ -507,7 +532,7 @@ class ExactSim:
         self._check_horizon(state, 1)
         (d,) = common.round_draws(self, state.round_idx + 1, 1, generator,
                                   common.one_draw(draws))
-        state, stats = self._step_sparse(clone_state(state), d)
+        state, stats = self._step_sparse(self._clone_state(state), d)
         return state, torch.tensor(stats, dtype=I32)
 
     def _run(self, state, num_rounds: int, conv: bool, generator, draws,
@@ -551,7 +576,7 @@ class ExactSim:
                 donate=donate, start_round=start_round)[0]
         self._check_horizon(state, num_rounds, start_round)
         if not donate:
-            state = clone_state(state)
+            state = self._clone_state(state)
         return self._run(state, num_rounds, False, generator, draws,
                          self._resolve_sparse_request(sparse))[0]
 
@@ -569,7 +594,7 @@ class ExactSim:
             return final, conv
         self._check_horizon(state, num_rounds, start_round)
         if not donate:
-            state = clone_state(state)
+            state = self._clone_state(state)
         return self._run(state, num_rounds, True, generator, draws,
                          self._resolve_sparse_request(sparse))
 
@@ -617,15 +642,18 @@ class ExactSim:
 
     def _prov_channels(self, state: SimState, draws: RoundDraws):
         """The round's sampled channels, from its draws as the step
-        resolves them: the gossip pushes to ``dst`` and, on a push-pull
-        round, the two-way edge to the partner."""
-        round_idx = state.round_idx + 1
+        resolves them, given the post-round ``state`` (its liveness is
+        the one the round sampled with, after the hook): the gossip
+        pushes to ``dst`` and, on a push-pull round, the two-way edge to
+        the partner."""
+        round_idx = state.round_idx
         dst = self._sample(state.node_alive, draws, round_idx)
         pushes, pulls = [(dst, None)], []
         if round_idx % self._knobs.push_pull_rounds == 0:
             partner = gossip_ops.sample_peers(
                 draws.pp_slot.to(self.device, I32), self.p.n,
-                nbrs=self._nbrs, node_alive=state.node_alive)
+                nbrs=self._nbrs, node_alive=state.node_alive,
+                cut_mask=self._cut)
             pushes.append((partner, None))
             pulls.append((partner, None))
         return pushes, pulls
@@ -634,7 +662,7 @@ class ExactSim:
                    draws, donate: bool, start_round, sparse):
         self._check_horizon(state, num_rounds, start_round)
         if not donate:
-            state = clone_state(state)
+            state = self._clone_state(state)
         plane = make_plane(state)
         final, conv = self._run(state, num_rounds, True, generator, draws,
                                 self._resolve_sparse_request(sparse),
@@ -708,7 +736,7 @@ class ExactSim:
         """Fill the pipeline on a copy of ``state``: select round
         ``state.round_idx + 1``'s publish, charging ``sent``.  Returns
         ``(state, inflight)``."""
-        state = clone_state(state)
+        state = self._clone_state(state)
         return self._prime(state, generator, common.one_draw(draws))
 
     def _prime(self, state, generator, draws):
@@ -727,14 +755,14 @@ class ExactSim:
         self._check_horizon(state, 1)
         (d,) = common.round_draws(self, state.round_idx + 2, 1, generator,
                                   common.one_draw(draws))
-        return self._step_pipelined(clone_state(state), inflight, d)
+        return self._step_pipelined(self._clone_state(state), inflight, d)
 
     def _run_pipelined(self, state, num_rounds: int, conv: bool, inflight,
                        generator, draws, donate: bool):
         self._resolve_pipeline_request(True)
         self.last_sparse_stats = None
         if not donate:
-            state = clone_state(state)
+            state = self._clone_state(state)
         draws = None if draws is None else list(draws)
         if inflight is None:
             state, inflight = self._prime(

@@ -10,7 +10,9 @@ the post-round state and the sparse step's stats (None on a dense
 round).  Everything a plane needs of the pre-round state is taken in
 ``before``, because the exact round rewrites ``known`` and ``sent`` in
 place; the model decides what that is (``_trace_before``,
-``_delta_belief``, ``_prov_belief``, ``_prov_channels``).  A plane
+``_delta_belief``, ``_prov_belief``; ``_prov_channels`` reads the
+post-round state, whose liveness is the one the round sampled with,
+after a scenario hook ran).  A plane
 never writes the round's tensors and draws nothing, so a traced run
 consumes the generator as an untraced one does and ends in the same
 state.  An untraced run builds no plane.
@@ -100,10 +102,11 @@ class ProvPlane:
     def before(self, state, draws):
         cols = prov_ops.holders(self.result,
                                 self.sim._prov_belief(state, self.tracked))
-        return cols, self.sim._prov_channels(state, draws)
+        return cols, draws
 
     def after(self, pre, nxt, stats):
-        cols, (pushes, pulls) = pre
+        cols, draws = pre
+        pushes, pulls = self.sim._prov_channels(nxt, draws)
         self.result = prov_ops.observe(
             self.result, cols,
             prov_ops.holders(self.result,

@@ -162,24 +162,36 @@ def stagger_gate(dst, round_idx: int, stagger, stagger_period: int,
 
 
 def sample_peers(peer_slot, n: int, *, nbrs=None, node_alive=None,
-                 stagger=None, stagger_period: int = 1, round_idx=None,
-                 tick_period=None, tick_phase=None):
+                 cut_mask=None, stagger=None, stagger_period: int = 1,
+                 round_idx=None, tick_period=None, tick_phase=None):
     """Resolve a round's ``peer_slot`` draws to gossip targets
-    ``dst[int32 N, F]``.  Dead senders resolve to their own index (a
-    self-send is a merge no-op).
+    ``dst[int32 N, F]``.  Dead senders and cut edges resolve to the
+    sender's own index (a self-send is a merge no-op).
 
     ``nbrs`` (int32 [N, D]) is the padded neighbour list; None is the
     complete graph, where the draw ``r`` in ``[0, N-1)`` becomes
-    ``r + (r >= self)``.  After the draw, the stagger gate
-    (:func:`stagger_gate`) and then the cadence gate
-    (:func:`cadence_gate`, when ``tick_period`` is given) apply at
-    ``round_idx``; a node sends only when both are on."""
+    ``r + (r >= self)``.  ``cut_mask`` (bool [N, D]) marks partitioned
+    edges, read at the drawn slot; a complete graph has no edges to cut
+    and raises.  After the draw, the stagger gate (:func:`stagger_gate`)
+    and then the cadence gate (:func:`cadence_gate`, when
+    ``tick_period`` is given) apply at ``round_idx``; a node sends only
+    when both are on."""
     self_idx = torch.arange(n, dtype=torch.int32,
                             device=peer_slot.device)[:, None]
     if nbrs is None:
+        if cut_mask is not None:
+            raise ValueError(
+                "cut_mask requires an explicit neighbor-list topology; a "
+                "complete graph has no edge structure to cut — build the "
+                "cluster on a mesh/ring/ER/BA topology to model partitions"
+            )
         dst = peer_slot + (peer_slot >= self_idx).to(torch.int32)
     else:
-        dst = torch.gather(nbrs, 1, peer_slot.to(torch.int64))
+        slot = peer_slot.to(torch.int64)
+        dst = torch.gather(nbrs, 1, slot)
+        if cut_mask is not None:
+            dst = torch.where(torch.gather(cut_mask, 1, slot), self_idx,
+                              dst)
     if node_alive is not None:
         dst = torch.where(node_alive[:, None], dst, self_idx)
     if stagger is not None and stagger_period > 1:
@@ -293,19 +305,23 @@ def select_messages(known, sent, budget: int, limit: int,
     return torch.where(msg > 0, svc_idx, m).to(I32), msg
 
 
-def expand_deliveries(dst, svc_idx, msg, *, now_tick: int,
-                      stale_ticks: int, node_alive=None, sender_alive=None,
-                      record_keep=None, future_ticks=None, tomb_budget=None,
+def expand_deliveries(dst, svc_idx, msg, *, now_tick, stale_ticks: int,
+                      node_alive=None, sender_alive=None, record_keep=None,
+                      edge_keep=None, future_ticks=None, tomb_budget=None,
                       sender_own=None):
     """Expand each sender's ``B`` selected records to each of its ``F``
     targets as flat ``(row, col, val)`` triples, every gate applied but
     the pre-round stickiness (:func:`finalize_deliveries`): admission
     (staleness; the future bound and the per-origin budget when not
     None — ``sender_own`` [N, B] exempts the sender's own slots), dead
-    sender or receiver, and the pre-drawn loss mask ``record_keep``
-    ``[N, F, B]``.  ``sender_alive`` replaces the sender-liveness gate
-    for a compacted batch whose rows are not node ids (the sparse
-    round); ``node_alive`` still gates the receivers."""
+    sender or receiver, the pre-drawn loss mask ``record_keep``
+    ``[N, F, B]``, and last the packet mask ``edge_keep`` ``[N, F]`` of
+    the fault layer (a dropped packet loses all ``B`` records).
+    ``sender_alive`` replaces the sender-liveness gate for a compacted
+    batch whose rows are not node ids (the sparse round); ``node_alive``
+    still gates the receivers.  ``now_tick`` is an int or a per-receiver
+    tensor broadcastable to ``[N, F, B]`` (the chaos round's clocks,
+    ``[N, F, 1]``)."""
     n, fanout = dst.shape
     budget = svc_idx.shape[1]
     shape = (n, fanout, budget)
@@ -320,6 +336,8 @@ def expand_deliveries(dst, svc_idx, msg, *, now_tick: int,
         val = torch.where(node_alive[tgt.to(I64)], val, 0)
     if record_keep is not None:
         val = torch.where(record_keep, val, 0)
+    if edge_keep is not None:
+        val = torch.where(edge_keep[:, :, None], val, 0)
     return (tgt.reshape(-1), svc_idx[:, None, :].expand(shape).reshape(-1),
             val.reshape(-1))
 
@@ -356,17 +374,21 @@ def apply_updates(known, sent, rows, cols, vals, advanced):
                                         advanced)
 
 
-def record_transmissions(sent, svc_idx, msg, fanout: int, row_ids=None):
+def record_transmissions(sent, svc_idx, msg, fanout: int, row_ids=None,
+                         repeats: bool = False):
     """Charge ``fanout`` transmissions to every record offered this round,
     in place — the reference's unclamped int8 scatter-add (counts stay
     under ``limit + fanout − 1``).
 
-    A row's selected columns are distinct and the padding (``msg == 0``,
-    column ``M``) adds nothing, so a gather, an add and a scatter are
-    exact without atomics.  A padding entry is pointed at the row's
-    first selection with that selection's value (both writers then
-    store the same number), or at column 0 unchanged when the row
-    selected nothing.
+    The padding (``msg == 0``, column ``M``) adds nothing.  A row's
+    selected columns are distinct unless ``repeats`` is set (the chaos
+    round's forged columns may repeat a slot): then a column offered
+    ``c`` times in one row is charged ``c · fanout``, as the reference's
+    scatter-add charges it.  Either way a gather, an add and a scatter
+    are exact without atomics: every writer of a cell stores the same
+    number.  A padding entry is pointed at the row's first selection
+    with that selection's value, or at column 0 unchanged when the row
+    selected nothing (the first column is offered whenever any is).
 
     ``row_ids`` (int32 ``[C]``, distinct) maps a compacted selection
     batch to its rows of ``sent``; ids out of ``[0, N)`` — the pad id
@@ -374,11 +396,18 @@ def record_transmissions(sent, svc_idx, msg, fanout: int, row_ids=None):
     outside the batch (one exists wherever a batch has a pad) and writes
     that row's counts back unchanged, so no two writers of a cell store
     different numbers.  Returns ``sent``."""
-    first = msg[:, :1] > 0
-    col0 = torch.where(first, svc_idx[:, :1].to(I64), 0)
     offered = msg > 0
+    first = offered[:, :1]
+    col0 = torch.where(first, svc_idx[:, :1].to(I64), 0)
     cols = torch.where(offered, svc_idx.to(I64), col0)
-    bump = torch.where(offered | first, fanout, 0).to(sent.dtype)
+    if repeats:
+        charge = ((svc_idx[:, :, None] == svc_idx[:, None, :])
+                  & offered[:, None, :]).sum(dim=-1, dtype=I32) * fanout
+        bump = torch.where(offered, charge,
+                           torch.where(first, charge[:, :1], 0))
+    else:
+        bump = torch.where(offered | first, fanout, 0)
+    bump = bump.to(sent.dtype)
     if row_ids is None:
         return sent.scatter_(1, cols, torch.gather(sent, 1, cols) + bump)
     n = sent.shape[0]
@@ -392,9 +421,9 @@ def record_transmissions(sent, svc_idx, msg, fanout: int, row_ids=None):
     return sent.index_put_((rows, cols), sent[rows, cols] + bump)
 
 
-def push_pull(known, partner, *, now_tick: int, stale_ticks: int,
-              node_alive=None, future_ticks=None, tomb_budget=None,
-              owner=None):
+def push_pull(known, partner, *, now_tick, stale_ticks: int,
+              node_alive=None, future_ticks=None, now_push=None,
+              tomb_budget=None, owner=None):
     """Anti-entropy: node ``i`` exchanges full rows with ``partner[i]``
     (``partner[i] == i`` is no exchange; a dead end on either side
     becomes one).  Pull: merge the partner's row into ours
@@ -403,7 +432,11 @@ def push_pull(known, partner, *, now_tick: int, stale_ticks: int,
     partner's row — partners repeat, so it is a row scatter-max
     (``scatter_reduce_`` with ``amax``).  ``tomb_budget`` with ``owner``
     (int32 [M] slot → owner) exempts the sending side's own slots on
-    each leg.  Returns the merged tensor (a new one)."""
+    each leg.  ``now_push`` is the push leg's receiver clock (the chaos
+    round's per-node clocks: the pull leg admits at the initiator's
+    ``now_tick``, the push leg at the partner's; each an int or an
+    ``[N, 1]`` tensor); None is ``now_tick``.  Returns the merged tensor
+    (a new one)."""
     n = known.shape[0]
     self_idx = torch.arange(n, dtype=I32, device=known.device)
     if node_alive is not None:
@@ -417,8 +450,8 @@ def push_pull(known, partner, *, now_tick: int, stale_ticks: int,
     pre_tgt = known[pidx]
     pulled = merge_packed(known, pre_tgt, now_tick, stale_ticks,
                           future_ticks, tomb_budget, own_pull)
-    offered = admit_gate(known, now_tick, stale_ticks, future_ticks,
-                         tomb_budget, own_push)
+    offered = admit_gate(known, now_tick if now_push is None else now_push,
+                         stale_ticks, future_ticks, tomb_budget, own_push)
     offered = sticky_adjust(offered, pre_tgt, offered > pre_tgt)
     return pulled.scatter_reduce_(0, pidx[:, None].expand_as(offered),
                                   offered, "amax")

@@ -31,8 +31,11 @@ class RoundKnobs:
     draining_lifespan: int
     tombstone_lifespan: int
     stale_ticks: int        # merge staleness bound (ticks)
+    fault_seed: int = 0     # FaultPlan seed (the chaos round's fault draws)
     future_ticks: int = -1  # future-admission bound (negative = off)
     tomb_budget: int = -1   # per-origin suspicious budget (negative = off)
+    quarantine_threshold: int = -1  # cumulative budget violations that
+                            # quarantine an origin (negative = off)
     tick_period: Any = 1    # gossip cadence (rounds between ticks): an
                             # int, or an int32 tensor (scalar or [N])
     tick_phase: Any = 0     # cadence phase: node i ticks iff
@@ -61,11 +64,18 @@ class RoundKnobs:
         """``tomb_budget`` for the merge gates: None when disabled."""
         return None if self.tomb_budget < 0 else int(self.tomb_budget)
 
+    def quarantine_arg(self):
+        """The origin-quarantine threshold of the chaos round: None when
+        disabled."""
+        qt = self.quarantine_threshold
+        return None if qt < 0 else int(qt)
+
 
 def from_protocol(params, timecfg, *, recover_rounds: int = 1,
                   tick_period=1, tick_phase=0) -> RoundKnobs:
     """The bundle read off ``CompressedParams`` or ``SimParams`` +
-    ``TimeConfig``, with the resolved tick cadence."""
+    ``TimeConfig``, with the resolved tick cadence.  ``fault_seed``
+    stays 0: the chaos round sets it from its plan."""
     return RoundKnobs(
         limit=params.resolved_retransmit_limit(),
         keep_prob=1.0 - params.drop_prob,
@@ -82,6 +92,8 @@ def from_protocol(params, timecfg, *, recover_rounds: int = 1,
                       else timecfg.future_ticks),
         tomb_budget=(-1 if timecfg.tomb_budget is None
                      else timecfg.tomb_budget),
+        quarantine_threshold=(-1 if timecfg.quarantine_threshold is None
+                              else timecfg.quarantine_threshold),
         tick_period=tick_period,
         tick_phase=tick_phase,
     )

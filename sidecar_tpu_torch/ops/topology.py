@@ -1,6 +1,7 @@
 """Cluster topologies — the numpy builders of
 ``sidecar_tpu/ops/topology.py`` (``Topology``, ``complete``, ``ring``,
-``erdos_renyi``, ``with_stagger``), copied so both packages build
+``erdos_renyi``, ``mesh2d``, ``with_stagger``, ``partition_mask``),
+copied so both packages build
 bit-identical graphs from the same seed, the overlay-name resolver
 (``from_name``, over the families the port has), and the static plan of
 the sharded round's zoned board exchange (``zoned_exchange_plan``).
@@ -99,6 +100,46 @@ def erdos_renyi(n: int, avg_degree: float, seed: int = 0) -> Topology:
     return Topology(n=n, nbrs=nbrs, deg=deg, name=f"er{avg_degree:g}")
 
 
+def mesh2d(rows: int, cols: int) -> Topology:
+    """2-D grid mesh with 4-neighbour connectivity (config 5's 1M-node
+    partitioned mesh is a split mesh2d), built vectorised: the
+    candidate neighbours in the four directions, those off the grid
+    padded with self, the valid ones moved to the front of each row in
+    the order up, down, left, right."""
+    n = rows * cols
+    idx = np.arange(n, dtype=np.int32).reshape(rows, cols)
+    self_col = idx.reshape(n)
+    cand = np.tile(self_col[:, None], (1, 4))
+    valid = np.zeros((n, 4), dtype=bool)
+    up = np.roll(idx, 1, axis=0).reshape(n)
+    down = np.roll(idx, -1, axis=0).reshape(n)
+    left = np.roll(idx, 1, axis=1).reshape(n)
+    right = np.roll(idx, -1, axis=1).reshape(n)
+    rr = np.repeat(np.arange(rows), cols)
+    cc = np.tile(np.arange(cols), rows)
+    for k, (nbr, ok) in enumerate((
+            (up, rr > 0), (down, rr < rows - 1),
+            (left, cc > 0), (right, cc < cols - 1))):
+        cand[:, k] = np.where(ok, nbr, self_col)
+        valid[:, k] = ok
+    order = np.argsort(~valid, axis=1, kind="stable")
+    nbrs = np.take_along_axis(cand, order, axis=1)
+    deg = valid.sum(axis=1).astype(np.int32)
+    pad = np.arange(4)[None, :] >= deg[:, None]
+    nbrs = np.where(pad, self_col[:, None], nbrs).astype(np.int32)
+    return Topology(n=n, nbrs=nbrs, deg=deg, name=f"mesh{rows}x{cols}")
+
+
+def partition_mask(topo: Topology, side_of: np.ndarray) -> np.ndarray:
+    """Bool ``[N, D]`` mask of the edges crossing a partition: ``side_of
+    [n]`` assigns each node a side, and an edge is cut where its ends
+    differ.  A model takes it as ``cut_mask`` while the split holds."""
+    if topo.nbrs is None:
+        raise ValueError("partition_mask requires an explicit neighbor list")
+    side_of = np.asarray(side_of)
+    return side_of[topo.nbrs] != side_of[:, None]
+
+
 def with_stagger(topo: Topology, period: int,
                  offsets: Optional[np.ndarray] = None,
                  seed: int = 0) -> Topology:
@@ -119,7 +160,8 @@ def with_stagger(topo: Topology, period: int,
                                stagger_period=int(period))
 
 
-# The reference's overlay families; the port builds the first three.
+# The reference's overlay families; the port builds complete, ring, er
+# and mesh.
 _NAME_RE = re.compile(
     r"(complete|chord)"
     r"|ring(\d+)|expander(\d+)|er(\d+(?:\.\d+)?)|ba(\d+)"
@@ -128,16 +170,17 @@ _NAME_RE = re.compile(
 
 def from_name(name: str, n: int, seed: int = 0) -> Topology:
     """An overlay by NAME, as the reference's ``from_name`` resolves it:
-    ``complete``, ``ring<hops>`` and ``er<avg degree>`` (seeded), and
-    the resolution counted as ``topology.from_name.<family>``.  The
-    reference's other families (``chord``, ``expander<k>``, ``ba<m>``,
-    ``zoned<z>``, ``mesh<r>x<c>``) are not in the port and raise, as
-    does an unknown name."""
+    ``complete``, ``ring<hops>``, ``er<avg degree>`` (seeded) and
+    ``mesh<rows>x<cols>``, and the resolution counted as
+    ``topology.from_name.<family>``.  The reference's other families
+    (``chord``, ``expander<k>``, ``ba<m>``, ``zoned<z>``) are not in the
+    port and raise, as does an unknown name."""
     s = str(name).strip().lower()
     m = _NAME_RE.fullmatch(s)
     if m is None:
         raise ValueError(f"unknown topology {name!r}: the port builds "
-                         "complete, ring<hops> and er<avg degree>")
+                         "complete, ring<hops>, er<avg degree> and "
+                         "mesh<rows>x<cols>")
     if m.group(1) == "complete":
         family, topo = "complete", complete(n)
     elif m.group(2):
@@ -145,9 +188,17 @@ def from_name(name: str, n: int, seed: int = 0) -> Topology:
     elif m.group(4):
         family, topo = "er", erdos_renyi(n, avg_degree=float(m.group(4)),
                                          seed=seed)
+    elif m.group(7):
+        r, c = int(m.group(7)), int(m.group(8))
+        if r * c != n:
+            raise ValueError(
+                f"topology {name!r} invalid for n={n}: mesh{r}x{c} has "
+                f"{r * c} nodes, cluster has {n}")
+        family, topo = "mesh", mesh2d(r, c)
     else:
         raise ValueError(f"topology {name!r} is not in the port: it builds "
-                         "complete, ring<hops> and er<avg degree>")
+                         "complete, ring<hops>, er<avg degree> and "
+                         "mesh<rows>x<cols>")
     metrics.incr(f"topology.from_name.{family}")
     return topo
 

@@ -32,7 +32,10 @@ between them (:meth:`ShardedSim._gossip_shards`):
 Then the anti-entropy runs on the global tensors, as in the reference:
 the random-stride ring exchange (:meth:`ShardedSim._push_pull_stride`)
 in place of the single-device model's uniform partner — every node
-exchanges full rows with node ``(i + stride) mod N``.
+exchanges full rows with node ``(i + stride) mod N``.  A partition is
+``cut_mask`` on the sample (as on one device) and ``node_side``, which
+keeps the stride exchange within a side; the pipelined round refuses
+the sides, as the reference's does.
 
 Every candidate resolves against the pre-round block and the scatter-
 max and the ``sent`` reset commute, so the order in which blocks are
@@ -130,10 +133,13 @@ class ShardedSim(ExactSim):
                  digest_gate: Optional[bool] = None, gate_buckets: int = 8,
                  pipeline=None, tick_period=None, tick_phase=None,
                  device="cuda", cut_mask=None, node_side=None):
-        common.reject_deferred(cut_mask=cut_mask, node_side=node_side)
         super().__init__(params, topo, timecfg, device=device,
-                         sparse=sparse, pipeline=pipeline,
-                         tick_period=tick_period, tick_phase=tick_phase)
+                         cut_mask=cut_mask, sparse=sparse,
+                         pipeline=pipeline, tick_period=tick_period,
+                         tick_phase=tick_phase)
+        # Each node's side of a partition: the stride push-pull
+        # exchanges only within a side.  (The cut gates the sample.)
+        self._side = common.side_tensor(node_side, params.n, self.device)
         # The raw cadence arguments, for the pipelined twin.
         self._cadence_args = (tick_period, tick_phase)
         self._pipe_twin = None
@@ -466,13 +472,13 @@ class ShardedSim(ExactSim):
             own_pull = self.owner[None, :] == \
                 torch.roll(node_ids, -stride, 0)[:, None]
             own_push = self.owner[None, :] == node_ids[:, None]
-        ok = alive & torch.roll(alive, -stride, 0)
+        ok = common.exchange_ok(alive, self._side, -stride)
         fwd = torch.where(ok[:, None], torch.roll(known, -stride, 0), 0)
         pulled = merge_packed(known, fwd, now, kn.stale_ticks, ft, tb,
                               own_pull)
         del fwd
         offered = admit_gate(known, now, kn.stale_ticks, ft, tb, own_push)
-        ok_back = alive & torch.roll(alive, stride, 0)
+        ok_back = common.exchange_ok(alive, self._side, stride)
         back = torch.where(ok_back[:, None], torch.roll(offered, stride, 0),
                            0)
         del offered
@@ -512,11 +518,12 @@ class ShardedSim(ExactSim):
     # -- telemetry --------------------------------------------------------------
 
     def _prov_channels(self, state: SimState, draws: RoundDraws):
-        """The round's channels: the pushes to the sampled peers, and
-        the two stride partners ``(i ± stride) mod N`` as pulls, each
-        where both ends are alive on a push-pull round."""
+        """The round's channels, given the post-round ``state``: the
+        pushes to the sampled peers, and the two stride partners ``(i ±
+        stride) mod N`` as pulls, each where both ends are alive (and on
+        one side) on a push-pull round."""
         p = self.p
-        round_idx = state.round_idx + 1
+        round_idx = state.round_idx
         alive = state.node_alive
         dst = self._sample(alive, draws, round_idx)
         stride = int(draws.stride)
@@ -525,7 +532,7 @@ class ShardedSim(ExactSim):
         pulls = []
         for roll_amt, partner in ((-stride, (idx + stride) % p.n),
                                   (stride, (idx - stride) % p.n)):
-            ok = alive & torch.roll(alive, roll_amt, 0) & pp_on
+            ok = common.exchange_ok(alive, self._side, roll_amt) & pp_on
             pulls.append((partner[:, None], ok[:, None]))
         return [(dst, None)], pulls
 
@@ -538,24 +545,30 @@ class ShardedSim(ExactSim):
 
     def _pipeline_dispatch(self, sparse) -> None:
         """Guard a pipelined dispatch: the pipelined program is the
-        single-device model's, which does not compose with the
-        sparse-frontier round."""
+        single-device model's, which composes with neither the
+        sparse-frontier round nor the partition sides."""
         if self._resolve_sparse_request(sparse):
             raise ValueError(
                 "pipelined execution does not compose with the "
                 "sparse-frontier round (the carried publish is dense); "
                 "pass sparse='0' or pipeline=False")
+        if self._side is not None:
+            raise ValueError(
+                "pipelined execution does not support node_side: the "
+                "single-chip pipelined program draws uniform push-pull "
+                "partners, which have no side mask")
 
     def _pipeline_twin(self) -> ExactSim:
         """The single-device ``ExactSim`` whose pipelined round this twin
         runs on the global tensors, built once: same params, graph, time
-        config and cadence, ``pipeline="1"``.  It draws its own draws
-        (``ExactSim.draw``)."""
+        config, cut and cadence, ``pipeline="1"``.  It draws its own
+        draws (``ExactSim.draw``)."""
         if self._pipe_twin is None:
             tp, tph = self._cadence_args
-            self._pipe_twin = ExactSim(self.p, self.topo, self.t,
-                                       device=self.device, pipeline="1",
-                                       tick_period=tp, tick_phase=tph)
+            self._pipe_twin = ExactSim(
+                self.p, self.topo, self.t, device=self.device,
+                cut_mask=None if self._cut is None else self._cut.cpu(),
+                pipeline="1", tick_period=tp, tick_phase=tph)
         return self._pipe_twin
 
     def _delegate(self):

@@ -705,3 +705,124 @@ def test_sharded_sparse_run_on_card_equals_cpu(card, mode):
     assert stats == cpu.last_sparse_stats.tolist()
     assert stats[0] > 0 and stats[1] > 0
     assert got == [4 * 40, 0, 4 * 40]
+
+
+# -- chaos and the partition hooks ----------------------------------------------
+
+
+def test_scatter_max_apply_kernel_drops_ring_sentinel_rows(card):
+    """The chaos round's scatter: the delay rings' empty entries carry
+    row N (the sentinel), mixed among live rows, with values 0 and
+    advanced set; the kernel drops them as the plain version does."""
+    n, m, u = 48, 200, 9000
+    rng = np.random.default_rng(8)
+    known = torch.tensor(rng.integers(1, 1 << 20, (n, m)),
+                         dtype=torch.int32).cuda()
+    sent = torch.tensor(rng.integers(0, 10, (n, m)), dtype=torch.int8).cuda()
+    rows = rng.integers(0, n, u)
+    rows[rng.random(u) < 0.4] = n
+    cols = rng.integers(0, m, u)
+    vals = rng.integers(1, 1 << 22, u)
+    vals[rows == n] = rng.choice([0, 1 << 23], int((rows == n).sum()))
+    rows, cols, vals = (torch.tensor(x, dtype=torch.int32).cuda()
+                        for x in (rows, cols, vals))
+    adv = torch.tensor(rng.random(u) < 0.5).cuda()
+    want = sm.scatter_max_apply_torch(known.clone(), rows, cols, vals,
+                                      sent.clone(), adv)
+    got = sm.scatter_max_apply_cuda(known, rows, cols, vals, sent, adv)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [1000, 70_000])
+def test_fused_gather_kernel_at_k64_equals_plain(card, n):
+    """K1 at config 5's width, K = 64, F = 3: at n = 70,000 the rows
+    span several of the gather pass's row windows."""
+    rng = np.random.default_rng(n)
+    cv, cs, se = cache(rng, n, 64)
+    src = torch.tensor(rng.integers(0, n, (n, 3)), dtype=torch.int32).cuda()
+    kw = dict(stale_ticks=1 << 18, budget=15, limit=24, fanout=3,
+              cache_lines=64)
+    got = pg.fused_publish_gather_cuda(cv, cs, se, src, 1 << 19, **kw)
+    want = pg.fused_publish_gather_torch(cv, cs, se, src, 1 << 19, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_chaos_run_on_card_equals_cpu(card):
+    """30 chaos rounds at n = 64 × 10 under drops, a partition, a delay
+    ring with duplicates, a crash, clock skew and a tombstone bomb, the
+    defences on, from one set of draws and fault draws: every field,
+    the rings and the counters equal; K4a once a round."""
+    from sidecar_tpu_torch.chaos import (
+        AdversaryPlan,
+        Attack,
+        ChaosExactSim,
+        ClockFault,
+        EdgeFault,
+        FaultPlan,
+        NodeFault,
+    )
+
+    n = 64
+    a, b = tuple(range(32)), tuple(range(32, 64))
+    plan = FaultPlan(
+        seed=3,
+        edges=(EdgeFault(src=a, dst=b, drop_prob=0.2),
+               EdgeFault(src=b, dst=a, delay_rounds=3, delay_prob=0.2,
+                         duplicate_prob=0.1)),
+        nodes=(NodeFault(nodes=(1, 2), start_round=5, end_round=12,
+                         kind="crash"),),
+        clocks=(ClockFault(nodes=(4, 5), end_round=40, offset_ticks=2000,
+                           drift_ticks_per_round=12.5),),
+    ).with_edges(*FaultPlan.partition(a, b, 10, 20))
+    adv = AdversaryPlan(seed=1, attacks=(
+        Attack("tombstone_bomb", nodes=(7,), victims=b, start_round=8,
+               end_round=25, rate=0.5),))
+    p = SimParams(n=n, services_per_node=10, drop_prob=0.1)
+    t = TimeConfig(push_pull_interval_s=1.0, future_fudge_s=0.5,
+                   origin_budget=2, origin_quarantine=3)
+    topo = topology.erdos_renyi(n, 8.0, seed=3)
+    cpu = ChaosExactSim(p, topo, t, plan, device="cpu", adversary=adv)
+    gpu = ChaosExactSim(p, topo, t, plan, adversary=adv)
+    gen = torch.Generator().manual_seed(0)
+    draws = [cpu.draw(gen, r) for r in range(1, 31)]
+    faults = [cpu.fault_draw(r) for r in range(1, 31)]
+    x = cpu.run_fast(cpu.init_state(), 30, draws=draws, fault_draws=faults)
+    before = sm.scatter_max_apply_cuda.launches
+    y = gpu.run_fast(gpu.init_state(), 30, draws=draws, fault_draws=faults)
+    torch.cuda.synchronize()
+    assert sm.scatter_max_apply_cuda.launches - before == 30
+    for name, value in convert.state_to_numpy(x.sim).items():
+        np.testing.assert_array_equal(
+            convert.state_to_numpy(y.sim)[name], value, err_msg=name)
+    for ra, rb in zip(x.rings, y.rings):
+        assert all(torch.equal(u, v.cpu()) for u, v in zip(ra, rb))
+    assert cpu.injection_counts(x) == gpu.injection_counts(y)
+    assert torch.equal(x.origin_violations, y.origin_violations.cpu())
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_cut_and_sides_run_on_card_equals_cpu(card, fused):
+    """30 rounds of the compressed model on an 8 × 8 mesh split into
+    column halves, the cut on the sample and the sides on the stride
+    push-pull, on the card and on the CPU from one set of draws."""
+    topo = topology.mesh2d(8, 8)
+    side = (np.arange(64) % 8 >= 4).astype(np.int32)
+    cut = topology.partition_mask(topo, side)
+    p = CompressedParams(n=64, services_per_node=4, cache_lines=64,
+                         fold_quorum=0.5)
+    t = TimeConfig(push_pull_interval_s=1.0)
+    kw = dict(fused_gather=fused, cut_mask=cut, node_side=side)
+    cpu = CompressedSim(p, topo, t, device="cpu", **kw)
+    gpu = CompressedSim(p, topo, t, **kw)
+    gen = torch.Generator().manual_seed(1)
+    draws = [cpu.draw(gen, r) for r in range(1, 31)]
+    slots = np.arange(0, 128, 3)
+    a, ca = cpu.run(cpu.mint(cpu.init_state(), slots, 10), 30, draws=draws)
+    b, cb = gpu.run(gpu.mint(gpu.init_state(), slots, 10), 30, draws=draws)
+    torch.cuda.synchronize()
+    assert torch.equal(ca, cb.cpu())
+    for name, value in convert.state_to_numpy(a).items():
+        np.testing.assert_array_equal(
+            convert.state_to_numpy(b)[name], value, err_msg=name)

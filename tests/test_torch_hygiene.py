@@ -1,10 +1,11 @@
 """Ground rules of the PyTorch port: it imports neither ``jax`` nor
 anything of ``sidecar_tpu`` (nor does ``chip_smoke.py``), its entry
 points (both models) refuse to fall back to the CPU when no GPU is
-present, options it does not port yet raise and name their ROADMAP
-item (those of the execution modes, once deferred, now run a round),
-and state, params, time configs and graphs survive the trip through
-``convert``.
+present, the options once deferred run a round (the execution modes',
+and the chaos options ``perturb``, ``cut_mask`` and ``node_side``, each
+equal to the JAX reference's round), no module names a deferred
+ROADMAP item any more, and state, params, time configs and graphs
+survive the trip through ``convert``.
 """
 
 import ast
@@ -20,10 +21,22 @@ from sidecar_tpu_torch.models.compressed import (
     CompressedParams,
     CompressedSim,
 )
-from sidecar_tpu_torch.models.common import DEFERRED
 from sidecar_tpu_torch.models.exact import ExactSim, SimParams
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import topology
+from tests.torch_parity import (
+    chaos_option_kwargs,
+    assert_exact_states_equal,
+    assert_states_equal,
+    exact_port_pair,
+    exact_port_state,
+    jax_draw_seq,
+    jax_exact_draw_seq,
+    port_pair,
+    port_state,
+)
+
+CHAOS_OPTIONS = ("perturb", "cut_mask", "node_side")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "sidecar_tpu_torch").rglob("*.py")) + \
@@ -57,8 +70,40 @@ def test_every_port_module_is_checked():
                      "exact.py",
                      "scatter_max.py", "common.py", "sparse.py",
                      "pipeline.py", "metrics.py", "trace.py", "digest.py",
-                     "delta.py", "provenance.py", "planes.py", "cost.py"):
+                     "delta.py", "provenance.py", "planes.py", "cost.py",
+                     "plan.py", "adversary.py", "sim_inject.py"):
         assert expected in names, expected
+    assert any(p.parent.name == "chaos" for p in PORT_FILES)
+
+
+def test_no_module_names_a_deferred_item():
+    """Queue 1 item 8 is ported: no module raises naming it."""
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert "NotImplementedError" not in text or \
+            "item 8" not in text, path
+
+
+def compressed_option_round(option):
+    """One round of the compressed model with a chaos option on, port
+    against reference, from the reference's draws."""
+    import jax
+    from sidecar_tpu.ops import topology as jtopo
+
+    key = jax.random.PRNGKey(4)
+    topo = jtopo.ring(16)
+    jkw, tkw = chaos_option_kwargs(option, topo, 200, key, 16)
+    params = dict(n=16, services_per_node=2, cache_lines=8, budget=4)
+    time = dict(push_pull_interval_s=0.2)
+    jsim, _ = port_pair(params, topo, time, **jkw)
+    _, tsim = port_pair(params, topo, time, **tkw)
+    js = jsim.mint(jsim.init_state(), np.array([3, 17], np.int32), 10)
+    jf, jb = jsim.run_behind(js, key, 1, every=1, donate=False)
+    tf, tb = tsim.run_behind(port_state(js), 1, 1,
+                             draws=jax_draw_seq(jsim, key, 0, 1))
+    assert_states_equal(jf, tf, option)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    return tsim, tf
 
 
 def small_sim(**kw):
@@ -72,8 +117,38 @@ def small_exact(**kw):
     return ExactSim(p, topology.ring(16), TimeConfig(), **kw)
 
 
-@pytest.mark.parametrize("make", [small_sim, small_exact],
-                         ids=["compressed", "exact"])
+def small_chaos(**kw):
+    from sidecar_tpu_torch.chaos import ChaosExactSim, EdgeFault, FaultPlan
+
+    p = SimParams(n=16, services_per_node=2, budget=4)
+    plan = FaultPlan(seed=1, edges=(EdgeFault(drop_prob=0.5),))
+    return ChaosExactSim(p, topology.ring(16), TimeConfig(), plan, **kw)
+
+
+def small_fault_plan(**kw):
+    from sidecar_tpu_torch.chaos import CompiledFaultPlan, EdgeFault, FaultPlan
+
+    plan = FaultPlan(seed=1, edges=(EdgeFault(drop_prob=0.5),))
+    return CompiledFaultPlan(plan, 16, **kw)
+
+
+def small_adversary(**kw):
+    from sidecar_tpu_torch.chaos import (
+        AdversaryPlan,
+        Attack,
+        CompiledAdversaryPlan,
+    )
+
+    plan = AdversaryPlan(seed=1, attacks=(
+        Attack(kind="tombstone_bomb", nodes=(1,), victims=(3,)),))
+    return CompiledAdversaryPlan(plan, n=16, owner=np.arange(32) // 2,
+                                 budget=4, **kw)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [small_sim, small_exact, small_chaos, small_fault_plan, small_adversary],
+    ids=["compressed", "exact", "chaos", "fault_plan", "adversary"])
 def test_default_device_needs_a_gpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -106,40 +181,55 @@ def run_mode_option(sim, option, state):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("perturb", lambda st, key, now: st),
-    ("cut_mask", np.zeros((16, 1), bool)),
-    ("node_side", np.zeros(16, np.int32)),
+    ("perturb", None),
+    ("cut_mask", None),
+    ("node_side", None),
     ("sparse", "auto"),
     ("pipeline", "1"),
     ("tick_period", 2),
 ])
 def test_deferred_options_raise(option, value):
-    """Options still deferred raise naming their item; the execution
-    modes' (Queue 1 item 6, deferred until it was ported) run a round."""
-    if option in DEFERRED:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 8"):
-            small_sim(device="cpu", **{option: value})
+    """Every option once deferred runs a round: the chaos options
+    (Queue 1 item 8) one equal to the reference's, the execution modes'
+    (item 6) as :func:`run_mode_option` checks."""
+    if option in CHAOS_OPTIONS:
+        sim, _ = compressed_option_round(option)
+        assert getattr(sim, {"perturb": "perturb", "cut_mask": "_cut",
+                             "node_side": "_side"}[option]) is not None
         return
     sim = small_sim(device="cpu", **{option: value})
     run_mode_option(sim, option, sim.mint(sim.init_state(), [3, 17], 10))
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("perturb", lambda st, key, now: st, "item 8"),
-    ("cut_mask", np.zeros((16, 2), bool), "item 8"),
+    ("perturb", None, "item 8"),
+    ("cut_mask", None, "item 8"),
     ("sparse", "auto", "item 6"),
     ("pipeline", "1", "item 6"),
     ("tick_period", 2, "item 6"),
     ("tick_phase", 1, "item 6"),
 ])
 def test_exact_deferred_options_raise(option, value, item):
-    """As :func:`test_deferred_options_raise`, on the exact model; a
-    phase alone (period 1) is accepted and gates nothing."""
-    if item != "item 6":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 {item}"):
-            small_exact(device="cpu", **{option: value})
+    """As :func:`test_deferred_options_raise`, on the exact model: the
+    chaos options run a round equal to the reference's; a phase alone
+    (period 1) is accepted and gates nothing."""
+    if item == "item 8":
+        import jax
+        from sidecar_tpu.ops import topology as jtopo
+
+        key = jax.random.PRNGKey(4)
+        topo = jtopo.ring(16)
+        jkw, tkw = chaos_option_kwargs(option, topo, 200, key, 16)
+        params = dict(n=16, services_per_node=2, budget=4)
+        time = dict(push_pull_interval_s=0.2)
+        jsim, _ = exact_port_pair(params, topo, time, **jkw)
+        _, tsim = exact_port_pair(params, topo, time, **tkw)
+        js = jsim.init_state(0.8, seed=1)
+        jf, jc = jsim.run(js, key, 1, donate=False)
+        tf, tc = tsim.run(exact_port_state(js), 1,
+                          draws=jax_exact_draw_seq(jsim, key, 0, 1))
+        assert_exact_states_equal(jf, tf, option)
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
         return
     sim = small_exact(device="cpu", **{option: value})
     if option == "tick_phase":

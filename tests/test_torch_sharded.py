@@ -48,11 +48,13 @@ from sidecar_tpu_torch.parallel import (
     resolve_board_exchange,
 )
 from tests.torch_parity import (
+    chaos_option_kwargs,
     assert_port_states_equal,
     assert_states_equal,
     jax_draw_seq,
     jax_sharded_draws,
     port_pair,
+    port_state,
 )
 
 # Refreshes every 10 rounds (so refresh folds write the floor slices),
@@ -392,22 +394,34 @@ def small(**kw):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("perturb", lambda st, key, now: st),
-    ("cut_mask", np.zeros((16, 1), bool)),
-    ("node_side", np.zeros(16, np.int32)),
+    ("perturb", None),
+    ("cut_mask", None),
+    ("node_side", None),
     ("sparse", "auto"),
     ("pipeline", "1"),
     ("tick_period", 2),
 ])
 def test_deferred_sharded_options_raise(option, value):
-    """The chaos options raise naming item 8; the twin's sparse and
-    pipelined rounds (item 10, ported) and the tick cadence run a round:
-    the sparse round equals the twin's dense one, the pipelined round
-    the single-device model's pipelined one."""
+    """Every option once deferred runs a round.  The chaos options
+    (item 8): the twin at d = 2 with the option equals the reference's
+    single-device model with it.  The twin's sparse and pipelined rounds
+    (item 10) and the tick cadence: the sparse round equals the twin's
+    dense one, the pipelined round the single-device model's pipelined
+    one."""
     if option in ("perturb", "cut_mask", "node_side"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 8"):
-            small(d=2, **{option: value})
+        key = jax.random.PRNGKey(4)
+        topo = jtopo.ring(16)
+        jkw, tkw = chaos_option_kwargs(option, topo, 200, key, 16)
+        params = dict(n=16, services_per_node=2, cache_lines=8, budget=4)
+        time = dict(push_pull_interval_s=0.2)
+        jsim, _ = port_pair(params, topo, time, **jkw)
+        js = jsim.mint(jsim.init_state(), np.array([3, 17], np.int32), 10)
+        jf, jb = jsim.run_behind(js, key, 1, every=1, donate=False)
+        twin = port_sharded(jsim, d=2, board_exchange="ring", **tkw)
+        tf, tb = twin.run_behind(port_state(js), 1, 1,
+                                 draws=jax_draw_seq(jsim, key, 0, 1))
+        assert_states_equal(jf, tf, option)
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
         return
     sim = small(d=2, **{option: value})
     st = sim.mint(sim.init_state(), [3, 17], 10)

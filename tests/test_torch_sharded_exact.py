@@ -37,6 +37,7 @@ from sidecar_tpu_torch.ops import topology as ttopo
 from sidecar_tpu_torch.ops.gossip import eligible_records
 from sidecar_tpu_torch.parallel import ShardedSim
 from tests.torch_parity import (
+    chaos_option_kwargs,
     assert_exact_states_equal,
     assert_port_states_equal,
     assert_stream_equal,
@@ -338,13 +339,26 @@ def small(**kw):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("cut_mask", np.zeros((16, 1), bool)),
-    ("node_side", np.zeros(16, np.int32)),
+    ("cut_mask", None),
+    ("node_side", None),
 ])
 def test_chaos_options_raise(option, value):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 8"):
-        small(d=2, **{option: value})
+    """The chaos options (Queue 1 item 8, ported) run a round equal to
+    the reference twin's at d = 2, push-pull firing every round."""
+    key = jax.random.PRNGKey(4)
+    topo = jtopo.ring(16)
+    jkw, tkw = chaos_option_kwargs(option, topo, 200, key, 16)
+    params = dict(n=16, services_per_node=2, fanout=2, budget=4)
+    jsim = JShardedSim(jexact.SimParams(**params), topo,
+                       JTimeConfig(push_pull_interval_s=0.2),
+                       mesh=make_mesh(jax.devices()[:2]),
+                       board_exchange="ring", **jkw)
+    want, conv = jsim.run(jsim.init_state(), key, 1)
+    tsim = port_from(jsim, 2, "ring", **tkw)
+    got, got_conv = tsim.run(tsim.init_state(), 1,
+                             draws=jax_sharded_exact_draws(jsim, key, 0, 1))
+    assert_exact_states_equal(want, got, option)
+    np.testing.assert_array_equal(got_conv.numpy(), np.asarray(conv))
 
 
 @pytest.mark.parametrize("kw,match", [

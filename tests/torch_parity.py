@@ -24,11 +24,19 @@ import torch
 from sidecar_tpu.models import compressed as jax_compressed
 from sidecar_tpu.models import exact as jax_exact
 from sidecar_tpu.models.timecfg import TimeConfig as JaxTimeConfig
+from sidecar_tpu.ops import status as jax_status
 from sidecar_tpu.ops import topology as jax_topology
 from sidecar_tpu_torch import convert
 from sidecar_tpu_torch.models.compressed import CompressedSim
 from sidecar_tpu_torch.models.exact import ExactSim
 from sidecar_tpu_torch.ops.gossip import RoundDraws
+from sidecar_tpu_torch.ops.status import (
+    ALIVE,
+    TOMBSTONE,
+    pack,
+    unpack_status,
+    unpack_ts,
+)
 
 STATE_FIELDS = ("own", "cache_slot", "cache_val", "cache_sent", "floor",
                 "node_alive", "round_idx", "evictions", "dropped")
@@ -239,7 +247,7 @@ def assert_exact_states_equal(jax_state, port_state, ctx: str = ""):
                                                want[f].dtype)
 
 
-# -- the telemetry planes -------------------------------------------------------
+# -- the telemetry planes -----------------------------------------------------
 
 PLANES = ("trace", "digest", "deltas", "provenance")
 PLANE_FIELDS = {"trace": ("count", "rec", "overflow"),
@@ -282,8 +290,8 @@ def jax_sharded_exact_draws(jsim, key, start_round: int, num_rounds: int):
     keep mask, and applies that mask to the messages that target its
     rows.  So the loss of message ``(s, f, b)`` is the mask of the shard
     that owns ``dst[s, f]``: the folded ``[N, F, B]`` mask takes row
-    ``(s, f)`` from that shard's mask (the sender's own where the round's
-    stagger or cadence gates the sender, which then sends to itself).
+    ``(s, f)`` from that shard's mask (the sender's own where a cut edge,
+    the round's stagger or its cadence turns the send to itself).
     Liveness needs no fold: a dead sender's or receiver's messages are
     zeroed whatever the mask.  The stride comes from ``k_pp``."""
     p, d = jsim.p, jsim.d
@@ -311,6 +319,9 @@ def jax_sharded_exact_draws(jsim, key, start_round: int, num_rounds: int):
             dst = slot + (slot >= ids[:, None])
         else:
             dst = np.take_along_axis(nbrs, slot, axis=1)
+            if jsim._cut is not None:
+                cut = np.take_along_axis(np.asarray(jsim._cut), slot, axis=1)
+                dst = np.where(cut, ids[:, None], dst)
         dst = np.asarray(jsim._stagger_gate(jnp.asarray(dst, jnp.int32),
                                             jnp.asarray(ids), r + 1))
         keep = None
@@ -334,3 +345,155 @@ def sharded_exact_port(jsim, **kw):
         port_topology(jsim.topo),
         convert.timecfg_from_fields(dataclasses.asdict(jsim.t)),
         device="cpu", **kw)
+
+
+# -- chaos and adversary ------------------------------------------------------
+
+
+def jax_fault_draws(jsim, round_idx: int):
+    """The uniforms behind the reference ``ChaosExactSim``'s fault masks
+    for the round that advances the state to ``round_idx``
+    (``chaos/sim_inject.py`` ``CompiledFaultPlan.edge_masks``): every
+    draw roots at ``kbase = fold_in(PRNGKey(fault seed), round_idx)``;
+    the drop mask is ``uniform(fold_in(kbase, 0), (N, F)) < p`` and edge
+    entry i's delay and duplicate masks fold in ``100 + i`` and
+    ``200 + i``.  Returned as the port's ``FaultDraws``."""
+    from sidecar_tpu_torch.chaos.sim_inject import FaultDraws
+
+    p, prog = jsim.p, jsim._prog
+    shape = (p.n, p.fanout)
+    kbase = jax.random.fold_in(jax.random.PRNGKey(jsim._knobs.fault_seed),
+                               round_idx)
+
+    def u(tag):
+        return torch.tensor(np.asarray(jax.random.uniform(
+            jax.random.fold_in(kbase, tag), shape, jnp.float32)))
+
+    drop_u = u(0) if any(e.drop_prob > 0 for e in jsim.plan.edges) \
+        else None
+    delay_u, dup_u = [], []
+    for i, (_, _, e, ring_idx) in enumerate(prog.edge_entries):
+        if ring_idx is None:
+            continue
+        delay_u.append(u(100 + i) if e.delay_prob > 0.0 else None)
+        dup_u.append(u(200 + i) if e.duplicate_prob > 0.0 else None)
+    return FaultDraws(drop_u, tuple(delay_u), tuple(dup_u))
+
+
+def jax_fault_draw_seq(jsim, start_round: int, num_rounds: int):
+    """The reference chaos sim's fault uniforms for ``num_rounds`` rounds
+    from a state at round ``start_round``."""
+    return [jax_fault_draws(jsim, start_round + i + 1)
+            for i in range(num_rounds)]
+
+
+def jax_perturb_masks(key, start_round: int, num_rounds: int, shape,
+                      prob: float):
+    """The ``bernoulli(k_perturb, prob, shape)`` mask a reference
+    scenario hook draws each round, ``k_perturb`` the first of
+    ``split(fold_in(key, r), 4)``: ``{round index after the step:
+    bool tensor}``."""
+    out = {}
+    for i in range(num_rounds):
+        r = start_round + i
+        k_perturb = jax.random.split(jax.random.fold_in(key, r), 4)[0]
+        out[r + 1] = torch.tensor(np.asarray(
+            jax.random.bernoulli(k_perturb, prob, shape)))
+    return out
+
+
+def chaos_state_to_numpy(cst) -> dict:
+    """Every field of a chaos state, the reference's or the port's, as
+    numpy: the exact fields, the rings and the counters."""
+    if isinstance(cst.sim.known, torch.Tensor):
+        out = dict(convert.state_to_numpy(cst.sim))
+    else:
+        out = exact_to_numpy(cst.sim)
+    for i, ring in enumerate(cst.rings):
+        for name, t in zip(("rows", "cols", "vals"), ring):
+            out[f"ring{i}.{name}"] = np_of(t)
+    for f in ("injected_drops", "injected_delays", "injected_dups",
+              "rejected_future", "forged_records", "rejected_budget",
+              "origin_violations"):
+        out[f] = np_of(getattr(cst, f))
+    return out
+
+
+def assert_chaos_states_equal(jax_cst, port_cst, ctx: str = ""):
+    """Field for field, rings and counters included, dtypes too."""
+    want, got = chaos_state_to_numpy(jax_cst), chaos_state_to_numpy(port_cst)
+    assert want.keys() == got.keys(), (ctx, want.keys(), got.keys())
+    for f in want:
+        np.testing.assert_array_equal(got[f], want[f],
+                                      err_msg=f"{ctx} field {f}")
+        assert got[f].dtype == want[f].dtype, (ctx, f, got[f].dtype,
+                                               want[f].dtype)
+
+
+def churn_hooks(params, round_ticks, masks, start, end, prob=0.05):
+    """config6's side-A churn (``sim/scenarios.py`` ``config6_chaos``)
+    in both packages: from round ``start`` to ``end`` the chosen side-A
+    slots restart, ALIVE ↔ TOMBSTONE at ``now``.  The reference hook
+    draws ``bernoulli(k_perturb, prob, [M])``; the port's replays those
+    masks (``masks``, by round, from :func:`jax_perturb_masks`).
+    Returns ``(jax hook, port hook)``."""
+    m, spn, n = params["n"] * params["services_per_node"], \
+        params["services_per_node"], params["n"]
+
+    def jax_hook(state, key, now):
+        round_idx = now // round_ticks
+        active = (round_idx >= start) & (round_idx < end)
+        owner = jnp.arange(m, dtype=jnp.int32) // spn
+        cols = jnp.arange(m, dtype=jnp.int32)
+        churn = jax.random.bernoulli(key, prob, (m,))
+        own = state.known[owner, cols]
+        flip = churn & active & (owner < n // 2) & \
+            (jax_status.unpack_ts(own) > 0) & state.node_alive[owner]
+        new_val = jnp.where(flip, jax_status.pack(now, jnp.where(
+            jax_status.unpack_status(own) == ALIVE, TOMBSTONE, ALIVE)), own)
+        known = state.known.at[owner, cols].set(new_val)
+        sent = state.sent.at[jnp.where(flip, owner, n), cols].set(
+            jnp.int8(0), mode="drop")
+        return dataclasses.replace(state, known=known, sent=sent)
+
+    def port_hook(state, now):
+        round_idx = now // round_ticks
+        if not start <= round_idx < end:
+            return state
+        owner = torch.arange(m) // spn
+        cols = torch.arange(m)
+        own = state.known[owner, cols]
+        flip = masks[round_idx] & (owner < n // 2) & \
+            (unpack_ts(own) > 0) & state.node_alive[owner]
+        new_status = torch.where(unpack_status(own) == ALIVE, TOMBSTONE,
+                                 ALIVE)
+        state.known[owner, cols] = torch.where(flip, pack(now, new_status),
+                                               own)
+        state.sent[owner[flip], cols[flip]] = 0
+        return state
+
+    return jax_hook, port_hook
+
+
+def chaos_option_kwargs(option, topo, round_ticks, key, n):
+    """``(reference kwargs, port kwargs)`` that switch ``option`` on: a
+    hook toggling the liveness of the nodes a reference draw picks (the
+    port's replays the masks), a cut of the ring into halves, or the
+    halves as sides."""
+    side = (np.arange(n) >= n // 2).astype(np.int32)
+    if option == "node_side":
+        return dict(node_side=side), dict(node_side=side)
+    if option == "cut_mask":
+        cut = jax_topology.partition_mask(topo, side)
+        return dict(cut_mask=cut), dict(cut_mask=cut)
+    masks = jax_perturb_masks(key, 0, 2, (n,), 0.25)
+
+    def jax_hook(state, k, now):
+        flip = jax.random.bernoulli(k, 0.25, (n,))
+        return dataclasses.replace(state, node_alive=state.node_alive ^ flip)
+
+    def port_hook(state, now):
+        return dataclasses.replace(
+            state, node_alive=state.node_alive ^ masks[now // round_ticks])
+
+    return dict(perturb=jax_hook), dict(perturb=port_hook)
