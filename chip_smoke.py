@@ -10,7 +10,8 @@ sparse-frontier and software-pipelined rounds, and the exact
 record-level model's dense round — the bench's headline ``value``
 workload — with its execution modes and over node shards, the chaos
 round and the partition hooks (config 5 and config 6 of
-``sidecar_tpu/sim/scenarios.py``), plus the scatter experiment of
+``sidecar_tpu/sim/scenarios.py``), the scenario fleet of all three
+families, plus the scatter experiment of
 ``benchmarks/pallas_scatter.py``:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
@@ -156,7 +157,24 @@ round and the partition hooks (config 5 and config 6 of
    with the cut and the sides, fused equal to unfused equal to the CPU
    on ``mesh2d(64, 64)``, the compressed twin at d = 4 (``ring``,
    ``all_to_all``) equal to one device, and ``ShardedSim`` at d = 4
-   (every mode) equal to d = 1 on ``mesh2d(32, 32)``.
+   (every mode) equal to d = 1 on ``mesh2d(32, 32)``;
+14. fleet — the scenario fleet (``sidecar_tpu_torch/fleet``), four parts,
+   each its own line: (a) ``benchmarks/sweep.py``'s 64-point grid
+   (push-pull × suspicion × loss × limit) as one batch at n = 1,024 × 10
+   services, 100 rounds: rounds/s and scenarios/s of the batch, peak
+   memory, a 5-round profile and each part of a round alone, the same
+   64 points as unbatched ``ExactSim`` runs from the same generators
+   (every row equal; the sequential wall and the ratio), the scatter-max
+   kernel held against its plain version on a fleet round's own batched
+   triples (dropped rows at ``S·N``), and the run with early exit (rounds
+   saved, host reads); (b) four chaos scenarios (fault seeds 7–10) under
+   the config6-shaped plan at n = 4,096 × 10, each row equal to its
+   unbatched ``ChaosExactSim`` run, rings and counters included; (c)
+   eight north-star scenarios of the compressed model (the fused publish
+   gather once per scenario a round), two rows equal to their unbatched
+   runs, and the kernel held on one scenario's slice of the stacked
+   cache; (d) a small batch of each family card against CPU, with and
+   without early exit.
 
 Each phase prints one JSON line; then the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -174,7 +192,7 @@ import time
 
 PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
           "north_star", "sharded", "scatter", "exact_lockstep", "exact",
-          "exact_modes", "telemetry", "sharded_exact", "chaos")
+          "exact_modes", "telemetry", "sharded_exact", "chaos", "fleet")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
@@ -3943,6 +3961,594 @@ def phase_chaos(n=4096, cpu_n=1024):
     return all_counts, {"scatter_max_apply": scatter_err}
 
 
+# -- phase 14: the scenario fleet ------------------------------------------------
+
+FLEET_ROUNDS = 100
+FLEET_CPU_ROUNDS = 20
+FLEET_COMPRESSED_SCENARIOS = 8
+
+
+def sweep_grid_axes() -> dict:
+    """``benchmarks/sweep.py``'s 64-point grid (``sweep_axes``): push-pull
+    1/2/4/8 s × suspicion 0/2 s × loss 0/0.05/0.1/0.2 × limit 0/8."""
+    return {"push_pull_interval_s": [1.0, 2.0, 4.0, 8.0],
+            "suspicion_window_s": [0.0, 2.0],
+            "drop_prob": [0.0, 0.05, 0.1, 0.2],
+            "retransmit_limit": [0, 8]}
+
+
+class _FleetProfiled:
+    """What :func:`profile_rounds` asks of a sim, for a fleet, whose
+    rounds draw from its own generators."""
+
+    def default_generator(self, seed):
+        return None
+
+    def draw(self, generator, round_idx):
+        return round_idx
+
+
+def fleet_profile(fleet, state, rounds=5, **kw):
+    """:func:`profile_rounds` of ``rounds`` fleet rounds from a copy of
+    ``state``; ``kw`` goes to ``FleetSim.run`` (the timed run's
+    convergence cadence)."""
+    import types
+
+    from sidecar_tpu_torch.fleet.engine import clone_batched
+
+    def drive(st, draws):
+        fleet.run(clone_batched(st.state), len(draws), **kw)
+
+    return profile_rounds(_FleetProfiled(),
+                          types.SimpleNamespace(round_idx=0, state=state),
+                          rounds, drive=drive)
+
+
+def fleet_breakdown(fleet, state, iters=3) -> dict:
+    """ms of each part of one fleet round from ``state``, each alone
+    (CUDA events, the median of ``iters``): the pre-round census, the
+    S scenarios' draws (host), the batched round (on a copy of the
+    state) and the convergence sample."""
+    import torch
+
+    from sidecar_tpu_torch.fleet.engine import clone_batched, state_rounds
+
+    b = fleet.batch
+    idx = list(range(b.size))
+    r = state_rounds(state)[0] + 1
+
+    def timed(fn):
+        out = []
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(stop))
+        return sorted(out)[len(out) // 2]
+
+    t0 = time.perf_counter()
+    draws = [fleet.draw(i, r) for i in idx]
+    faults = [fleet.fault_draw(i, r) if fleet.family == "chaos" else None
+              for i in idx]
+    torch.cuda.synchronize()
+    draws_ms = (time.perf_counter() - t0) * 1e3
+    rounds = []
+    for _ in range(iters):
+        sub = clone_batched(state)
+        rounds.append(timed(lambda: fleet._step(sub, idx, draws,
+                                                faults)))
+        del sub
+    return {"census_ms": timed(lambda: fleet._census(state, idx)),
+            "draws_host_ms": draws_ms,
+            "round_ms": sorted(rounds)[len(rounds) // 2],
+            "convergence_ms": timed(lambda: fleet.convergence(state))}
+
+
+def fleet_scatter_point(fleet, state) -> tuple:
+    """K4a on one fleet round's own batched triples: the round from a
+    copy of ``state`` hands ``apply_updates`` its deliveries and announce
+    over the ``[S·N, M]`` view, dropped rows at ``S·N``; on copies of
+    the pre-scatter ``known``/``sent`` the kernel is held against its
+    plain version and both are timed in turns.  Returns ``(launch
+    counts of the round, fields)``."""
+    import torch
+
+    from sidecar_tpu_torch.fleet.engine import clone_batched
+    from sidecar_tpu_torch.ops import gossip as gossip_ops
+    from sidecar_tpu_torch.ops.kernels import scatter_max as sm
+
+    taken = []
+    apply = gossip_ops.apply_updates
+
+    def watch(known, sent, rows, cols, vals, adv):
+        taken.append((known.clone(), sent.clone(), rows, cols, vals, adv))
+        return apply(known, sent, rows, cols, vals, adv)
+
+    reset_launches()
+    gossip_ops.apply_updates = watch
+    try:
+        fleet.run(clone_batched(state), 1, curve=False)
+    finally:
+        gossip_ops.apply_updates = apply
+    torch.cuda.synchronize()
+    counts = launches()
+    known, sent, rows, cols, vals, adv = taken[0]
+    s_n = known.shape[0]
+    want_k, want_s = known.clone(), sent.clone()
+    sm.scatter_max_apply_torch(want_k, rows, cols, vals, want_s, adv)
+    got_k, got_s = known, sent
+    sm.scatter_max_apply_cuda(got_k, rows, cols, vals, got_s, adv)
+    torch.cuda.synchronize()
+    err = max_abs_diff([got_k, got_s], [want_k, want_s])
+    equal = torch.equal(got_k, want_k) and torch.equal(got_s, want_s)
+    turns = paired_ms({
+        "ms": lambda: sm.scatter_max_apply_cuda(got_k, rows, cols, vals,
+                                                got_s, adv),
+        "plain_ms": lambda: sm.scatter_max_apply_torch(want_k, rows, cols,
+                                                       vals, want_s, adv)})
+    return counts, dict(
+        view_rows=s_n, updates=int(rows.numel()),
+        sentinel_rows=int((rows == s_n).sum()),
+        rows_beyond_view=int((rows > s_n).sum()),
+        advanced=int(adv.sum()), max_abs_err=err, equal=equal, **turns)
+
+
+def timed_fleet_run(fleet, rounds, **kw):
+    """One fleet run from a fresh state on fresh generators, with the
+    peak memory and the launches; returns ``(run, counts, peak)``."""
+    import torch
+
+    fleet.generators = fleet.batch.generators()
+    state = fleet.init_states()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    run = fleet.run(state, rounds, **kw)
+    torch.cuda.synchronize()
+    return run, launches(), torch.cuda.max_memory_allocated()
+
+
+def fleet_exact_grid(n=1024, rounds=FLEET_ROUNDS):
+    """The 64-point grid as one batch (``benchmarks/sweep.py``'s: the
+    complete graph, ``TimeConfig(refresh_interval_s=10_000)``, seed 0 at
+    every point) at n × 10 services, fanout 3, budget 15: the batched
+    run, the same points as 64 unbatched ``ExactSim`` runs from the same
+    generators (each row equal, the sequential wall beside the
+    batch's), a 5-round profile, K4a on a fleet round's own triples, and
+    the run with early exit.  Returns ``(launch counts, line, ok, K4a's
+    error)``."""
+    import torch
+
+    from sidecar_tpu_torch.fleet import FleetSim, ScenarioBatch, expand_grid
+    from sidecar_tpu_torch.fleet.engine import scenario_state
+    from sidecar_tpu_torch.models.exact import ExactSim, SimParams
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+
+    specs = expand_grid(sweep_grid_axes(), base={"seed": 0})
+    p = SimParams(n=n, services_per_node=10, fanout=3, budget=15)
+    batch = ScenarioBatch.build(specs, p,
+                                TimeConfig(refresh_interval_s=10_000.0))
+    s_n = batch.size
+    all_counts, checks = [], {}
+
+    def check(label, ok, counts, **info):
+        all_counts.append(counts)
+        checks[label] = dict(info, launches=counts, ok=bool(ok))
+
+    fleet = FleetSim(batch)
+    timed_fleet_run(fleet, 5, curve=False)      # warm-up
+    run, counts, peak = timed_fleet_run(fleet, rounds, eps=0.01)
+    check("batched", counts == expected(scatter_max_apply=rounds)
+          and bool(torch.isfinite(torch.as_tensor(run.convergence)).all()),
+          counts, rounds=rounds)
+    # Every live scenario shares the round index, so an early-exit run
+    # scatters once for each round it runs at all.
+    stop, stop_counts, _ = timed_fleet_run(fleet, rounds, eps=0.01,
+                                           stop=True)
+    saved = int(s_n * rounds - stop.rounds.sum())
+    live_diffs = {specs[i].name: exact_fields_differ(
+        scenario_state(stop.final_states, i),
+        scenario_state(run.final_states, i))
+        for i in range(s_n) if stop.rounds[i] == rounds}
+    live_diffs = {k: v for k, v in live_diffs.items() if v}
+    # The unbatched runs stop at each frozen row's freeze round, are
+    # compared there, and go on to the horizon.
+    gens = batch.generators()
+    diffs, frozen_diffs, conv_err, seq_s = {}, {}, 0.0, 0.0
+    reset_launches()
+    for i in range(s_n):
+        period, phase = batch.scenario_cadence(i)
+        sim = ExactSim(batch.scenario_params(i), fleet.topo,
+                       batch.scenario_timecfg(i), tick_period=period,
+                       tick_phase=phase)
+        final = sim.init_state()
+        convs = []
+        for seg in sorted({int(stop.rounds[i]), rounds}):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final, conv = sim.run(final, seg - final.round_idx,
+                                  generator=gens[i])
+            torch.cuda.synchronize()
+            seq_s += time.perf_counter() - t0
+            convs.append(conv)
+            if seg < rounds:
+                d = exact_fields_differ(
+                    scenario_state(stop.final_states, i), final)
+                if d:
+                    frozen_diffs[specs[i].name] = d
+        conv = torch.cat(convs)
+        d = exact_fields_differ(scenario_state(run.final_states, i), final)
+        if d:
+            diffs[specs[i].name] = d
+        conv_err = max(conv_err, float(
+            (conv.cpu() - torch.as_tensor(run.convergence[:, i])).abs()
+            .max()))
+        del sim, final
+    counts = launches()
+    check("rows_equal_unbatched_runs", not diffs and conv_err <= 1e-6
+          and counts == expected(scatter_max_apply=s_n * rounds), counts,
+          field_diffs=diffs, conv_max_abs_err=conv_err)
+    frozen = int((stop.rounds < rounds).sum())
+    check("early_exit", stop.eps_round == run.eps_round
+          and 0 < frozen < s_n and not live_diffs and not frozen_diffs
+          and stop_counts == expected(
+              scatter_max_apply=int(stop.rounds.max())), stop_counts,
+          rounds_saved=saved, host_reads=stop.host_reads, frozen=frozen,
+          crossed=sum(e is not None for e in stop.eps_round),
+          live_rows_differ=live_diffs, frozen_rows_differ=frozen_diffs,
+          wall_s=stop.wall_seconds, last_round_run=int(stop.rounds.max()))
+    del stop
+    profile = fleet_profile(fleet, run.final_states)
+    breakdown = fleet_breakdown(fleet, run.final_states)
+    counts, scatter = fleet_scatter_point(fleet, run.final_states)
+    check("scatter_max_apply_on_fleet_triples", scatter["equal"]
+          and scatter["sentinel_rows"] > 0
+          and not scatter["rows_beyond_view"]
+          and counts == expected(scatter_max_apply=1), counts, **scatter)
+    wall, full_eps = run.wall_seconds, run.eps_round
+    del run
+    line = {"part": "exact_grid", "scenarios": s_n, "n": n, "m": p.m,
+            "rounds": rounds,
+            "state_bytes": s_n * n * p.m * 5,
+            "batched_wall_s": wall, "rounds_per_s": rounds / wall,
+            "scenarios_per_s": s_n / wall,
+            "sequential_wall_s": seq_s, "ratio_vs_sequential": seq_s / wall,
+            "max_memory_allocated": peak, "eps_round": full_eps,
+            "breakdown": breakdown, "profile": profile, "checks": checks}
+    return all_counts, line, all(c["ok"] for c in checks.values()), \
+        scatter["max_abs_err"]
+
+
+def fleet_chaos(n=4096, rounds=FLEET_ROUNDS):
+    """Four scenarios under the config6-shaped plan of the ``chaos``
+    phase (its FaultPlan; the fleet has no adversary) at the ``value``
+    size, the defences on, fault seeds 7–10 (one lossy, one churny):
+    the batched run, and each row equal to its unbatched
+    ``ChaosExactSim`` run, rings and counters included."""
+    import torch
+
+    from sidecar_tpu_torch.chaos import ChaosExactSim
+    from sidecar_tpu_torch.fleet import (
+        FleetSim,
+        ScenarioBatch,
+        ScenarioSpec,
+        churn_seed,
+        restart_churn_perturb,
+    )
+    from sidecar_tpu_torch.fleet.engine import scenario_state
+    from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+    plan, _ = chaos_value_plan(n)
+    specs = [ScenarioSpec(name="fs7", seed=1, fault_seed=7),
+             ScenarioSpec(name="fs8", seed=2, fault_seed=8),
+             ScenarioSpec(name="fs9-lossy", seed=3, fault_seed=9,
+                          drop_prob=0.05),
+             ScenarioSpec(name="fs10-churny", seed=4, fault_seed=10,
+                          churn_prob=0.002)]
+    p = SimParams(n=n, services_per_node=10, fanout=3, budget=15)
+    topo = erdos_renyi(n, avg_degree=8.0, seed=3)
+    batch = ScenarioBatch.build(specs, p, chaos_time(), plan=plan)
+    fleet = FleetSim(batch, topo)
+    all_counts, checks = [], {}
+    run, counts, peak = timed_fleet_run(fleet, rounds)
+    all_counts.append(counts)
+    checks["batched"] = dict(ok=counts == expected(
+        scatter_max_apply=rounds), launches=counts)
+    gens = batch.generators()
+    diffs, seq_s, injections = {}, 0.0, []
+    reset_launches()
+    for i, spec in enumerate(specs):
+        pi = batch.scenario_params(i)
+        hook = None if not spec.churn_prob else restart_churn_perturb(
+            pi, prob=spec.churn_prob, seed=churn_seed(spec.seed))
+        sim = ChaosExactSim(pi, topo, batch.scenario_timecfg(i),
+                            batch.scenario_plan(i), perturb=hook)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, conv = sim.run(sim.init_state(), rounds, generator=gens[i])
+        torch.cuda.synchronize()
+        seq_s += time.perf_counter() - t0
+        d = chaos_fields_differ(scenario_state(run.final_states, i), final)
+        err = float((conv.cpu() - torch.as_tensor(run.convergence[:, i]))
+                    .abs().max())
+        if d or err > 1e-6:
+            diffs[spec.name] = dict(fields=d, conv_max_abs_err=err)
+        injections.append(sim.injection_counts(final))
+        del sim, final
+    counts = launches()
+    all_counts.append(counts)
+    checks["rows_equal_unbatched_runs"] = dict(
+        ok=not diffs and counts == expected(
+            scatter_max_apply=len(specs) * rounds),
+        launches=counts, diffs=diffs)
+    profile = fleet_profile(fleet, run.final_states)
+    breakdown = fleet_breakdown(fleet, run.final_states)
+    wall = run.wall_seconds
+    line = {"part": "chaos", "scenarios": len(specs), "n": n, "m": p.m,
+            "rounds": rounds, "batched_wall_s": wall,
+            "rounds_per_s": rounds / wall,
+            "scenarios_per_s": len(specs) / wall,
+            "sequential_wall_s": seq_s, "ratio_vs_sequential": seq_s / wall,
+            "max_memory_allocated": peak, "injection_counts": injections,
+            "convergence_at_end": [float(c) for c in run.convergence[-1]],
+            "breakdown": breakdown, "profile": profile, "checks": checks}
+    return all_counts, line, all(c["ok"] for c in checks.values())
+
+
+def fleet_compressed(topo, rounds=FLEET_ROUNDS,
+                     scenarios=FLEET_COMPRESSED_SCENARIOS, every=10):
+    """``scenarios`` north-star scenarios as one batch (ER(8, seed 3),
+    n = 100,000, M = 1,000,000, K = 256), each with its own seed and a
+    0.1 % mint burst, limits 0/8 and push-pull 1/2 s: the fleet run (K1
+    once per scenario a round), every row equal to its unbatched
+    ``CompressedSim`` run from the same generator (their summed wall is
+    the sequential baseline), and K1 on one scenario's slice of the
+    stacked cache.  Returns ``(counts, line, ok, K1's error)``."""
+    import torch
+
+    from sidecar_tpu_torch.fleet import FleetSim, ScenarioBatch, ScenarioSpec
+    from sidecar_tpu_torch.fleet.engine import scenario_state
+    from sidecar_tpu_torch.models.compressed import CompressedSim
+
+    p = bench_params(topo.n)
+    specs = [ScenarioSpec(name=f"s{i}", seed=i + 1, mint_frac=0.001,
+                          retransmit_limit=8 * (i % 2),
+                          push_pull_interval_s=1.0 + (i // 2) % 2)
+             for i in range(scenarios)]
+    batch = ScenarioBatch.build(specs, p, bench_time(), family="compressed")
+    fleet = FleetSim(batch, topo)
+    all_counts, checks, failures = [], {}, []
+    run, counts, peak = timed_fleet_run(fleet, rounds, conv_every=every)
+    all_counts.append(counts)
+    checks["batched"] = dict(ok=counts == expected(
+        fused_publish_gather=scenarios * rounds), launches=counts,
+        host_reads=run.host_reads)
+    gens = batch.generators()
+    diffs, seq_s = {}, 0.0
+    reset_launches()
+    for i in range(scenarios):
+        sim = CompressedSim(batch.scenario_params(i), topo,
+                            batch.scenario_timecfg(i))
+        st = sim.mint(sim.init_state(), batch.mint_slots(i),
+                      specs[i].mint_tick)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, conv = sim.run(st, rounds, every, generator=gens[i])
+        torch.cuda.synchronize()
+        seq_s += time.perf_counter() - t0
+        d = states_equal(scenario_state(run.final_states, i), final)
+        err = float((conv.cpu() - torch.as_tensor(run.convergence[:, i]))
+                    .abs().max())
+        if d or err > 1e-6:
+            diffs[specs[i].name] = dict(fields=d, conv_max_abs_err=err)
+        del sim, st, final
+    counts = launches()
+    all_counts.append(counts)
+    checks["rows_equal_unbatched_runs"] = dict(
+        ok=not diffs and counts == expected(
+            fused_publish_gather=scenarios * rounds), launches=counts,
+        rows=scenarios, diffs=diffs)
+    # K1 on scenario 0's slice of the stacked cache, with its own draw.
+    st0 = run.final_states
+    h = batch.knobs.host[0]
+    r = st0.round_idx[0] + 1
+    sim0 = fleet.scenario_sims[0]
+    src = sim0._sample(scenario_state(st0, 0), fleet.draw(0, r),
+                       r).contiguous()
+    cache = (st0.cache_val[0], st0.cache_slot[0], st0.cache_sent[0])
+    gkw = dict(stale_ticks=h.stale_ticks, budget=min(p.budget, p.cache_lines),
+               limit=h.limit, fanout=p.fanout, cache_lines=p.cache_lines)
+    k1 = fused_gather_point("fleet scenario 0", cache, src,
+                            r * batch.timecfg.round_ticks, gkw, failures)
+    checks["fused_publish_gather_on_scenario_slice"] = dict(
+        ok=not failures, failures=failures, **k1)
+    profile = fleet_profile(fleet, st0, conv_every=5)
+    breakdown = fleet_breakdown(fleet, st0)
+    wall = run.wall_seconds
+    line = {"part": "compressed", "scenarios": scenarios, "n": p.n,
+            "m": p.m, "k": p.cache_lines, "rounds": rounds,
+            "batched_wall_s": wall, "rounds_per_s": rounds / wall,
+            "scenarios_per_s": scenarios / wall,
+            "sequential_wall_s": seq_s, "ratio_vs_sequential": seq_s / wall,
+            "max_memory_allocated": peak,
+            "convergence_at_end": [float(c) for c in run.convergence[-1]],
+            "breakdown": breakdown, "profile": profile, "checks": checks}
+    return all_counts, line, all(c["ok"] for c in checks.values()), \
+        k1["max_abs_err"]
+
+
+def fleet_small_batch(family, device, n):
+    """A three-scenario batch of ``family`` (exact, chaos or compressed)
+    at ``n`` nodes on ``device``."""
+    import dataclasses
+
+    from sidecar_tpu_torch.chaos import EdgeFault, FaultPlan, NodeFault
+    from sidecar_tpu_torch.fleet import ScenarioBatch, ScenarioSpec
+    from sidecar_tpu_torch.models.compressed import CompressedParams
+    from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+
+    base = TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
+    quick = dict(push_pull_interval_s=1.0, suspicion_window_s=1.0,
+                 alive_lifespan_s=2.0, sweep_interval_s=0.4)
+    plan = None
+    if family == "compressed":
+        p = CompressedParams(n=n, services_per_node=4, cache_lines=32)
+        specs = [ScenarioSpec(name="b", seed=2, mint_frac=0.02,
+                              drop_prob=0.1, retransmit_limit=8),
+                 ScenarioSpec(name="a", seed=1, mint_frac=0.02),
+                 ScenarioSpec(name="c", seed=3, mint_frac=0.05, **quick)]
+    else:
+        p = SimParams(n=n, services_per_node=4, fanout=3, budget=8)
+        specs = [ScenarioSpec(name="a", seed=1),
+                 ScenarioSpec(name="c", seed=3, future_fudge_s=0.5,
+                              origin_budget=1, **quick),
+                 ScenarioSpec(name="b", seed=2, drop_prob=0.1,
+                              churn_prob=0.02, retransmit_limit=8)]
+        if family == "chaos":
+            a, b = tuple(range(n // 2)), tuple(range(n // 2, n))
+            plan = FaultPlan(
+                seed=5,
+                edges=(EdgeFault(src=a, dst=b, drop_prob=0.2),
+                       EdgeFault(src=b, dst=a, delay_rounds=2,
+                                 delay_prob=0.2, duplicate_prob=0.1)),
+                nodes=(NodeFault(nodes=(3, 4), start_round=4, end_round=9,
+                                 kind="crash"),))
+            specs = [dataclasses.replace(s, fault_seed=5 + i)
+                     for i, s in enumerate(specs)]
+    batch = ScenarioBatch.build(
+        specs, p, base, family="compressed" if family == "compressed"
+        else "exact", plan=plan, device=device)
+    return batch
+
+
+def fleet_card_against_cpu(n=256, rounds=FLEET_CPU_ROUNDS):
+    """A small batch of each family on the card and on the CPU from one
+    set of inputs drawn on the CPU (round draws, churn masks, fault
+    draws), with and without early exit: every field, the stats and the
+    curves equal; K4a once a round, or K1 once per scenario a round.
+    ``eps`` freezes the middle scenario mid-run while the others run on
+    (its rows are then not a run of consecutive positions), so the early
+    exit's subset rounds are held to the CPU too."""
+    import numpy as np
+    import torch
+
+    from sidecar_tpu_torch.fleet import FleetSim, restart_churn_perturb
+
+    out, all_counts = {}, []
+    for family in ("exact", "chaos", "compressed"):
+        cpu_b = fleet_small_batch(family, "cpu", n)
+        gpu_b = fleet_small_batch(family, DEVICE, n)
+        probe = FleetSim(cpu_b)
+        draws = [[probe.draw(i, r) for r in range(1, rounds + 1)]
+                 for i in range(cpu_b.size)]
+        faults = None if cpu_b.plan is None else [
+            [probe.fault_draw(i, r) for r in range(1, rounds + 1)]
+            for i in range(cpu_b.size)]
+        gen = torch.Generator().manual_seed(4)
+        p = cpu_b.params
+        masks = [{r: torch.rand(p.m, generator=gen) < s.churn_prob
+                  for r in range(1, rounds + 1)} if s.churn_prob else None
+                 for s in cpu_b.specs]
+        hook = None if family == "compressed" else \
+            restart_churn_perturb(p, masks=masks)
+        eps = 0.003 if family == "compressed" else 0.45
+        for stop in (False, True):
+            cpu = FleetSim(cpu_b, perturb=hook)
+            gpu = FleetSim(gpu_b, perturb=hook)
+            t0 = time.perf_counter()
+            a = cpu.run(cpu.init_states(), rounds, eps=eps, stop=stop,
+                        draws=draws, fault_draws=faults)
+            cpu_s = time.perf_counter() - t0
+            reset_launches()
+            b = gpu.run(gpu.init_states(), rounds, eps=eps, stop=stop,
+                        draws=draws, fault_draws=faults)
+            torch.cuda.synchronize()
+            counts = launches()
+            all_counts.append(counts)
+            diffs = fleet_leaves_differ(a.final_states, b.final_states)
+            err = float(abs(a.convergence - b.convergence).max())
+            # The live scenarios share the round index: one K4a launch
+            # for each round run at all.
+            want = (expected(fused_publish_gather=int(a.rounds.sum()))
+                    if family == "compressed" else
+                    expected(scatter_max_apply=int(a.rounds.max())))
+            mixed = not stop or (min(a.rounds) < rounds == max(a.rounds))
+            out[f"{family}{'_stop' if stop else ''}"] = dict(
+                ok=not diffs and err <= 1e-6 and counts == want and mixed
+                and list(a.rounds) == list(b.rounds)
+                and a.eps_round == b.eps_round
+                and np.array_equal(a.exchange_bytes, b.exchange_bytes)
+                and np.array_equal(a.frontier_max, b.frontier_max),
+                field_diffs=diffs, conv_max_abs_err=err,
+                rounds=[int(x) for x in a.rounds], launches=counts,
+                cpu_s=cpu_s)
+    return all_counts, out
+
+
+def fleet_leaves_differ(a, b) -> list:
+    """Names of the fields (rings and counters included) where two
+    batched fleet states differ, compared on the CPU."""
+    import torch
+
+    from sidecar_tpu_torch import convert
+
+    def flat(x, prefix=""):
+        out = {}
+        for k, v in x.items():
+            if isinstance(v, dict):
+                out.update(flat(v, k + "."))
+            elif isinstance(v, list):
+                for i, ring in enumerate(v):
+                    for j, t in enumerate(ring):
+                        out[f"ring{i}.{j}"] = t
+            else:
+                out[prefix + k] = v
+        return out
+
+    x = flat(convert.fleet_state_to_numpy(a))
+    y = flat(convert.fleet_state_to_numpy(b))
+    return [k for k in x if not torch.equal(torch.as_tensor(x[k]),
+                                            torch.as_tensor(y[k]))]
+
+
+def phase_fleet(topo, n=1024, chaos_n=4096):
+    """The fleet phase: the exact grid, the chaos and compressed fleets,
+    and card against CPU, each its own line.  Returns the launch counts
+    of every counted run and each kernel's worst difference on the
+    fleet's own inputs."""
+    all_counts, errs = [], {}
+    t0 = time.perf_counter()
+    counts, line, ok, errs["scatter_max_apply"] = fleet_exact_grid(n)
+    all_counts += counts
+    emit({"phase": "fleet", **line, "ok": ok})
+    if not ok:
+        raise SystemExit("fleet phase failed (exact_grid)")
+    counts, line, ok = fleet_chaos(chaos_n)
+    all_counts += counts
+    emit({"phase": "fleet", **line, "ok": ok})
+    if not ok:
+        raise SystemExit("fleet phase failed (chaos)")
+    counts, line, ok, errs["fused_publish_gather"] = fleet_compressed(topo)
+    all_counts += counts
+    emit({"phase": "fleet", **line, "ok": ok})
+    if not ok:
+        raise SystemExit("fleet phase failed (compressed)")
+    counts, checks = fleet_card_against_cpu()
+    all_counts += counts
+    ok = all(c["ok"] for c in checks.values())
+    emit({"phase": "fleet", "part": "card_against_cpu", "checks": checks,
+          "phase_s": time.perf_counter() - t0, "ok": ok})
+    if not ok:
+        raise SystemExit("fleet phase failed (card_against_cpu)")
+    return all_counts, errs
+
+
 def row_gather_variants(k: int = 256) -> dict:
     """Rows a pass → the ``(source, macro definitions)`` build of the
     row-gather kernel with that window."""
@@ -4092,7 +4698,7 @@ def main(argv=None) -> int:
               "ptxas": {k: [l.strip() for l in build.build_log(k).splitlines()
                             if "ptxas" in l or "spill" in l] for k in libs}})
     topo = fused = None
-    if phases & {"north_star", "sharded", "telemetry"}:
+    if phases & {"north_star", "sharded", "telemetry", "fleet"}:
         from sidecar_tpu_torch.ops.topology import erdos_renyi
 
         # One graph for the kernels' ER(8) peers and both run phases:
@@ -4112,7 +4718,7 @@ def main(argv=None) -> int:
     # The main paths' runs, each with its counts set to 0 just before it
     # and read just after.
     runs = []
-    if topo is not None:
+    if phases & {"north_star", "sharded", "telemetry"}:
         counts, reference, fused = phase_north_star(topo, graph_s,
                                                     **NORTH_STAR_RUN)
         runs += counts
@@ -4130,7 +4736,7 @@ def main(argv=None) -> int:
         runs.append(phase_exact_modes(args.exact_n))
     if "telemetry" in phases:
         runs += phase_telemetry(topo, fused, args.exact_n)
-    del topo, fused
+    del fused
     if "sharded_exact" in phases:
         runs += phase_sharded_exact(args.exact_n,
                                     cpu_n=min(1024, args.exact_n))
@@ -4142,6 +4748,16 @@ def main(argv=None) -> int:
             if name in records:
                 records[name]["max_abs_err"] = max(
                     records[name]["max_abs_err"], err)
+    if "fleet" in phases:
+        counts, errs = phase_fleet(topo, min(1024, args.exact_n),
+                                   args.exact_n)
+        runs += counts
+        # ... and the fleet path's own.
+        for name, err in errs.items():
+            if name in records:
+                records[name]["max_abs_err"] = max(
+                    records[name]["max_abs_err"], err)
+    del topo
     if records:
         emit({"kernels": [
             {"name": f"{name}_kernel", "route": "cuda",

@@ -26,6 +26,10 @@ so each counterpart is easy to find:
 * ``chaos/plan.py``, ``chaos/adversary.py``, ``chaos/sim_inject.py`` —
   the FaultPlan and AdversaryPlan and ``ChaosExactSim``, the exact
   round under them;
+* ``fleet/batch.py``, ``fleet/rounds.py``, ``fleet/engine.py``,
+  ``fleet/grid.py`` — the scenario fleet: S scenarios of one model in
+  one batched round (``FleetSim``), with ``sim/scenarios.py``'s
+  registry and protocol-config validation;
 * ``convert.py`` — moving state, params and graphs across from the
   reference's numpy form.
 

@@ -7,6 +7,14 @@ np.asarray(value)}``.  Params and time configs travel as
 ``dataclasses.asdict`` of the reference dataclasses.  Nothing here
 imports the reference: a caller that has both sides converts through
 numpy.
+
+A reference fleet's stacked states (``FleetRun.final_states``: ``[S]``
+on every leaf) become the port's batched states
+(:func:`fleet_state_from_numpy`: ``[S]`` tensors, the round indices a
+tuple of host ints), the chaos state's rings and counters included; a
+reference ``ScenarioBatch``'s stacked knobs become the port's
+:class:`~sidecar_tpu_torch.ops.knobs.BatchedKnobs`
+(:func:`batched_knobs_from_numpy`).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from sidecar_tpu_torch.models.compressed import (
 )
 from sidecar_tpu_torch.models.exact import SimParams, SimState
 from sidecar_tpu_torch.models.timecfg import TimeConfig
+from sidecar_tpu_torch.ops import knobs as knob_ops
 from sidecar_tpu_torch.ops.topology import Topology
 
 # Field → dtype of the tensor fields of CompressedState.
@@ -114,3 +123,77 @@ def topology_from_numpy(n: int, nbrs=None, deg=None,
     return Topology(n=n, nbrs=np.asarray(nbrs, dtype=np.int32),
                     deg=np.asarray(deg, dtype=np.int32), name=name,
                     stagger=stagger, stagger_period=int(stagger_period))
+
+
+# The chaos state's counters (origin_violations is [N] a scenario).
+CHAOS_COUNTERS = ("injected_drops", "injected_delays", "injected_dups",
+                  "rejected_future", "forged_records", "rejected_budget",
+                  "origin_violations")
+
+
+def _batched(cls, dtypes, arrays: dict, device):
+    fields = tuple(f.name for f in dataclasses.fields(cls))
+    missing = set(fields) - set(arrays)
+    if missing:
+        raise ValueError(f"missing state fields: {sorted(missing)}")
+    kw = {name: torch.as_tensor(np.ascontiguousarray(arrays[name]),
+                                dtype=dtype, device=device).contiguous()
+          for name, dtype in dtypes.items()}
+    rounds = tuple(int(r) for r in np.asarray(arrays["round_idx"]).reshape(-1))
+    return cls(round_idx=rounds, **kw)
+
+
+def fleet_state_from_numpy(arrays: dict, family: str, device="cuda"):
+    """A batched fleet state from the reference fleet's stacked numpy
+    form: ``family`` ``"exact"`` (``{field: [S, …]}`` of ``SimState``),
+    ``"compressed"`` (of ``CompressedState``) or ``"chaos"`` (``{"sim":
+    the exact fields, "rings": [(rows, cols, vals) [S, d, L]], counter:
+    [S] or [S, N]}``)."""
+    if family == "exact":
+        return _batched(SimState, EXACT_STATE_DTYPES, arrays, device)
+    if family == "compressed":
+        return _batched(CompressedState, STATE_DTYPES, arrays, device)
+    if family != "chaos":
+        raise ValueError(f"unknown fleet family {family!r}")
+    from sidecar_tpu_torch.chaos.sim_inject import ChaosSimState
+
+    def i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                               device=device).contiguous()
+
+    return ChaosSimState(
+        sim=_batched(SimState, EXACT_STATE_DTYPES, arrays["sim"], device),
+        rings=tuple(tuple(i32(t) for t in ring) for ring in arrays["rings"]),
+        **{f: i32(arrays[f]) for f in CHAOS_COUNTERS})
+
+
+def fleet_state_to_numpy(state) -> dict:
+    """The inverse of :func:`fleet_state_from_numpy`: ``round_idx`` an
+    int32 ``[S]`` array."""
+    if hasattr(state, "rings"):
+        out = {"sim": fleet_state_to_numpy(state.sim),
+               "rings": [tuple(t.cpu().numpy() for t in ring)
+                         for ring in state.rings]}
+        out.update({f: getattr(state, f).cpu().numpy()
+                    for f in CHAOS_COUNTERS})
+        return out
+    return {f.name: (np.asarray(getattr(state, f.name), dtype=np.int32)
+                     if f.name == "round_idx"
+                     else getattr(state, f.name).detach().cpu().numpy())
+            for f in dataclasses.fields(state)}
+
+
+def batched_knobs_from_numpy(fields: dict, device="cuda"):
+    """The port's :class:`BatchedKnobs` from a reference ``ScenarioBatch``'s
+    stacked knobs, ``{field: [S] array}`` of its ``RoundKnobs``.  The
+    float knobs arrive as the reference stacks them, float32."""
+    s = len(np.asarray(fields["limit"]).reshape(-1))
+    host = []
+    for i in range(s):
+        kw = {}
+        for name in knob_ops.KNOB_FIELDS:
+            v = np.asarray(fields[name]).reshape(-1)[i]
+            kw[name] = float(v) if name in ("keep_prob", "churn_prob") \
+                else int(v)
+        host.append(knob_ops.RoundKnobs(**kw))
+    return knob_ops.BatchedKnobs.stack(host, device)

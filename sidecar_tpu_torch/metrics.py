@@ -20,7 +20,12 @@ The port records under the reference's names:
   ``adversary.sim.forgedRecords``, ``defense.sim.rejectedBudget``,
   ``defense.sim.originViolations`` and ``defense.sim.quarantinedOrigins``
   — a chaos run's counter deltas (``chaos/sim_inject.py``), read on the
-  host once a run.
+  host once a run;
+* ``fleet.batches``, ``fleet.scenarios``, ``fleet.rounds`` and
+  ``fleet.rounds_saved`` — a fleet run's accounting (``fleet/engine.py``,
+  host counts), and on a chaos fleet the batch's injection totals under
+  ``chaos.sim.droppedPackets``, ``chaos.sim.delayedPackets`` and
+  ``chaos.sim.duplicatedPackets``, read on the host once a run.
 
 Every update is host-side: it reads only values the caller already
 holds on the host (the chaos counters: one read at the end of a run),

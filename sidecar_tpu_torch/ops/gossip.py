@@ -210,9 +210,13 @@ def sample_peers(peer_slot, n: int, *, nbrs=None, node_alive=None,
 
 # -- the exact model's round --------------------------------------------------
 
-def eligible_mask(sent, limit: int):
+def eligible_mask(sent, limit):
     """True where a record still has transmissions left
-    (TransmitLimited)."""
+    (TransmitLimited).  ``limit`` is an int, or the fleet's per-row int32
+    tensor, which the comparison promotes to without an int32 copy of
+    ``sent``."""
+    if isinstance(limit, torch.Tensor):
+        return sent < limit
     return sent.to(I32) < limit
 
 
@@ -423,7 +427,7 @@ def record_transmissions(sent, svc_idx, msg, fanout: int, row_ids=None,
 
 def push_pull(known, partner, *, now_tick, stale_ticks: int,
               node_alive=None, future_ticks=None, now_push=None,
-              tomb_budget=None, owner=None):
+              tomb_budget=None, owner=None, row_ids=None):
     """Anti-entropy: node ``i`` exchanges full rows with ``partner[i]``
     (``partner[i] == i`` is no exchange; a dead end on either side
     becomes one).  Pull: merge the partner's row into ours
@@ -435,8 +439,11 @@ def push_pull(known, partner, *, now_tick, stale_ticks: int,
     each leg.  ``now_push`` is the push leg's receiver clock (the chaos
     round's per-node clocks: the pull leg admits at the initiator's
     ``now_tick``, the push leg at the partner's; each an int or an
-    ``[N, 1]`` tensor); None is ``now_tick``.  Returns the merged tensor
-    (a new one)."""
+    ``[N, 1]`` tensor); None is ``now_tick``.  ``row_ids`` (int32
+    ``[N]``) is each row's node id for the owner masks where rows are
+    not node ids (the fleet's flattened ``[S·N]`` batch, partners within
+    each scenario's block); None is the row index.  Returns the merged
+    tensor (a new one)."""
     n = known.shape[0]
     self_idx = torch.arange(n, dtype=I32, device=known.device)
     if node_alive is not None:
@@ -444,8 +451,11 @@ def push_pull(known, partner, *, now_tick, stale_ticks: int,
                               partner, self_idx)
     own_pull = own_push = None
     if tomb_budget is not None and owner is not None:
-        own_pull = owner[None, :] == partner[:, None]
-        own_push = owner[None, :] == self_idx[:, None]
+        ids, p_ids = self_idx, partner
+        if row_ids is not None:
+            ids, p_ids = row_ids, row_ids[partner.to(I64)]
+        own_pull = owner[None, :] == p_ids[:, None]
+        own_push = owner[None, :] == ids[:, None]
     pidx = partner.to(I64)
     pre_tgt = known[pidx]
     pulled = merge_packed(known, pre_tgt, now_tick, stale_ticks,

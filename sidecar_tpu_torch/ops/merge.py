@@ -24,6 +24,11 @@ from sidecar_tpu_torch.ops.status import (
     unpack_ts,
 )
 
+# The off value of a per-row budget or quarantine threshold (the fleet's
+# batched knobs, ``ops/knobs.BatchedKnobs``): per-packet suspicious ranks
+# are bounded by the message budget, so ``rank > BUDGET_OFF`` never holds.
+BUDGET_OFF = 1 << 28
+
 
 def staleness_mask(packed, now_tick: int, stale_ticks: int):
     """True where a packed record is too old to merge (``stale_ticks``

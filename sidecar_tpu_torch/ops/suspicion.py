@@ -9,11 +9,14 @@ import torch
 from sidecar_tpu_torch.ops.status import ALIVE, SUSPECT
 
 
-def announce_refute(due, st, present, suspicion: bool):
+def announce_refute(due, st, present, suspicion):
     """Fold the self-refutation into an announce: with ``suspicion``
-    (a Python bool), an owner whose own record is SUSPECT announces
-    immediately, as ALIVE.  Returns ``(due, st)``."""
-    if not suspicion:
+    (a Python bool, or the fleet's per-row bool tensor), an owner whose
+    own record is SUSPECT announces immediately, as ALIVE.  Returns
+    ``(due, st)``."""
+    if not isinstance(suspicion, torch.Tensor) and not suspicion:
         return due, st
     refute = present & (st == SUSPECT)
+    if isinstance(suspicion, torch.Tensor):
+        refute = refute & suspicion
     return due | refute, torch.where(refute, ALIVE, st)

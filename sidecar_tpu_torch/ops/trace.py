@@ -11,8 +11,9 @@ changed; ``exchange_bytes`` — ``Σ min(budget, eligible) · fanout ·
 RECORD_WIRE_BYTES``; ``sparse`` and ``overflow`` — the sparse step's
 stats; ``tombstones``, ``suspects`` — post-round census;
 ``fp_tombstones`` — cells that entered TOMBSTONE while the owner is
-alive; ``rejected_future`` — 0 without a clock fault (not ported);
-``ticked_nodes`` — alive nodes whose cadence gate fires.
+alive; ``rejected_future`` — record copies the receivers' future bound
+rejected (the chaos round's count, ``ChaosExactSim._trace_record``; 0
+elsewhere); ``ticked_nodes`` — alive nodes whose cadence gate fires.
 
 Buffer contract: ``count`` is the exact number of rounds recorded,
 rows past ``min(count, cap)`` stay zero, and ``overflow`` says

@@ -5,9 +5,16 @@ Tombstones older than the tombstone lifespan are garbage-collected; any
 other record not refreshed within its lifespan (alive, or draining) is
 tombstoned at its ORIGINAL timestamp + 1 s (the "+1 s rule").  With a
 suspicion window > 0, expired non-DRAINING records first sit SUSPECT
-at their original timestamp for the window.  The window is a Python
-int here: the reference's traced-window select belongs to the fleet
-engine, which the port does not run yet.
+at their original timestamp for the window.
+
+The knobs are Python ints (an unbatched round), or per-row tensors that
+broadcast against ``known`` (the scenario fleet's batched knobs,
+``ops/knobs.BatchedKnobs.rows``).  A tensor window is the fleet's
+per-scenario window: both forms are computed and selected elementwise on
+``window > 0`` — not the quarantine math evaluated at window 0, because
+the two differ there: the quarantine form parks a fresh expiry in
+SUSPECT for one sweep even with a zero window, where the window-0 sweep
+tombstones it at once.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ from sidecar_tpu_torch.ops.status import (
 def ttl_sweep(known, now_tick: int, *, alive_lifespan: int,
               draining_lifespan: int, tombstone_lifespan: int,
               one_second: int, suspicion_window: int = 0):
-    """Apply the lifespan sweep to an int32 packed tensor of any shape.
+    """Apply the lifespan sweep to an int32 packed tensor of any shape;
+    the lifespans and the window are ints or tensors that broadcast
+    against it.
 
     Returns ``(swept, expired)``: the updated tensor and a bool mask of
     the cells this sweep tombstoned (cells entering SUSPECT are not in
@@ -40,13 +49,15 @@ def ttl_sweep(known, now_tick: int, *, alive_lifespan: int,
     is_tomb = present & (st == TOMBSTONE)
     gc = is_tomb & (ts < now_tick - tombstone_lifespan)
 
-    if suspicion_window <= 0:
+    def plain():
         lifespan = torch.where(st == DRAINING, draining_lifespan,
                                alive_lifespan)
         expired = present & ~is_tomb & (ts < now_tick - lifespan)
         swept = torch.where(expired, pack(ts + one_second, TOMBSTONE),
                             known)
-    else:
+        return swept, expired
+
+    def quarantine():
         # Quarantine before tombstone: fresh expiries of suspectable
         # records become SUSPECT at the original ts; a SUSPECT record
         # tombstones only once the grace window has also lapsed.
@@ -60,6 +71,18 @@ def ttl_sweep(known, now_tick: int, *, alive_lifespan: int,
         swept = torch.where(to_suspect, pack(ts, SUSPECT), known)
         swept = torch.where(expired, pack(ts + one_second, TOMBSTONE),
                             swept)
+        return swept, expired
+
+    if isinstance(suspicion_window, torch.Tensor):
+        on = suspicion_window > 0
+        swept_q, expired_q = quarantine()
+        swept_p, expired_p = plain()
+        swept = torch.where(on, swept_q, swept_p)
+        expired = torch.where(on, expired_q, expired_p)
+    elif suspicion_window <= 0:
+        swept, expired = plain()
+    else:
+        swept, expired = quarantine()
 
     swept = torch.where(gc, 0, swept)
     return swept, expired

@@ -1,11 +1,13 @@
 """Tests of the port that need the card: each CUDA kernel against its
 plain PyTorch version on the same CUDA tensors, and short runs of the
-compressed model, its sharded twin and the exact model on the card
-against the same runs on the CPU.  Marked ``cuda``; each decides
+compressed model, its sharded twin, the exact model and the scenario
+fleet of each family on the card against the same runs on the CPU.  Marked ``cuda``; each decides
 inside a fixture whether a card is present and skips with the reason
 where none is.  ``python3 chip_smoke.py`` covers the same ground at the
 north-star shapes.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -826,3 +828,157 @@ def test_cut_and_sides_run_on_card_equals_cpu(card, fused):
     for name, value in convert.state_to_numpy(a).items():
         np.testing.assert_array_equal(
             convert.state_to_numpy(b)[name], value, err_msg=name)
+
+
+# -- the scenario fleet ---------------------------------------------------------
+
+
+def fleet_pair(family):
+    """A small batch of ``family`` (exact, chaos or compressed) on the
+    CPU and on the card, with one set of inputs drawn on the CPU: each
+    scenario's round draws, its churn masks and its fault draws."""
+    from sidecar_tpu_torch.chaos import EdgeFault, FaultPlan, NodeFault
+    from sidecar_tpu_torch.fleet import (
+        FleetSim,
+        ScenarioBatch,
+        ScenarioSpec,
+        restart_churn_perturb,
+    )
+
+    rounds, n = 20, 64
+    base = TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
+    plan = None
+    if family == "compressed":
+        p = CompressedParams(n=n, services_per_node=4, cache_lines=32)
+        specs = [ScenarioSpec(name="a", seed=1, mint_frac=0.05),
+                 ScenarioSpec(name="b", seed=2, mint_frac=0.05,
+                              drop_prob=0.1, retransmit_limit=8),
+                 ScenarioSpec(name="c", seed=3, mint_frac=0.1,
+                              push_pull_interval_s=1.0,
+                              suspicion_window_s=1.0, alive_lifespan_s=2.0,
+                              sweep_interval_s=0.4)]
+    else:
+        p = SimParams(n=n, services_per_node=4, fanout=3, budget=8)
+        specs = [ScenarioSpec(name="a", seed=1),
+                 ScenarioSpec(name="c", seed=3, push_pull_interval_s=1.0,
+                              suspicion_window_s=1.0, alive_lifespan_s=2.0,
+                              sweep_interval_s=0.4, future_fudge_s=0.5,
+                              origin_budget=1),
+                 ScenarioSpec(name="b", seed=2, drop_prob=0.1,
+                              churn_prob=0.02, retransmit_limit=8)]
+        if family == "chaos":
+            a, b = tuple(range(n // 2)), tuple(range(n // 2, n))
+            plan = FaultPlan(
+                seed=5,
+                edges=(EdgeFault(src=a, dst=b, drop_prob=0.2),
+                       EdgeFault(src=b, dst=a, delay_rounds=2,
+                                 delay_prob=0.2, duplicate_prob=0.1)),
+                nodes=(NodeFault(nodes=(3, 4), start_round=4, end_round=9,
+                                 kind="crash"),))
+            specs = [dataclasses.replace(s, fault_seed=5 + i)
+                     for i, s in enumerate(specs)]
+    fams = "compressed" if family == "compressed" else "exact"
+    cpu_b = ScenarioBatch.build(specs, p, base, family=fams, plan=plan,
+                                device="cpu")
+    gpu_b = ScenarioBatch.build(specs, p, base, family=fams, plan=plan)
+    cpu_probe = FleetSim(cpu_b)
+    draws = [[cpu_probe.draw(i, r) for r in range(1, rounds + 1)]
+             for i in range(len(specs))]
+    faults = None
+    if plan is not None:
+        faults = [[cpu_probe.fault_draw(i, r) for r in range(1, rounds + 1)]
+                  for i in range(len(specs))]
+    gen = torch.Generator().manual_seed(4)
+    masks = [{r: torch.rand(p.m, generator=gen) < s.churn_prob
+              for r in range(1, rounds + 1)} if s.churn_prob else None
+             for s in specs]
+    hook = restart_churn_perturb(p, masks=masks) if fams == "exact" \
+        else None
+    return (FleetSim(cpu_b, perturb=hook), FleetSim(gpu_b, perturb=hook),
+            dict(draws=draws, fault_draws=faults), rounds)
+
+
+def fleet_leaves(state):
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if f.name == "sim":
+            out.update({f"sim.{k}": x for k, x in fleet_leaves(v).items()})
+        elif f.name == "rings":
+            for i, ring in enumerate(v):
+                for j, t in enumerate(ring):
+                    out[f"ring{i}.{j}"] = t.cpu().numpy()
+        elif isinstance(v, torch.Tensor):
+            out[f.name] = v.cpu().numpy()
+        else:
+            out[f.name] = np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("family", ["exact", "chaos", "compressed"])
+@pytest.mark.parametrize("stop", [False, True])
+def test_fleet_run_on_card_equals_cpu(card, family, stop):
+    """A small fleet of each family on the card equals the same fleet on
+    the CPU from one set of inputs: every field, the stats and the
+    curves.  K4a launches once a round for the whole exact or chaos
+    batch; K1 once per scenario a round on the compressed one.  With
+    early exit ``eps`` freezes one scenario mid-run while the others run
+    on, the middle one first on the exact and chaos families."""
+    cpu, gpu, inputs, rounds = fleet_pair(family)
+    eps = 0.003 if family == "compressed" else 0.2
+    a = cpu.run(cpu.init_states(), rounds, stop=stop, eps=eps, **inputs)
+    before = (sm.scatter_max_apply_cuda.launches,
+              pg.fused_publish_gather_cuda.launches)
+    b = gpu.run(gpu.init_states(), rounds, stop=stop, eps=eps, **inputs)
+    torch.cuda.synchronize()
+    got = (sm.scatter_max_apply_cuda.launches - before[0],
+           pg.fused_publish_gather_cuda.launches - before[1])
+    want, have = fleet_leaves(a.final_states), fleet_leaves(b.final_states)
+    for name, value in want.items():
+        np.testing.assert_array_equal(have[name], value, err_msg=name)
+    np.testing.assert_array_equal(a.rounds, b.rounds)
+    assert a.eps_round == b.eps_round
+    np.testing.assert_array_equal(a.exchange_bytes, b.exchange_bytes)
+    np.testing.assert_array_equal(a.frontier_max, b.frontier_max)
+    np.testing.assert_allclose(a.convergence, b.convergence, atol=1e-6)
+    if stop:
+        assert min(a.rounds) < rounds == max(a.rounds)
+    if family == "compressed":
+        assert got == (0, int(a.rounds.sum()))
+    else:
+        # The live scenarios share the round index: one launch for each
+        # round run at all.
+        assert got == (int(max(a.rounds)), 0)
+
+
+def test_scatter_max_apply_kernel_on_fleet_triples(card):
+    """K4a on one fleet round's own batched triples over ``[S·N, M]``,
+    its dropped rows remapped to ``S·N``: caught at ``apply_updates``
+    with the pre-scatter ``known``/``sent``, the kernel equals its plain
+    version."""
+    from sidecar_tpu_torch.ops import gossip as gossip_ops
+
+    _, gpu, inputs, _ = fleet_pair("chaos")
+    taken = []
+    apply = gossip_ops.apply_updates
+
+    def watch(known, sent, rows, cols, vals, adv):
+        taken.append((known.clone(), sent.clone(), rows, cols, vals, adv))
+        return apply(known, sent, rows, cols, vals, adv)
+
+    gossip_ops.apply_updates = watch
+    try:
+        gpu.run(gpu.init_states(), 6,
+                draws=[d[:6] for d in inputs["draws"]],
+                fault_draws=[f[:6] for f in inputs["fault_draws"]])
+    finally:
+        gossip_ops.apply_updates = apply
+    known, sent, rows, cols, vals, adv = taken[-1]
+    s_n = known.shape[0]
+    assert s_n == 3 * gpu.batch.params.n
+    assert int((rows == s_n).sum()) > 0 and int(rows.max()) == s_n
+    want = sm.scatter_max_apply_torch(known.clone(), rows, cols, vals,
+                                      sent.clone(), adv)
+    got = sm.scatter_max_apply_cuda(known, rows, cols, vals, sent, adv)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))

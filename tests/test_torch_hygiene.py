@@ -1,6 +1,6 @@
 """Ground rules of the PyTorch port: it imports neither ``jax`` nor
 anything of ``sidecar_tpu`` (nor does ``chip_smoke.py``), its entry
-points (both models) refuse to fall back to the CPU when no GPU is
+points (both models and the fleet) refuse to fall back to the CPU when no GPU is
 present, the options once deferred run a round (the execution modes',
 and the chaos options ``perturb``, ``cut_mask`` and ``node_side``, each
 equal to the JAX reference's round), no module names a deferred
@@ -71,9 +71,12 @@ def test_every_port_module_is_checked():
                      "scatter_max.py", "common.py", "sparse.py",
                      "pipeline.py", "metrics.py", "trace.py", "digest.py",
                      "delta.py", "provenance.py", "planes.py", "cost.py",
-                     "plan.py", "adversary.py", "sim_inject.py"):
+                     "plan.py", "adversary.py", "sim_inject.py",
+                     "batch.py", "engine.py", "grid.py", "rounds.py",
+                     "scenarios.py"):
         assert expected in names, expected
-    assert any(p.parent.name == "chaos" for p in PORT_FILES)
+    for package in ("chaos", "fleet", "sim"):
+        assert any(p.parent.name == package for p in PORT_FILES), package
 
 
 def test_no_module_names_a_deferred_item():
@@ -125,6 +128,16 @@ def small_chaos(**kw):
     return ChaosExactSim(p, topology.ring(16), TimeConfig(), plan, **kw)
 
 
+def small_fleet(**kw):
+    from sidecar_tpu_torch.fleet import FleetSim, ScenarioBatch, ScenarioSpec
+
+    p = SimParams(n=16, services_per_node=2, budget=4)
+    batch = ScenarioBatch.build(
+        [ScenarioSpec(name="a", seed=1), ScenarioSpec(name="b", seed=2)],
+        p, TimeConfig(), **kw)
+    return FleetSim(batch)
+
+
 def small_fault_plan(**kw):
     from sidecar_tpu_torch.chaos import CompiledFaultPlan, EdgeFault, FaultPlan
 
@@ -147,8 +160,10 @@ def small_adversary(**kw):
 
 @pytest.mark.parametrize(
     "make",
-    [small_sim, small_exact, small_chaos, small_fault_plan, small_adversary],
-    ids=["compressed", "exact", "chaos", "fault_plan", "adversary"])
+    [small_sim, small_exact, small_chaos, small_fault_plan, small_adversary,
+     small_fleet],
+    ids=["compressed", "exact", "chaos", "fault_plan", "adversary",
+         "fleet"])
 def test_default_device_needs_a_gpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
