@@ -9,10 +9,10 @@ north-star workload — on one device and over node shards, its
 sparse-frontier and software-pipelined rounds, and the exact
 record-level model's dense round — the bench's headline ``value``
 workload — with its execution modes and over node shards, the chaos
-round and the partition hooks (config 5 and config 6 of
-``sidecar_tpu/sim/scenarios.py``), the scenario fleet of all three
-families, plus the scatter experiment of
-``benchmarks/pallas_scatter.py``:
+round and the partition hooks (config 5 and config 6 of the port's
+``sim/scenarios.py``), the scenario fleet of all three families, the
+autopilot's closed loop, the scenario configs and a checkpoint resume,
+plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — ``nvcc`` builds the kernels from
@@ -175,6 +175,29 @@ families, plus the scatter experiment of
    runs, and the kernel held on one scenario's slice of the stacked
    cache; (d) a small batch of each family card against CPU, with and
    without early exit.
+15. autopilot — ``benchmarks/autopilot.py``'s closed loop through the
+   port (``sidecar_tpu_torch/autopilot``) at n = 4,096 × 4 services: the
+   config6-shaped live cluster of ``sim/scenarios.py`` on the status-quo
+   clock traced for 240 rounds from a warm start and fitted
+   (``fit_from_trace``, its paused share at most 1 %; the fits of 120
+   rounds from a cold and a warm start printed beside it), then
+   ``recommend`` with the default axes and the rules ``converge <= 30
+   rounds`` and ``agreement >= 0.99`` (60 rounds, seed 6, 2 generations
+   of 6): the estimate, the baseline's and the winner's scores and SLO
+   verdicts, evaluations against the exhaustive grid, the winner's
+   unbatched replay (identical), the wall of the trace, the fit, each
+   dispatch, the scoring and the host digest apart, and the replay,
+   scenarios/s, peak memory, a 5-round profile of one dispatch, K4a once
+   a round of every trace, every dispatch and the replay; then the card
+   against the CPU at n = 64 from one set of inputs (estimate, every
+   candidate's row and score, the winner);
+16. scenarios — ``sim/scenarios.py``'s configs 1–4 and 6 through the
+   port's module at their declared sizes (config5 runs once, in
+   ``chaos``): each ``summary()`` with its rounds/s, peak memory and
+   launches (K1 once a round of config4, K4a once a round of the
+   others), config4's BA(3) graph build alone; then config3 saved at
+   round 600 with its generator (``sim/checkpoint.py``), loaded into a
+   fresh sim and run to round 1,200, equal to the straight run.
 
 Each phase prints one JSON line; then the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -192,7 +215,8 @@ import time
 
 PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
           "north_star", "sharded", "scatter", "exact_lockstep", "exact",
-          "exact_modes", "telemetry", "sharded_exact", "chaos", "fleet")
+          "exact_modes", "telemetry", "sharded_exact", "chaos", "fleet",
+          "autopilot", "scenarios")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
@@ -3338,58 +3362,6 @@ CONFIG5_RUN = dict(split_rounds=150, heal_rounds=450, every=5, eps=1e-5)
 EQUAL_ROUNDS = 50
 
 
-class SideChurn:
-    """config6's side-A churn (``sidecar_tpu/sim/scenarios.py``
-    ``config6_chaos``) as a port hook: from round ``start`` to ``end``
-    the slots of side A (owners below ``n / 2``) that ``masks[round]``
-    picks restart, ALIVE ↔ TOMBSTONE at ``now``, their transmit counts
-    reset.  The masks are drawn up front (``churn_masks``), so the round
-    reads no host value and a card and a CPU run see the same ones."""
-
-    def __init__(self, n, spn, round_ticks, masks, start=30, end=60):
-        self.n, self.m = n, n * spn
-        self.spn, self.round_ticks = spn, round_ticks
-        self.masks, self.start, self.end = masks, start, end
-
-    def __call__(self, state, now):
-        import torch
-
-        from sidecar_tpu_torch.ops.status import (
-            ALIVE,
-            TOMBSTONE,
-            pack,
-            unpack_status,
-            unpack_ts,
-        )
-
-        r = now // self.round_ticks
-        if not self.start <= r < self.end:
-            return state
-        dev = state.known.device
-        cols = torch.arange(self.m, device=dev)
-        owner = torch.div(cols, self.spn, rounding_mode="floor")
-        own = state.known[owner, cols]
-        flip = self.masks[r].to(dev) & (owner < self.n // 2) & \
-            (unpack_ts(own) > 0) & state.node_alive[owner]
-        new_status = torch.where(unpack_status(own) == ALIVE, TOMBSTONE,
-                                 ALIVE)
-        state.known[owner, cols] = torch.where(flip, pack(now, new_status),
-                                               own)
-        state.sent[owner, cols] = torch.where(flip, 0,
-                                              state.sent[owner, cols])
-        return state
-
-
-def churn_masks(m, prob, rounds, seed, device):
-    """``{round: bool [m]}`` of the side churn, each slot picked with
-    ``prob``, from a CPU generator (the same masks on any device)."""
-    import torch
-
-    gen = torch.Generator().manual_seed(seed)
-    return {r: (torch.rand(m, generator=gen) < prob).to(device)
-            for r in range(rounds[0], rounds[1])}
-
-
 def chaos_value_plan(n):
     """The config6-shaped plan scaled to ``n`` nodes, sides A (the lower
     half) and B: A→B loss 0.2 all run, a full split over rounds 20–80,
@@ -3461,12 +3433,12 @@ def chaos_sim(n, plan, adversary, device=None, **kw):
     from sidecar_tpu_torch.chaos import ChaosExactSim
     from sidecar_tpu_torch.models.exact import SimParams
     from sidecar_tpu_torch.ops.topology import erdos_renyi
+    from sidecar_tpu_torch.sim.scenarios import side_churn
 
     device = DEVICE if device is None else device
     p = SimParams(n=n, services_per_node=10, fanout=3, budget=15)
     t = kw.pop("timecfg", chaos_time())
-    hook = SideChurn(n, 10, t.round_ticks,
-                     churn_masks(p.m, 0.02 / 10, (30, 60), 6, device))
+    hook = side_churn(p, 0.02 / 10, seed=6, device=device)
     return ChaosExactSim(p, kw.pop("topo", None) or erdos_renyi(
         n, avg_degree=8.0, seed=3), t, plan, device=device, perturb=hook,
         adversary=adversary, **kw)
@@ -3671,37 +3643,20 @@ def chaos_value(n=4096, rounds=CHAOS_ROUNDS, cpu_n=1024, cpu_rounds=30):
 
 
 def chaos_config6(rounds=CHAOS_ROUNDS, eps=1e-3):
-    """Part (b): config6 at its own size (``sim/scenarios.py``
-    ``config6_chaos``): n = 256, 4 services a node, the complete graph,
-    push-pull every 2 s, A→B loss 0.2 and a full split over rounds
-    20–80, side-A churn over rounds 30–60; the card equal to the CPU
-    from one set of draws, and the round at which ε is reached."""
+    """Part (b): config6 at its own size, built by the port's
+    ``sim/scenarios.py`` (``config6_sim``): n = 256, 4 services a node,
+    the complete graph, push-pull every 2 s, A→B loss 0.2 and a full
+    split over rounds 20–80, side-A churn over rounds 30–60; the card
+    equal to the CPU from one set of draws, and the round at which ε is
+    reached."""
     import torch
 
-    from sidecar_tpu_torch.chaos import (
-        ChaosExactSim,
-        EdgeFault,
-        FaultPlan,
-    )
-    from sidecar_tpu_torch.models.exact import SimParams
-    from sidecar_tpu_torch.models.timecfg import TimeConfig
-    from sidecar_tpu_torch.ops.topology import complete
+    from sidecar_tpu_torch.sim.scenarios import config6_sim
 
-    n, spn = 256, 4
-    a, b = tuple(range(n // 2)), tuple(range(n // 2, n))
-    plan = FaultPlan(seed=6, edges=(EdgeFault(src=a, dst=b,
-                                              drop_prob=0.2),)).with_edges(
-        *FaultPlan.partition(a, b, 20, 80))
-    p = SimParams(n=n, services_per_node=spn, fanout=3, budget=15)
-    t = TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
-
-    def make(device):
-        hook = SideChurn(n, spn, t.round_ticks,
-                         churn_masks(p.m, 0.02 / spn, (30, 60), 6, device))
-        return ChaosExactSim(p, complete(n), t, plan, device=device,
-                             perturb=hook)
-
-    cpu, card = make("cpu"), make(DEVICE)
+    n = 256
+    cpu, card = config6_sim(n, 6, device="cpu"), config6_sim(n, 6,
+                                                            device=DEVICE)
+    p = cpu.p
     gen = torch.Generator().manual_seed(6)
     draws = [cpu.draw(gen, r) for r in range(1, rounds + 1)]
     faults = [cpu.fault_draw(r) for r in range(1, rounds + 1)]
@@ -3730,55 +3685,28 @@ def chaos_config6(rounds=CHAOS_ROUNDS, eps=1e-3):
                     "launches": counts}, ok
 
 
-def config5_params(n):
-    from sidecar_tpu_torch.models.compressed import CompressedParams
-
-    return CompressedParams(n=n, services_per_node=4, fanout=3, budget=15,
-                            cache_lines=64, deep_sweep_every=5)
-
-
-def config5_time():
-    from sidecar_tpu_torch.models.timecfg import TimeConfig
-
-    return TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
-
-
-def config5_burst(p, halves, frac, seed=5):
-    """The burst of ``sim/scenarios.py`` ``_mint_churn`` on side 0:
-    ``frac`` of all slots, drawn from side 0's, sorted."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    count = max(1, int(p.m * frac))
-    pool = np.nonzero(np.repeat(halves == 0, p.services_per_node))[0]
-    return np.sort(rng.choice(pool, size=min(count, pool.size),
-                              replace=False)).astype(np.int32)
-
-
 def config5_split_heal(side=CONFIG5_SIDE, split_rounds=150, heal_rounds=450,
                        every=5, eps=1e-5):
-    """Part (c): config5 at the declared size (``sim/scenarios.py``
-    ``config5_split_heal``): ``mesh2d(side, side)``, a burst of 1e-4 of
+    """Part (c): config5 at the declared size, its params, graph, cut,
+    sides, clock and burst from the port's ``sim/scenarios.py``
+    (``config5_split_heal``): ``mesh2d(side, side)``, a burst of 1e-4 of
     the slots minted on side 0 at tick 10, ``split_rounds`` with the cut
     and the sides, then ``heal_rounds`` without the cut, fused, the
     convergence every ``every`` rounds; and K1 at this shape in turns
     with the unfused pair."""
-    import numpy as np
     import torch
 
     from sidecar_tpu_torch.models.compressed import CompressedSim
-    from sidecar_tpu_torch.ops.topology import mesh2d, partition_mask
+    from sidecar_tpu_torch.sim import scenarios
 
     t0 = time.perf_counter()
-    topo = mesh2d(side, side)
+    topo, halves, cut = scenarios.split_mesh(side)
     n = topo.n
-    halves = (np.arange(n) % side >= side // 2).astype(np.int32)
-    cut = partition_mask(topo, halves)
     graph_s = time.perf_counter() - t0
-    p, t = config5_params(n), config5_time()
+    p, t = scenarios.config5_params(n), scenarios.CONFIG5_TIME
     split_sim = CompressedSim(p, topo, t, cut_mask=cut, node_side=halves)
     heal_sim = CompressedSim(p, topo, t)
-    slots = config5_burst(p, halves, 1e-4)
+    slots = scenarios.churn_slots(p, 1e-4, 5, halves == 0)
     gen = split_sim.default_generator(5)
     state = split_sim.mint(split_sim.init_state(), slots, 10)
     torch.cuda.synchronize()
@@ -3851,14 +3779,13 @@ def config5_equalities(rounds=EQUAL_ROUNDS):
     ``all_to_all``) equals the single device; ``ShardedSim`` at d = 4
     (``all_gather``, ``ring``, ``zoned``) equals d = 1 at n = 1,024 × 10
     on ``mesh2d(32, 32)``, push-pull every 10 rounds."""
-    import numpy as np
     import torch
 
     from sidecar_tpu_torch.models.compressed import CompressedSim
     from sidecar_tpu_torch.models.exact import SimParams
     from sidecar_tpu_torch.models.timecfg import TimeConfig
-    from sidecar_tpu_torch.ops.topology import mesh2d, partition_mask
     from sidecar_tpu_torch.parallel import ShardedCompressedSim, ShardedSim
+    from sidecar_tpu_torch.sim import scenarios
 
     all_counts, checks = [], {}
 
@@ -3866,11 +3793,10 @@ def config5_equalities(rounds=EQUAL_ROUNDS):
         all_counts.append(counts)
         checks[label] = dict(info, launches=counts, ok=bool(ok))
 
-    topo = mesh2d(64, 64)
-    halves = (np.arange(topo.n) % 64 >= 32).astype(np.int32)
-    kw = dict(cut_mask=partition_mask(topo, halves), node_side=halves)
-    p, t = config5_params(topo.n), config5_time()
-    slots = config5_burst(p, halves, 1e-2)
+    topo, halves, cut = scenarios.split_mesh(64)
+    kw = dict(cut_mask=cut, node_side=halves)
+    p, t = scenarios.config5_params(topo.n), scenarios.CONFIG5_TIME
+    slots = scenarios.churn_slots(p, 1e-2, 5, halves == 0)
     cpu = CompressedSim(p, topo, t, device="cpu", **kw)
     gen = torch.Generator().manual_seed(5)
     draws = [cpu.draw(gen, r) for r in range(1, rounds + 1)]
@@ -3908,9 +3834,8 @@ def config5_equalities(rounds=EQUAL_ROUNDS):
         del twin, got
     del runs, host, cpu
 
-    topo = mesh2d(32, 32)
-    halves = (np.arange(topo.n) % 32 >= 16).astype(np.int32)
-    kw = dict(cut_mask=partition_mask(topo, halves), node_side=halves)
+    topo, halves, cut = scenarios.split_mesh(32)
+    kw = dict(cut_mask=cut, node_side=halves)
     px = SimParams(n=topo.n, services_per_node=10, fanout=3, budget=15)
     tx = TimeConfig(push_pull_interval_s=2.0)
     ref = ShardedSim(px, topo, tx, d=1, **kw)
@@ -4549,6 +4474,367 @@ def phase_fleet(topo, n=1024, chaos_n=4096):
     return all_counts, errs
 
 
+# -- phase 15: the autopilot ------------------------------------------------------
+
+AUTOPILOT_RULES = ("converge <= 30 rounds", "agreement >= 0.99")
+
+
+def autopilot_time():
+    """The live cluster's status-quo clock (``benchmarks/autopilot.py``):
+    the default 20 s push-pull, refresh pinned out."""
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+
+    return TimeConfig(refresh_interval_s=10_000.0)
+
+
+def warm_state(sim):
+    """A chaos sim's state once its cluster has run a while: every node
+    holds every record at its boot stamp, each record already sent its
+    retransmit limit times, so nothing is left to gossip (the exact
+    model's form of the compressed model's converged boot)."""
+    from sidecar_tpu_torch.ops.status import ALIVE, pack
+
+    state = sim.init_state()
+    state.sim.known.fill_(pack(1, ALIVE))
+    state.sim.sent.fill_(sim.p.resolved_retransmit_limit())
+    return state
+
+
+def traced_estimate(sim, rounds, seed, draws=None, fault_draws=None,
+                    warm=False):
+    """The live cluster observed: ``rounds`` traced rounds of ``sim``
+    from a cold start, or from :func:`warm_state` with ``warm`` (from
+    ``default_generator(seed)``, or the given draws), then
+    ``fit_from_trace``.  Returns ``(estimate, trace_s, fit_s)``."""
+    import torch
+
+    from sidecar_tpu_torch.autopilot import fit_from_trace
+    from sidecar_tpu_torch.ops.trace import trace_to_dicts
+
+    gen = None if draws is not None else sim.default_generator(seed)
+    start = warm_state(sim) if warm else sim.init_state()
+    t0 = time.perf_counter()
+    final, tr, _ = sim.run_with_trace(start, rounds, cap=rounds,
+                                      generator=gen, draws=draws,
+                                      fault_draws=fault_draws)
+    if sim.device.type == "cuda":
+        torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est = fit_from_trace(trace_to_dicts(tr), params=sim.p,
+                         injections=sim.injection_counts(final),
+                         timecfg=sim.t)
+    return est, trace_s, time.perf_counter() - t0
+
+
+def rows_differ(a: list, b: list) -> list:
+    """Where two reports' candidate rows differ: every field exact but
+    ``final_convergence`` (float32 sums, within 1e-6)."""
+    out = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        for k in x["row"]:
+            u, v = x["row"][k], y["row"].get(k)
+            same = abs(u - v) <= 1e-6 if k == "final_convergence" \
+                else u == v
+            if not same:
+                out.append(f"{i}.{k}")
+        if (x["candidate"], x["score"], x["slo"]) != \
+                (y["candidate"], y["score"], y["slo"]):
+            out.append(f"{i}.score")
+    return out + (["length"] if len(a) != len(b) else [])
+
+
+def autopilot_card_against_cpu(n=64, trace_rounds=40, rounds=30):
+    """The closed loop at ``n`` on the card and on the CPU from one set
+    of inputs: the trace from the CPU sim's draws and fault draws (the
+    side churn's masks are the hook's own CPU draws), then ``recommend``
+    with every dispatch fed one set of inputs drawn on the CPU
+    (``fleet.cpu_inputs``).  The estimate, every candidate's row and
+    score, and the winner must be equal."""
+    import torch
+
+    from sidecar_tpu_torch.autopilot import AutopilotController, search
+    from sidecar_tpu_torch.fleet import cpu_inputs
+    from sidecar_tpu_torch.sim.scenarios import config6_sim
+
+    t = autopilot_time()
+    cpu, card = config6_sim(n, 6, timecfg=t, device="cpu"), \
+        config6_sim(n, 6, timecfg=t, device=DEVICE)
+    gen = torch.Generator().manual_seed(6)
+    draws = [cpu.draw(gen, r) for r in range(1, trace_rounds + 1)]
+    faults = [cpu.fault_draw(r) for r in range(1, trace_rounds + 1)]
+    reports, rows = [], []
+    run_batch = search.FleetEvaluator._run_batch
+    evaluate = search.FleetEvaluator.evaluate
+
+    def one_set_run_batch(self, batch):
+        return run_batch(self, batch, cpu_inputs(batch, self.rounds))
+
+    def evaluate_kept(self, candidates, tag):
+        out = evaluate(self, candidates, tag)
+        rows[-1].extend(r.to_json() for r in out)
+        return out
+
+    search.FleetEvaluator._run_batch = one_set_run_batch
+    search.FleetEvaluator.evaluate = evaluate_kept
+    try:
+        for sim, device in ((cpu, "cpu"), (card, DEVICE)):
+            est, _, _ = traced_estimate(sim, trace_rounds, 6, draws, faults)
+            rows.append([])
+            reset_launches()
+            reports.append(AutopilotController(timecfg=t).recommend(
+                rules=list(AUTOPILOT_RULES), estimate=est, n=n,
+                rounds=rounds, seed=6, generations=1, population=4,
+                device=device))
+            torch.cuda.synchronize()
+            counts = launches()     # the card's pass is the last
+    finally:
+        search.FleetEvaluator._run_batch = run_batch
+        search.FleetEvaluator.evaluate = evaluate
+    host, got = reports
+    diffs = rows_differ(*rows)
+    same = {k: host[k] == got[k] for k in (
+        "estimate", "axes", "fault_plan", "evaluations", "dispatches",
+        "grid_points", "candidates")}
+    same["recommended"] = host["recommended"]["candidate"] == \
+        got["recommended"]["candidate"]
+    # One K4a a round of each dispatch, and the replay's rounds.
+    want = expected(scatter_max_apply=rounds * (got["dispatches"] + 1))
+    ok = not diffs and all(same.values()) and counts == want
+    return counts, {"n": n, "trace_rounds": trace_rounds, "rounds": rounds,
+                    "rows": len(rows[1]), "row_diffs": diffs, "equal": same,
+                    "estimate": got["estimate"],
+                    "recommended": got["recommended"]["candidate"],
+                    "launches": counts, "ok": ok}
+
+
+# The fitted paused share the phase accepts: the live cluster pauses no
+# node, so a larger share is a misfit (a backlog read as paused nodes).
+MAX_FITTED_PAUSE = 0.01
+
+
+def phase_autopilot(n=4096, trace_rounds=240, rounds=60, seed=6,
+                    generations=2, population=6):
+    """``benchmarks/autopilot.py``'s closed loop through the port at
+    ``n`` nodes × 4 services: the config6-shaped live cluster of
+    ``sim/scenarios.py`` (20 % A→B loss, a split over rounds 20–80,
+    side-A churn over rounds 30–60) on the status-quo clock, traced for
+    ``trace_rounds`` rounds from a warm start and fitted.  The bench's
+    120 rounds from a cold start leave this size's cluster unconverged,
+    and 120 from a warm start leave the heal's backlog; the pause fit
+    reads either as paused nodes, so both fits are printed beside the
+    one used, whose paused share must stay within
+    :data:`MAX_FITTED_PAUSE`.  Then ``recommend`` with the default axes
+    and rules (``rounds``, ``seed``, ``generations`` of
+    ``population``), timing each dispatch, the scoring and the host
+    digest apart, and the replay; the winner's replay must be identical,
+    and K4a must launch once a round of every trace, of every dispatch
+    and of the replay.  Then the card against the CPU at n = 64."""
+    import torch
+
+    from sidecar_tpu_torch.autopilot import AutopilotController, search
+    from sidecar_tpu_torch.autopilot import controller
+    from sidecar_tpu_torch.fleet import engine
+    from sidecar_tpu_torch.sim.scenarios import config6_sim
+
+    t_phase = time.perf_counter()
+    cfg = autopilot_time()
+    sim = config6_sim(n, seed, timecfg=cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    traces = ((False, 120), (True, 120), (True, trace_rounds))
+    fits = {}     # the last is the one ``recommend`` takes
+    for warm, length in traces:
+        est, trace_s, fit_s = traced_estimate(sim, length, seed, warm=warm)
+        fits[f"{'warm' if warm else 'cold'}_{length}"] = {
+            **est.to_json(), "trace_s": trace_s}
+    trace_counts = launches()
+    del sim
+
+    dispatch_s, table_s, digest_s, replay_s, dispatched = [], [], [], [], []
+    run_batch = search.FleetEvaluator._run_batch
+    table = engine.FleetRun.table
+    digest = engine.FleetRun.digest_agreement
+    replay = controller.replay_check
+
+    def timed(fn, into):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def run_batch_kept(self, batch):
+        out = timed(run_batch, dispatch_s)(self, batch)
+        dispatched.append((batch, out[1].scenarios_per_sec))
+        return out
+
+    search.FleetEvaluator._run_batch = run_batch_kept
+    engine.FleetRun.table = timed(table, table_s)
+    engine.FleetRun.digest_agreement = timed(digest, digest_s)
+    controller.replay_check = timed(replay, replay_s)
+    reset_launches()
+    try:
+        report = AutopilotController(timecfg=cfg).recommend(
+            rules=list(AUTOPILOT_RULES), estimate=est, n=n,
+            services_per_node=4, fanout=3, budget=15, rounds=rounds,
+            seed=seed, generations=generations, population=population)
+    finally:
+        search.FleetEvaluator._run_batch = run_batch
+        engine.FleetRun.table = table
+        engine.FleetRun.digest_agreement = digest
+        controller.replay_check = replay
+    torch.cuda.synchronize()
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    # A 5-round profile of one dispatch: the first batch, afresh.
+    from sidecar_tpu_torch.fleet import FleetSim
+
+    fleet = FleetSim(dispatched[0][0])
+    profile = fleet_profile(fleet, fleet.init_states(), stop=False)
+    del fleet
+
+    card_counts, card_cpu = autopilot_card_against_cpu()
+    base_r, rec = report["baseline"], report["recommended"]
+    all_counts = [trace_counts, counts, card_counts]
+    line = {
+        "n": n, "services_per_node": 4, "trace_rounds": trace_rounds,
+        "rounds": rounds, "seed": seed, "rules": report["rules"],
+        "estimate": report["estimate"], "fault_plan": report["fault_plan"],
+        "fits": fits,
+        "baseline": {"candidate": base_r["candidate"],
+                     "score": base_r["score"],
+                     "pass": base_r["slo"]["pass"]},
+        "recommended": {"candidate": rec["candidate"], "score": rec["score"],
+                        "pass": rec["slo"]["pass"], "row": rec["row"]},
+        "closed_loop": bool(rec["slo"]["pass"])
+        and base_r["slo"]["pass"] is False,
+        "evaluations": report["evaluations"],
+        "dispatches": report["dispatches"],
+        "grid_points": report["grid_points"],
+        "eval_ratio": report["evaluations"] / report["grid_points"],
+        "replay": report["replay"],
+        "trace_s": trace_s, "fit_s": fit_s,
+        "dispatch_s": dispatch_s,
+        "dispatch_scenarios": [b.size for b, _ in dispatched],
+        "scenarios_per_s": [r for _, r in dispatched],
+        "scoring_s_without_digest": sum(table_s) - sum(digest_s),
+        "host_digest_s": sum(digest_s), "host_digest_rows": len(digest_s),
+        "replay_s": sum(replay_s),
+        "recommend_wall_s": report["wall_seconds"],
+        "max_memory_allocated": peak, "dispatch_profile": profile,
+        "launches": {"trace": trace_counts, "recommend": counts},
+        "card_against_cpu": card_cpu,
+        "phase_s": time.perf_counter() - t_phase}
+    # K4a once a round of every trace, of every dispatch and of the
+    # replay.
+    ok = (report["replay"]["identical"] and card_cpu["ok"]
+          and est.paused_frac <= MAX_FITTED_PAUSE
+          and trace_counts == expected(
+              scatter_max_apply=sum(length for _, length in traces))
+          and counts == expected(scatter_max_apply=rounds * (
+              report["dispatches"] + 1)))
+    emit({"phase": "autopilot", **line, "ok": ok})
+    if not ok:
+        raise SystemExit("autopilot phase failed")
+    return all_counts
+
+
+# -- phase 16: the scenario configs --------------------------------------------------
+
+CHECKPOINT_AT = 600
+
+
+def phase_scenarios(scale=1.0):
+    """``sim/scenarios.py``'s configs through the port's module on the
+    card at ``scale`` (1.0: the declared sizes), all but config5 (the
+    ``chaos`` phase runs it): each summary with its rounds/s, peak
+    memory and launches — K1 once a round of config4, K4a once a round
+    of the others — and config4's BA graph build time alone; then
+    config3 checkpointed at round 600 with its generator, loaded, and
+    run to its end, equal to the straight run."""
+    import tempfile
+
+    import torch
+
+    from sidecar_tpu_torch.ops.topology import barabasi_albert
+    from sidecar_tpu_torch.sim import checkpoint, scenarios
+
+    all_counts = []
+    t_phase = time.perf_counter()
+    for name in scenarios.ALL_SCENARIOS:
+        if name == "config5":
+            continue
+        extra = {}
+        if name == "config4":
+            t0 = time.perf_counter()
+            barabasi_albert(max(128, int(65_536 * scale)), m=3, seed=4)
+            extra["graph_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = scenarios.run_one(name, scale)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        all_counts.append(counts)
+        kernel = "fused_publish_gather" if name == "config4" \
+            else "scatter_max_apply"
+        want = expected(**{kernel: result.rounds_run})
+        curve = result.convergence
+        ok = counts == want and len(curve) and bool(
+            ((curve >= 0) & (curve <= 1)).all())
+        emit({"phase": "scenarios", "config": name, **result.summary(),
+              "rounds_per_s": result.rounds_per_sec, "call_s": wall,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches": counts, **extra, "ok": bool(ok)})
+        if not ok:
+            raise SystemExit(f"scenarios phase failed ({name})")
+        del result
+
+    # config3 through a checkpoint: 600 rounds, save with the generator,
+    # load into a fresh sim, the rest; equal to the straight run.
+    rounds = 1200
+    sim = scenarios.config3_sim(rounds, scale)
+    reset_launches()
+    straight = sim.run_fast(sim.init_state(), rounds,
+                            generator=sim.default_generator(3))
+    gen = sim.default_generator(3)
+    half = sim.run_fast(sim.init_state(), CHECKPOINT_AT, generator=gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/config3.npz"
+        t0 = time.perf_counter()
+        checkpoint.save_state(path, half, sim.p, generator=gen)
+        save_s = time.perf_counter() - t0
+        del half
+        gen2 = torch.Generator(device=DEVICE)
+        t0 = time.perf_counter()
+        loaded, params = checkpoint.load_state(path, generator=gen2)
+        load_s = time.perf_counter() - t0
+    resumed = scenarios.config3_sim(rounds, scale).run_fast(
+        loaded, rounds - CHECKPOINT_AT, generator=gen2)
+    torch.cuda.synchronize()
+    counts = launches()
+    all_counts.append(counts)
+    diffs = exact_fields_differ(straight, resumed)
+    ok = not diffs and params == sim.p and counts == expected(
+        scatter_max_apply=2 * rounds)
+    emit({"phase": "scenarios", "config": "config3_checkpoint",
+          "checkpoint_at": CHECKPOINT_AT, "rounds": rounds,
+          "field_diffs": diffs, "save_s": save_s, "load_s": load_s,
+          "launches": counts, "phase_s": time.perf_counter() - t_phase,
+          "ok": ok})
+    if not ok:
+        raise SystemExit("scenarios phase failed (config3_checkpoint)")
+    return all_counts
+
+
 def row_gather_variants(k: int = 256) -> dict:
     """Rows a pass → the ``(source, macro definitions)`` build of the
     row-gather kernel with that window."""
@@ -4758,6 +5044,10 @@ def main(argv=None) -> int:
                 records[name]["max_abs_err"] = max(
                     records[name]["max_abs_err"], err)
     del topo
+    if "autopilot" in phases:
+        runs += phase_autopilot()
+    if "scenarios" in phases:
+        runs += phase_scenarios()
     if records:
         emit({"kernels": [
             {"name": f"{name}_kernel", "route": "cuda",

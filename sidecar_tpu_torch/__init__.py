@@ -17,8 +17,8 @@ so each counterpart is easy to find:
   ``ops/provenance.py``, ``models/planes.py`` — the telemetry planes
   that ride the run loop (``run_with_trace``, ``run_with_digest``,
   ``run_with_deltas``, ``run_with_provenance``);
-* ``metrics.py`` — the process registry of counters and gauges;
-  ``telemetry/cost.py`` — the round's phase scopes for
+* ``metrics.py`` — the process registry of counters, gauges, timers and
+  histograms; ``telemetry/cost.py`` — the round's phase scopes for
   ``torch.profiler``;
 * ``parallel/mesh.py``, ``parallel/sharded_compressed.py``,
   ``parallel/sharded.py`` — the node-sharded twins of both models over
@@ -28,8 +28,15 @@ so each counterpart is easy to find:
   round under them;
 * ``fleet/batch.py``, ``fleet/rounds.py``, ``fleet/engine.py``,
   ``fleet/grid.py`` — the scenario fleet: S scenarios of one model in
-  one batched round (``FleetSim``), with ``sim/scenarios.py``'s
-  registry and protocol-config validation;
+  one batched round (``FleetSim``);
+* ``autopilot/fit.py``, ``autopilot/objective.py``,
+  ``autopilot/search.py``, ``autopilot/controller.py`` — the autopilot:
+  fit the conditions, score knob bundles in fleet dispatches, replay the
+  winner; ``telemetry/slo.py`` — the SLO rules it scores against;
+* ``sim/scenarios.py`` — the BASELINE scenario configs 1–6, ``run_all``
+  and the registry and protocol-config validation;
+  ``sim/checkpoint.py`` — save and resume a run's state (and its
+  generator);
 * ``convert.py`` — moving state, params and graphs across from the
   reference's numpy form.
 

@@ -19,7 +19,11 @@ from sidecar_tpu_torch.fleet.batch import (  # noqa: F401
     churn_seed,
     restart_churn_perturb,
 )
-from sidecar_tpu_torch.fleet.engine import FleetRun, FleetSim  # noqa: F401
+from sidecar_tpu_torch.fleet.engine import (  # noqa: F401
+    FleetRun,
+    FleetSim,
+    cpu_inputs,
+)
 from sidecar_tpu_torch.fleet.grid import (  # noqa: F401
     ParetoFront,
     build_batches,

@@ -317,9 +317,10 @@ def restart_churn_perturb(params, prob: Optional[float] = None, *,
     its transmit count reset.
 
     With a static ``prob`` it is the unbatched hook ``perturb(state,
-    now)``: the round's mask is ``masks[round]`` (bool ``[M]``, by the
-    round index after the step) when given, else ``rand(M) < prob`` from
-    a generator of its own, seeded with ``seed`` on the state's device.
+    now)``: the round's mask is ``masks[round]`` (a dict of bool ``[M]``
+    by the round index after the step; a round it lacks churns nothing)
+    when given, else ``rand(M) < prob`` from a generator of its own,
+    seeded with ``seed`` on the state's device.
 
     With ``prob=None`` it is the fleet's knob-aware hook (``wants_knobs``)
     ``perturb(state, now, kn)`` on a batched state (``known``/``sent``
@@ -354,6 +355,8 @@ def restart_churn_perturb(params, prob: Optional[float] = None, *,
 
     def static_hook(state, now):
         round_idx = state_round(state) + 1
+        if masks is not None and round_idx not in masks:
+            return state
         churn = draw(None, prob, seed, masks, round_idx,
                      state.known.device)
         flip_rows(state.known.view(1, -1), state.sent.view(1, -1),

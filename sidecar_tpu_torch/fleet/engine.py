@@ -568,3 +568,32 @@ class FleetSim:
         rnd = torch.as_tensor([state_rounds(states)[i] for i in idx],
                               dtype=I32, device=dev)
         fs.first_seen[sel] = torch.where(newly, rnd[:, None, None], first)
+
+
+def cpu_inputs(batch: ScenarioBatch, rounds: int):
+    """One set of inputs for ``rounds`` rounds of ``batch``, drawn on the
+    CPU, so that a run fed them gives the same result on any device:
+    each scenario's round draws and, under a plan, its fault draws, as
+    a copy of the batch on the CPU draws them, and a churn hook
+    replaying each churning scenario's masks (``sim/scenarios``
+    ``churn_masks`` seeded with ``churn_seed(spec.seed)``).  Returns
+    ``(draws, fault_draws, perturb)`` for
+    ``FleetSim(batch, perturb=perturb).run(..., draws=draws,
+    fault_draws=fault_draws)``."""
+    from sidecar_tpu_torch.sim.scenarios import churn_masks
+
+    cpu_b = ScenarioBatch.build(batch.specs, batch.params, batch.timecfg,
+                                family=batch.family, plan=batch.plan,
+                                device="cpu")
+    probe = FleetSim(cpu_b)
+    span = range(1, rounds + 1)
+    draws = [[probe.draw(i, r) for r in span] for i in range(batch.size)]
+    faults = None if batch.plan is None else [
+        [probe.fault_draw(i, r) for r in span] for i in range(batch.size)]
+    perturb = None
+    if batch.has_churn:
+        perturb = restart_churn_perturb(batch.params, masks=[
+            churn_masks(batch.params.m, s.churn_prob, (1, rounds + 1),
+                        churn_seed(s.seed)) if s.churn_prob > 0 else None
+            for s in batch.specs])
+    return draws, faults, perturb

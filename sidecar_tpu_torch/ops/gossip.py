@@ -91,10 +91,13 @@ class RoundDraws:
 
 def _peer_slots(generator, n: int, legs: int, deg, dev):
     """``legs`` peer-slot draws per node: uniform over ``[0, N-1)`` on a
-    complete graph, over ``[0, max(deg, 1))`` on a neighbour list."""
+    complete graph (0 for a single node, as the reference's empty
+    ``randint`` range gives), over ``[0, max(deg, 1))`` on a neighbour
+    list."""
     if deg is None:
-        return torch.randint(0, n - 1, (n, legs), generator=generator,
-                             device=dev, dtype=torch.int32)
+        return torch.randint(0, max(n - 1, 1), (n, legs),
+                             generator=generator, device=dev,
+                             dtype=torch.int32)
     hi = torch.clamp(deg.to(dev, torch.int64), min=1)[:, None]
     u = torch.rand((n, legs), generator=generator, device=dev,
                    dtype=torch.float64)
@@ -186,6 +189,11 @@ def sample_peers(peer_slot, n: int, *, nbrs=None, node_alive=None,
                 "cluster on a mesh/ring/ER/BA topology to model partitions"
             )
         dst = peer_slot + (peer_slot >= self_idx).to(torch.int32)
+        if n == 1:
+            # The shift names node 1, which does not exist: the
+            # reference's scatter drops those deliveries, and a
+            # self-send (a merge no-op) gives the same state.
+            dst = torch.zeros_like(dst)
     else:
         slot = peer_slot.to(torch.int64)
         dst = torch.gather(nbrs, 1, slot)

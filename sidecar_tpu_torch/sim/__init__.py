@@ -1,1 +1,2 @@
-"""The scenario registry of the port (``sim/scenarios.py``)."""
+"""The scenario configs and registry (``sim/scenarios.py``) and the
+checkpoints (``sim/checkpoint.py``) of the port."""

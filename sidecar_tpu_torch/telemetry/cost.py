@@ -11,11 +11,11 @@ the decorator form; its ``tag`` nests a second range inside the phase
 which keeps it apart from the sharded twin's board exchange).
 
 Off by default, and then every scope is a ``nullcontext`` and the round
-runs exactly as without it.  ``SIDECAR_TPU_COST_PHASES=1`` turns the
-scopes on (``0`` or empty off); unset, a configured profile directory
-(``SIDECAR_TPU_PROFILE_DIR``) turns them on, as in the reference.
-:func:`forced_phases` pins the switch for a block.  The check runs per
-call, so a switch takes effect at the next round.
+runs exactly as without it.  The reference reads its switch from the
+``SIDECAR_TPU_COST_PHASES`` and ``SIDECAR_TPU_PROFILE_DIR`` environment
+variables; the port reads none: :func:`set_phases` turns the scopes on
+or off, and :func:`forced_phases` pins the switch for a block.  The
+check runs per call, so a switch takes effect at the next round.
 
 The reference's other half — compiled-HLO cost reports, collective
 byte parsing and profile-trace reduction — reads XLA's programs and is
@@ -26,13 +26,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import os
 from typing import Optional
 
 import torch
 
-PHASE_ENV = "SIDECAR_TPU_COST_PHASES"
-PROFILE_ENV = "SIDECAR_TPU_PROFILE_DIR"
 PHASE_PREFIX = "sidecar.phase."
 
 # The phase taxonomy of the reference.
@@ -40,13 +37,18 @@ PHASES = ("publish", "gather", "fold", "exchange", "ttl_sweep",
           "announce", "apply_scatter")
 
 
+_enabled = False
+
+
 def phases_enabled() -> bool:
-    """``SIDECAR_TPU_COST_PHASES`` when set (anything but ``""`` and
-    ``"0"`` is on), else whether a profile directory is configured."""
-    raw = os.environ.get(PHASE_ENV)
-    if raw is not None:
-        return raw.strip() not in ("", "0")
-    return bool(os.environ.get(PROFILE_ENV))
+    """Whether the phase scopes are on (off until :func:`set_phases`)."""
+    return _enabled
+
+
+def set_phases(enabled: bool) -> None:
+    """Turn the phase scopes on or off."""
+    global _enabled
+    _enabled = bool(enabled)
 
 
 def phase(name: str):
@@ -76,13 +78,10 @@ def phased(name: str, tag: Optional[str] = None):
 
 @contextlib.contextmanager
 def forced_phases(enabled: bool = True):
-    """Pin ``SIDECAR_TPU_COST_PHASES`` for the block, then restore it."""
-    old = os.environ.get(PHASE_ENV)
-    os.environ[PHASE_ENV] = "1" if enabled else "0"
+    """Pin the switch for the block, then restore it."""
+    old = _enabled
+    set_phases(enabled)
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop(PHASE_ENV, None)
-        else:
-            os.environ[PHASE_ENV] = old
+        set_phases(old)

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: each CUDA kernel against its
 plain PyTorch version on the same CUDA tensors, and short runs of the
-compressed model, its sharded twin, the exact model and the scenario
-fleet of each family on the card against the same runs on the CPU.  Marked ``cuda``; each decides
+compressed model, its sharded twin, the exact model, the scenario
+fleet of each family, the autopilot's recommendation and the scenario
+configs on the card against the same runs on the CPU.  Marked ``cuda``; each decides
 inside a fixture whether a card is present and skips with the reason
 where none is.  ``python3 chip_smoke.py`` covers the same ground at the
 north-star shapes.
@@ -982,3 +983,97 @@ def test_scatter_max_apply_kernel_on_fleet_triples(card):
     got = sm.scatter_max_apply_cuda(known, rows, cols, vals, sent, adv)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_recommend_on_card_equals_cpu(card, monkeypatch):
+    """A small ``recommend`` (n = 16, a fitted loss, churn and pause, so
+    the chaos family) on the card equals the CPU's when every dispatch
+    is fed one set of inputs drawn on the CPU (``fleet.cpu_inputs``):
+    every candidate's row and score, the estimate and the winner.  Then
+    the card's own pass, from its own generators, replays the winner
+    identically."""
+    from sidecar_tpu_torch.autopilot import AutopilotController, search
+    from sidecar_tpu_torch.fleet import cpu_inputs
+
+    kw = dict(rules=["converge <= 10 rounds", "agreement >= 0.99"],
+              estimate={"loss_rate": 0.2, "churn_rate": 0.01,
+                        "paused_frac": 0.125},
+              n=16, rounds=20, seed=3, seed_grid=2, generations=1,
+              population=3)
+    rows = []
+    evaluate = search.FleetEvaluator.evaluate
+    run_batch = search.FleetEvaluator._run_batch
+
+    def one_set_run_batch(self, batch):
+        return run_batch(self, batch, cpu_inputs(batch, self.rounds))
+
+    def kept(self, candidates, tag):
+        out = evaluate(self, candidates, tag)
+        rows[-1].extend(r.to_json() for r in out)
+        return out
+
+    with monkeypatch.context() as m:
+        m.setattr(search.FleetEvaluator, "_run_batch", one_set_run_batch)
+        m.setattr(search.FleetEvaluator, "evaluate", kept)
+        reports = []
+        for device in ("cpu", "cuda"):
+            rows.append([])
+            reports.append(AutopilotController(
+                timecfg=TimeConfig()).recommend(device=device, **kw))
+    host, got = reports
+    assert host["fault_plan"] is not None
+    for key in host:
+        if key not in ("replay", "wall_seconds", "recommended",
+                       "baseline"):
+            assert got[key] == host[key], key
+    assert len(rows[0]) == len(rows[1]) == host["candidates"]
+    for a, b in zip(*rows):
+        row_a, row_b = dict(a.pop("row")), dict(b.pop("row"))
+        assert a == b
+        assert abs(row_a.pop("final_convergence")
+                   - row_b.pop("final_convergence")) <= 1e-6
+        assert row_a == row_b
+    own = AutopilotController(timecfg=TimeConfig()).recommend(**kw)
+    assert own["replay"]["identical"] is True
+
+
+def captured_scenario(name, device, monkeypatch, **kw):
+    """Scenario ``name`` of the port's module built on ``device``: the
+    sim and state its ``_run`` would get."""
+    from sidecar_tpu_torch.sim import scenarios
+
+    seen = []
+
+    def fake_run(sim, state, *a, **k):
+        seen.append((sim, state))
+
+    with monkeypatch.context() as m:
+        m.setattr(scenarios, "_run", fake_run)
+        scenarios.ALL_SCENARIOS[name](device=device, **kw)
+    return seen[0]
+
+
+@pytest.mark.parametrize("name,kw,rounds", [
+    ("config6", dict(scale=0.125), 40),
+    ("config4", dict(scale=128 / 65_536), 20)])
+def test_scenario_on_card_equals_cpu(card, monkeypatch, name, kw, rounds):
+    """config6 (n = 32) and config4 (128 nodes, K = 256) built by the
+    module on the card equal the CPU's from one set of draws (and fault
+    draws; config6's side churn draws its masks on the CPU)."""
+    cpu, cpu_st = captured_scenario(name, "cpu", monkeypatch, **kw)
+    gpu, gpu_st = captured_scenario(name, "cuda", monkeypatch, **kw)
+    gen = torch.Generator().manual_seed(6)
+    draws = [cpu.draw(gen, r) for r in range(1, rounds + 1)]
+    extra = {}
+    if name == "config6":
+        extra["fault_draws"] = [cpu.fault_draw(r)
+                                for r in range(1, rounds + 1)]
+    a, ca = cpu.run(cpu_st, rounds, draws=draws, **extra)
+    b, cb = gpu.run(gpu_st, rounds, draws=draws, **extra)
+    torch.cuda.synchronize()
+    if name == "config6":
+        a, b = a.sim, b.sim
+    for f, v in convert.state_to_numpy(a).items():
+        np.testing.assert_array_equal(convert.state_to_numpy(b)[f], v,
+                                      err_msg=f)
+    np.testing.assert_allclose(ca.numpy(), cb.cpu().numpy(), atol=1e-6)

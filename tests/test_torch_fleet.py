@@ -31,11 +31,9 @@ from sidecar_tpu import metrics as jmetrics
 from sidecar_tpu.chaos import EdgeFault as JEdgeFault
 from sidecar_tpu.chaos import FaultPlan as JFaultPlan
 from sidecar_tpu.chaos import NodeFault as JNodeFault
-from sidecar_tpu.chaos.sim_inject import ChaosExactSim as JChaosExactSim
 from sidecar_tpu.models import compressed as jcompressed
 from sidecar_tpu.models import exact as jexact
 from sidecar_tpu.models.timecfg import TimeConfig as JTimeConfig
-from sidecar_tpu.ops import topology as jtopo
 from sidecar_tpu.ops import ttl as jttl
 from sidecar_tpu.sim import scenarios as jscenarios
 from sidecar_tpu_torch import convert
@@ -59,12 +57,7 @@ from sidecar_tpu_torch.ops.status import (
 )
 from sidecar_tpu_torch.sim import scenarios as tscenarios
 from tests.test_torch_exact import CONV_TOL
-from tests.torch_parity import (
-    jax_draws,
-    jax_exact_draws,
-    jax_fault_draw_seq,
-    jax_perturb_masks,
-)
+from tests.torch_parity import reference_inputs
 
 BASE = dict(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
 EXACT_PARAMS = dict(n=16, services_per_node=2, fanout=3, budget=5)
@@ -139,36 +132,6 @@ def batches(family, specs, plan_json=None):
         [tfleet.ScenarioSpec(**s) for s in specs], tp, TimeConfig(**BASE),
         family=family, plan=tplan, device="cpu")
     return jb, tb
-
-
-def reference_inputs(jb, rounds):
-    """Per scenario: the reference's draws, its churn hook's masks and
-    (under a plan) its fault draws."""
-    p = jb.params
-    draws, masks, faults = [], [], []
-    for i, spec in enumerate(jb.specs):
-        key = jax.random.PRNGKey(spec.seed)
-        keep = 1.0 - jb.scenario_params(i).drop_prob
-        if jb.family == "compressed":
-            draws.append([jax_draws(key, r, n=p.n, fanout=p.fanout,
-                                    cache_lines=p.cache_lines,
-                                    keep_prob=keep)
-                          for r in range(rounds)])
-        else:
-            draws.append([jax_exact_draws(key, r, n=p.n, fanout=p.fanout,
-                                          budget=min(p.budget, p.m),
-                                          keep_prob=keep)
-                          for r in range(rounds)])
-        masks.append(jax_perturb_masks(key, 0, rounds, (p.m,),
-                                       spec.churn_prob)
-                     if spec.churn_prob > 0 else None)
-        if jb.plan is not None:
-            jsim = JChaosExactSim(jb.scenario_params(i),
-                                  jtopo.complete(p.n),
-                                  jb.scenario_timecfg(i),
-                                  plan=jb.scenario_plan(i))
-            faults.append(jax_fault_draw_seq(jsim, 0, rounds))
-    return draws, masks, (faults or None)
 
 
 def both_runs(family, specs, rounds, *, stop, plan_json=None, eps=0.01,
@@ -360,6 +323,27 @@ def test_rows_equal_unbatched_port_runs(family, specs, plan):
                                           err_msg=f"{spec.name} {name}")
         np.testing.assert_allclose(run.convergence[:, i], conv.numpy(),
                                    atol=CONV_TOL)
+
+
+@pytest.mark.parametrize("plan", [False, True], ids=["exact", "chaos"])
+def test_cpu_inputs_replay_the_batch_own_run(plan):
+    """``fleet.cpu_inputs`` holds what a batch's own run on the CPU
+    draws (round draws, fault draws, churn masks): a run fed them ends
+    in the same states and curves."""
+    rounds = 20
+    specs = CHAOS_SPECS if plan else EXACT_SPECS
+    tb = batches("exact", specs, chaos_plan_json(16) if plan else None)[1]
+    assert tb.has_churn
+    own = tfleet.FleetSim(tb)
+    a = own.run(own.init_states(), rounds)
+    draws, faults, perturb = tfleet.cpu_inputs(tb, rounds)
+    assert (faults is None) == (not plan)
+    fed = tfleet.FleetSim(tb, perturb=perturb)
+    b = fed.run(fed.init_states(), rounds, draws=draws, fault_draws=faults)
+    want, got = leaves(a.final_states), leaves(b.final_states)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    np.testing.assert_array_equal(b.convergence, a.convergence)
 
 
 # -- (iii) the batched sweep window --------------------------------------------

@@ -73,10 +73,33 @@ def test_every_port_module_is_checked():
                      "delta.py", "provenance.py", "planes.py", "cost.py",
                      "plan.py", "adversary.py", "sim_inject.py",
                      "batch.py", "engine.py", "grid.py", "rounds.py",
-                     "scenarios.py"):
+                     "scenarios.py", "fit.py", "objective.py", "search.py",
+                     "controller.py", "slo.py", "checkpoint.py"):
         assert expected in names, expected
-    for package in ("chaos", "fleet", "sim"):
+    for package in ("chaos", "fleet", "sim", "autopilot", "telemetry"):
         assert any(p.parent.name == package for p in PORT_FILES), package
+
+
+def environment_reads(path):
+    """``os.environ``/``os.getenv`` (and ``environ``/``getenv`` imported
+    from ``os``) read in ``path``'s code."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr in (
+                "environ", "getenv", "environb", "getenvb") and \
+                isinstance(node.value, ast.Name) and node.value.id == "os":
+            yield node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module == "os" and \
+                any(a.name in ("environ", "getenv") for a in node.names):
+            yield node.lineno
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reads_no_environment_variable(path):
+    """Where the reference reads an environment variable, the port takes
+    an explicit argument with the reference's default."""
+    assert list(environment_reads(path)) == [], path
 
 
 def test_no_module_names_a_deferred_item():
@@ -138,6 +161,20 @@ def small_fleet(**kw):
     return FleetSim(batch)
 
 
+def small_evaluator(**kw):
+    from sidecar_tpu_torch.autopilot import FleetEvaluator, Objective
+
+    p = SimParams(n=16, services_per_node=2, budget=4)
+    return FleetEvaluator(p, TimeConfig(), Objective(["converge <= 10 "
+                                                      "rounds"]), **kw)
+
+
+def small_scenario(**kw):
+    from sidecar_tpu_torch.sim import scenarios
+
+    return scenarios.config6_sim(n=32, **kw)
+
+
 def small_fault_plan(**kw):
     from sidecar_tpu_torch.chaos import CompiledFaultPlan, EdgeFault, FaultPlan
 
@@ -161,9 +198,9 @@ def small_adversary(**kw):
 @pytest.mark.parametrize(
     "make",
     [small_sim, small_exact, small_chaos, small_fault_plan, small_adversary,
-     small_fleet],
+     small_fleet, small_evaluator, small_scenario],
     ids=["compressed", "exact", "chaos", "fault_plan", "adversary",
-         "fleet"])
+         "fleet", "evaluator", "scenario"])
 def test_default_device_needs_a_gpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

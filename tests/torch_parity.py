@@ -30,13 +30,7 @@ from sidecar_tpu_torch import convert
 from sidecar_tpu_torch.models.compressed import CompressedSim
 from sidecar_tpu_torch.models.exact import ExactSim
 from sidecar_tpu_torch.ops.gossip import RoundDraws
-from sidecar_tpu_torch.ops.status import (
-    ALIVE,
-    TOMBSTONE,
-    pack,
-    unpack_status,
-    unpack_ts,
-)
+from sidecar_tpu_torch.ops.status import ALIVE, TOMBSTONE
 
 STATE_FIELDS = ("own", "cache_slot", "cache_val", "cache_sent", "floor",
                 "node_alive", "round_idx", "evictions", "dropped")
@@ -434,9 +428,13 @@ def churn_hooks(params, round_ticks, masks, start, end, prob=0.05):
     """config6's side-A churn (``sim/scenarios.py`` ``config6_chaos``)
     in both packages: from round ``start`` to ``end`` the chosen side-A
     slots restart, ALIVE ↔ TOMBSTONE at ``now``.  The reference hook
-    draws ``bernoulli(k_perturb, prob, [M])``; the port's replays those
-    masks (``masks``, by round, from :func:`jax_perturb_masks`).
-    Returns ``(jax hook, port hook)``."""
+    draws ``bernoulli(k_perturb, prob, [M])``; the port's is the port's
+    ``sim/scenarios.side_churn`` replaying those masks (``masks``, by
+    round, from :func:`jax_perturb_masks`).  Returns ``(jax hook, port
+    hook)``."""
+    from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.sim.scenarios import side_churn
+
     m, spn, n = params["n"] * params["services_per_node"], \
         params["services_per_node"], params["n"]
 
@@ -456,23 +454,41 @@ def churn_hooks(params, round_ticks, masks, start, end, prob=0.05):
             jnp.int8(0), mode="drop")
         return dataclasses.replace(state, known=known, sent=sent)
 
-    def port_hook(state, now):
-        round_idx = now // round_ticks
-        if not start <= round_idx < end:
-            return state
-        owner = torch.arange(m) // spn
-        cols = torch.arange(m)
-        own = state.known[owner, cols]
-        flip = masks[round_idx] & (owner < n // 2) & \
-            (unpack_ts(own) > 0) & state.node_alive[owner]
-        new_status = torch.where(unpack_status(own) == ALIVE, TOMBSTONE,
-                                 ALIVE)
-        state.known[owner, cols] = torch.where(flip, pack(now, new_status),
-                                               own)
-        state.sent[owner[flip], cols[flip]] = 0
-        return state
-
+    port_hook = side_churn(SimParams(**params), prob, start=start, end=end,
+                           masks=masks)
     return jax_hook, port_hook
+
+
+def reference_inputs(jb, rounds):
+    """Per scenario of the reference fleet batch ``jb``: the reference's
+    draws, its churn hook's masks and (under a plan) its fault draws."""
+    from sidecar_tpu.chaos.sim_inject import ChaosExactSim as JChaosExactSim
+
+    p = jb.params
+    draws, masks, faults = [], [], []
+    for i, spec in enumerate(jb.specs):
+        key = jax.random.PRNGKey(spec.seed)
+        keep = 1.0 - jb.scenario_params(i).drop_prob
+        if jb.family == "compressed":
+            draws.append([jax_draws(key, r, n=p.n, fanout=p.fanout,
+                                    cache_lines=p.cache_lines,
+                                    keep_prob=keep)
+                          for r in range(rounds)])
+        else:
+            draws.append([jax_exact_draws(key, r, n=p.n, fanout=p.fanout,
+                                          budget=min(p.budget, p.m),
+                                          keep_prob=keep)
+                          for r in range(rounds)])
+        masks.append(jax_perturb_masks(key, 0, rounds, (p.m,),
+                                       spec.churn_prob)
+                     if spec.churn_prob > 0 else None)
+        if jb.plan is not None:
+            jsim = JChaosExactSim(jb.scenario_params(i),
+                                  jax_topology.complete(p.n),
+                                  jb.scenario_timecfg(i),
+                                  plan=jb.scenario_plan(i))
+            faults.append(jax_fault_draw_seq(jsim, 0, rounds))
+    return draws, masks, (faults or None)
 
 
 def chaos_option_kwargs(option, topo, round_ticks, key, n):
