@@ -12,7 +12,8 @@ workload — with its execution modes and over node shards, the chaos
 round and the partition hooks (config 5 and config 6 of the port's
 ``sim/scenarios.py``), the scenario fleet of all three families, the
 autopilot's closed loop, the scenario configs and a checkpoint resume,
-plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
+the simulator bridge over HTTP and the exact model against the NumPy
+oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — ``nvcc`` builds the kernels from
@@ -197,7 +198,27 @@ plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    launches (K1 once a round of config4, K4a once a round of the
    others), config4's BA(3) graph build alone; then config3 saved at
    round 600 with its generator (``sim/checkpoint.py``), loaded into a
-   fresh sim and run to round 1,200, equal to the straight run.
+   fresh sim and run to round 1,200, equal to the straight run;
+17. bridge — the simulator bridge (``sidecar_tpu_torch/bridge``) served
+   over HTTP on 127.0.0.1 from a catalog of 1,024 hosts × 4 services
+   made with numpy and loaded through ``catalog.decode``: a 300-round
+   ``/simulate`` (two chunks) with 20 cold nodes, 60-round requests
+   with ``deltas_cap`` and a damping ``protocol``, with ``digest``, with
+   ``provenance`` and with ``trace`` and ``sparse``, ``sharded`` on a
+   4-shard bridge equal to the unsharded answer, an 8-point ``/sweep``
+   (100 rounds, one SLO rule), ``/autopilot/recommend`` with a given
+   estimate and a malformed request (400); each request's wall split
+   into dispatch, read-back, projection, JSON encode and HTTP, its
+   bytes, peak memory and K4a launches (once a simulated round, a
+   shard's round on the sharded bridge); then the same requests at 64
+   hosts, card against CPU, equal reports;
+18. oracle — the card's exact model against the sequential NumPy oracle
+   (``sim/oracle.py``) at 64 × 4 services, 40 rounds on a fast clock:
+   the plain round on the complete graph and ER(8), the suspicion
+   window with the future bound and the origin budget, a clock-only
+   chaos plan and an adversary with the defences on, every round; the
+   pipelined oracle against ``step_pipelined`` and the provenance
+   oracle against ``run_with_provenance``.
 
 Each phase prints one JSON line; then the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -216,7 +237,7 @@ import time
 PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
           "north_star", "sharded", "scatter", "exact_lockstep", "exact",
           "exact_modes", "telemetry", "sharded_exact", "chaos", "fleet",
-          "autopilot", "scenarios")
+          "autopilot", "scenarios", "bridge", "oracle")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
@@ -4942,6 +4963,555 @@ def phase_row_gather_windows(n: int, k: int = 256, f: int = 3,
         raise SystemExit(f"row-gather window sweep failed: {failures}")
 
 
+# -- phase 17: the simulator bridge --------------------------------------------------
+
+BRIDGE_HOSTS, BRIDGE_SPN = 1024, 4
+BRIDGE_SEED = 5
+
+
+def synthetic_catalog(hosts, spn, seed) -> bytes:
+    """The wire document (``ServicesState.encode()``, what ``GET
+    /api/state.json`` serves) of a catalog of ``hosts`` × ``spn``
+    services made with numpy from ``seed``: stamps over 10 s, 85 %
+    Alive and 5 % each Draining, Unhealthy and Tombstone."""
+    import numpy as np
+
+    from sidecar_tpu_torch import service as svc
+    from sidecar_tpu_torch.catalog import Server, ServicesState
+
+    rng = np.random.default_rng(seed)
+    t0 = 1_700_000_000 * svc.NS_PER_SECOND
+    stamps = t0 + rng.integers(0, 10 * svc.NS_PER_SECOND, (hosts, spn))
+    statuses = rng.choice([svc.ALIVE, svc.DRAINING, svc.UNHEALTHY,
+                           svc.TOMBSTONE], (hosts, spn),
+                          p=[0.85, 0.05, 0.05, 0.05])
+    state = ServicesState(hostname="host-0000", cluster_name="smoke")
+    for h in range(hosts):
+        name = f"host-{h:04d}"
+        server = state.servers[name] = Server(name)
+        for s in range(spn):
+            sid = f"{name}-svc{s}"
+            server.services[sid] = svc.Service(
+                id=sid, name=f"app{s}", image="app:1", hostname=name,
+                updated=int(stamps[h, s]), status=int(statuses[h, s]))
+    return state.encode()
+
+
+def post_json(port, route, payload):
+    """POST ``payload`` to the bridge on 127.0.0.1; returns ``(status,
+    body bytes)``."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{route}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+class BridgeTimer:
+    """Wall time of the bridge's host steps, per request: the library
+    call, each chunk's dispatch and read-back, the projection, and the
+    server's JSON encode of the answer (the module's one ``json.dumps``,
+    in the handler's reply)."""
+
+    STEPS = {"simulate": "simulate", "sweep": "sweep",
+             "autopilot_recommend": "recommend", "_dispatch": "dispatch",
+             "_consume": "consume", "_project": "projection"}
+
+    def __init__(self):
+        from sidecar_tpu_torch.bridge import SimBridge
+
+        self.cls, self.saved, self.acc = SimBridge, {}, {}
+        for attr, label in self.STEPS.items():
+            raw = SimBridge.__dict__[attr]
+            fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+            self.saved[attr] = raw
+            wrapped = self._timed(fn, label)
+            setattr(SimBridge, attr, staticmethod(wrapped)
+                    if isinstance(raw, staticmethod) else wrapped)
+        import types
+
+        from sidecar_tpu_torch.bridge import sim_bridge
+
+        self.module = sim_bridge
+        sim_bridge.json = types.SimpleNamespace(
+            dumps=self._timed(json.dumps, "encode"), loads=json.loads,
+            JSONDecodeError=json.JSONDecodeError)
+
+    def _timed(self, fn, label):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.acc[label] = self.acc.get(label, 0.0) + \
+                    time.perf_counter() - t0
+        return wrapper
+
+    def take(self) -> dict:
+        out, self.acc = self.acc, {}
+        return out
+
+    def restore(self):
+        for attr, raw in self.saved.items():
+            setattr(self.cls, attr, raw)
+        self.module.json = json
+
+
+def bridge_request(port, route, payload, timer, status=200):
+    """One timed POST: the request's wall split into the library call's
+    steps, the server's JSON encode and the remainder (the request's
+    parse, HTTP both ways and the client's read); the response bytes,
+    peak device memory and K4a's launches."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    timer.take()
+    t0 = time.perf_counter()
+    code, body = post_json(port, route, payload)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launches()
+    steps = timer.take()
+    doc = json.loads(body)
+    lib = steps.get("simulate", steps.get("sweep", steps.get("recommend",
+                                                              0.0)))
+    line = {"route": route, "status": code, "wall_s": wall, **{
+        f"{k}_s": v for k, v in steps.items()},
+        "http_s": wall - lib - steps.get("encode", 0.0),
+        "response_bytes": len(body),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "k4a_launches": counts["scatter_max_apply"]}
+    if code != status:
+        raise SystemExit(f"bridge: {route} answered {code}, expected "
+                         f"{status}: {body[:300]!r}")
+    return doc, counts, line
+
+
+def simulate_summary(doc, line, rounds):
+    """The printed figures of one ``/simulate`` answer."""
+    conv = doc["convergence"]
+    run_s = line.get("dispatch_s", 0.0) + line.get("consume_s", 0.0)
+    return {**line, "rounds": rounds, "eps_round": doc["eps_round"],
+            "final_convergence": conv[-1] if conv else None,
+            "rounds_per_s": rounds / run_s if run_s > 0 else None,
+            "finite": all(0.0 <= c <= 1.0 for c in conv)
+            and len(conv) == rounds,
+            "sparse": doc["sparse"]}
+
+
+def bridge_card_against_cpu(hosts=64, spn=4, rounds=60):
+    """Requests 1–5 at ``hosts`` × ``spn``, the card's bridge against the
+    CPU's, equal reports: each ``/simulate`` fed one set of draws drawn
+    on the CPU, each fleet dispatch one set of inputs drawn on the CPU
+    (``fleet.cpu_inputs``)."""
+    import torch
+
+    from sidecar_tpu_torch.autopilot import search
+    from sidecar_tpu_torch.bridge import SimBridge
+    from sidecar_tpu_torch.catalog import decode
+    from sidecar_tpu_torch.fleet import cpu_inputs
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+
+    state = decode(synthetic_catalog(hosts, spn, BRIDGE_SEED))
+    pair = [SimBridge(state, TimeConfig(), device=d, shards=4)
+            for d in ("cpu", DEVICE)]
+    cold = sorted(state.servers)[::16]
+    sims = {
+        "long": dict(rounds=2 * rounds, cold_nodes=cold),
+        "deltas_damping": dict(rounds=rounds, deltas_cap=256,
+                               protocol={"damping_threshold": 2.0}),
+        "digest": dict(rounds=rounds, digest=rounds, cold_nodes=cold),
+        "provenance": dict(rounds=rounds, provenance={"count": 8},
+                           cold_nodes=cold),
+        "trace_sparse": dict(rounds=rounds, trace=rounds, sparse=True,
+                             cold_nodes=cold),
+        "sharded": dict(rounds=rounds, sharded=True, cold_nodes=cold),
+    }
+    for b in pair:
+        b.CHUNK_ROUNDS = rounds
+    run_sweep = SimBridge._run_sweep_batch
+    run_batch = search.FleetEvaluator._run_batch
+    SimBridge._run_sweep_batch = staticmethod(
+        lambda batch, run_kw, inputs=None: run_sweep(
+            batch, run_kw, cpu_inputs(batch, run_kw["num_rounds"])))
+    search.FleetEvaluator._run_batch = \
+        lambda self, batch: run_batch(self, batch,
+                                      cpu_inputs(batch, self.rounds))
+    equal = {}
+    reset_launches()
+    try:
+        for name, kw in sims.items():
+            _, _, _, sim = pair[0].snapshot(sharded=kw.get("sharded",
+                                                           False))
+            gen = torch.Generator().manual_seed(11)
+            draws = [sim.draw(gen, r) for r in range(1, kw["rounds"] + 1)]
+            a, b = (br.simulate(draws=draws, **kw).to_json()
+                    for br in pair)
+            equal[name] = a == b
+        axes = {"push_pull_interval_s": [1.0, 2.0, 4.0, 8.0],
+                "drop_prob": [0.0, 0.1]}
+        a, b = (br.sweep(axes, rounds=rounds, slo=["converge <= 30 rounds"])
+                for br in pair)
+        skip = ("wall_seconds", "scenarios_per_sec")
+        equal["sweep"] = all(a[k] == b[k] for k in a if k not in skip)
+        req = {"rules": ["converge <= 30 rounds"],
+               "estimate": {"loss_rate": 0.1}, "rounds": rounds,
+               "seed": 2, "generations": 1, "population": 4}
+        a, b = (br.autopilot_recommend(dict(req)) for br in pair)
+        equal["autopilot"] = all(a[k] == b[k] for k in a
+                                 if k not in ("wall_seconds", "replay"))
+        equal["replay_identical"] = bool(b["replay"]["identical"])
+    finally:
+        SimBridge._run_sweep_batch = run_sweep
+        search.FleetEvaluator._run_batch = run_batch
+    torch.cuda.synchronize()
+    return launches(), {"hosts": hosts, "services_per_node": spn,
+                        "equal": equal, "ok": all(equal.values())}
+
+
+def phase_bridge(hosts=BRIDGE_HOSTS, spn=BRIDGE_SPN, rounds=300,
+                 short=60, cpu_hosts=64):
+    """The port's bridge (``sidecar_tpu_torch/bridge``) served over HTTP
+    on the card, at ``hosts`` × ``spn`` services: the catalog made with
+    numpy, encoded as ``/api/state.json`` serves it and loaded with
+    ``catalog.decode``, then ``serve_bridge(..., port=0)`` on
+    127.0.0.1 answers a 10-round warm-up, then (1) a ``rounds``-round
+    ``/simulate`` (two chunks) with 2 % cold nodes, (2) ``short``-round
+    requests with ``deltas_cap`` and a damping ``protocol``, with
+    ``digest``, with ``provenance``, with ``trace`` and ``sparse``, (3)
+    ``sharded: true``
+    on a bridge of 4 shards, equal to the same request unsharded, (4)
+    an 8-point ``/sweep`` at the catalog's n (push-pull 1/2/4/8 s × loss
+    0/0.1, 100 rounds, one SLO rule), (5) ``/autopilot/recommend`` with
+    a given estimate (``short`` rounds, one generation of 4), and (6) a
+    malformed request, which must get a 400.  Each request's wall and
+    its split, response bytes, peak memory and K4a launches (once a
+    round of every simulated round, a shard's round on the sharded
+    bridge).  Then 1–5 at ``cpu_hosts`` × ``spn``, card against CPU."""
+    import torch
+
+    from sidecar_tpu_torch.bridge import SimBridge, serve_bridge
+    from sidecar_tpu_torch.catalog import decode
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    catalog_doc = synthetic_catalog(hosts, spn, BRIDGE_SEED)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = decode(catalog_doc)
+    decode_s = time.perf_counter() - t0
+    bridge = SimBridge(state, TimeConfig())
+    sharded_bridge = SimBridge(state, TimeConfig(), shards=4)
+    cold = sorted(state.servers)[::hosts // 20][:20]
+    timer = BridgeTimer()
+    servers = [serve_bridge(b, port=0) for b in (bridge, sharded_bridge)]
+    port, sharded_port = (s.server_address[1] for s in servers)
+    lines, all_counts, failures = [], [], []
+
+    def simulate(name, payload, on=port, want_launches=None):
+        doc, counts, line = bridge_request(on, "/simulate", payload, timer)
+        n_rounds = payload["rounds"]
+        line = simulate_summary(doc, line, n_rounds)
+        lines.append({"request": name, **line})
+        all_counts.append(counts)
+        want = n_rounds if want_launches is None else want_launches
+        if counts != expected(scatter_max_apply=want) or \
+                not line["finite"]:
+            failures.append(name)
+        return doc
+
+    try:
+        # The process's first request pays for the card's warm-up (the
+        # kernels' first loads, the caching allocator): its own line.
+        simulate("warmup", {"rounds": 10, "seed": 9})
+        long = simulate("simulate_cold", {"rounds": rounds,
+                                          "cold_nodes": cold, "seed": 1})
+        for name, extra in (
+                ("deltas_damping", {"deltas_cap": 4096, "protocol": {
+                    "damping_threshold": 2.0, "suspicion_window_s": 1.0}}),
+                ("digest", {"digest": short}),
+                ("provenance", {"provenance": {"count": 8}}),
+                ("trace_sparse", {"trace": short, "sparse": True})):
+            doc = simulate(name, {"rounds": short, "cold_nodes": cold,
+                                  "seed": 2, **extra})
+            block = {"deltas_damping": "robustness", "digest": "digest",
+                     "provenance": "provenance", "trace_sparse": "trace"
+                     }[name]
+            if not doc.get(block):
+                failures.append(f"{name}.{block}")
+        plain = simulate("unsharded", {"rounds": short, "cold_nodes": cold,
+                                       "seed": 3})
+        sharded = simulate("sharded", {"rounds": short, "cold_nodes": cold,
+                                       "seed": 3, "sharded": True},
+                           on=sharded_port, want_launches=4 * short)
+        sharded_equal = all(plain[k] == sharded[k] for k in plain
+                            if k not in ("board_exchange", "devices"))
+        if not sharded_equal or sharded["devices"] != 4:
+            failures.append("sharded_equal")
+
+        sweep_req = {"axes": {"push_pull_interval_s": [1.0, 2.0, 4.0, 8.0],
+                              "drop_prob": [0.0, 0.1]},
+                     "rounds": 100, "slo": ["converge <= 30 rounds"]}
+        sweep, counts, line = bridge_request(port, "/sweep", sweep_req,
+                                             timer)
+        all_counts.append(counts)
+        lines.append({"request": "sweep", **line,
+                      "points": sweep["points"], "n": sweep["n"],
+                      "rounds_to_eps": [r["rounds_to_eps"]
+                                        for r in sweep["table"]],
+                      "slo_pass": [r["slo"]["pass"] for r in sweep["table"]],
+                      "pareto_front": sweep["pareto_front"],
+                      "pareto_excluded": sweep["pareto_excluded"],
+                      "scenarios_per_sec": sweep["scenarios_per_sec"]})
+        if sweep["points"] != 8 or sweep["n"] != hosts or \
+                counts["scatter_max_apply"] < 1:
+            failures.append("sweep")
+
+        ap_req = {"rules": ["converge <= 30 rounds"],
+                  "estimate": {"loss_rate": 0.1}, "rounds": short,
+                  "seed": 2, "generations": 1, "population": 4}
+        rec, counts, line = bridge_request(port, "/autopilot/recommend",
+                                           ap_req, timer)
+        all_counts.append(counts)
+        lines.append({"request": "autopilot", **line,
+                      "evaluations": rec["evaluations"],
+                      "dispatches": rec["dispatches"],
+                      "recommended": rec["recommended"]["candidate"],
+                      "pass": rec["recommended"]["slo"]["pass"],
+                      "replay_identical": rec["replay"]["identical"]})
+        if not rec["replay"]["identical"] or rec["n"] != hosts:
+            failures.append("autopilot")
+
+        bad, _, line = bridge_request(port, "/simulate",
+                                      {"rounds": 5, "trace": 3,
+                                       "provenance": {"count": 2}}, timer,
+                                      status=400)
+        lines.append({"request": "malformed", "status": line["status"],
+                      "message": bad.get("message")})
+        if "mutually exclusive" not in bad.get("message", ""):
+            failures.append("malformed")
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        timer.restore()
+    del bridge, sharded_bridge
+    card_counts, card_cpu = bridge_card_against_cpu(cpu_hosts, spn, short)
+    all_counts.append(card_counts)
+    if not card_cpu["ok"]:
+        failures.append("card_against_cpu")
+    ok = not failures
+    emit({"phase": "bridge", "hosts": hosts, "services_per_node": spn,
+          "cells": hosts * hosts * spn, "catalog_bytes": len(catalog_doc),
+          "catalog_make_s": make_s, "catalog_decode_s": decode_s,
+          "projected_entries": sum(len(v) for v in long["projected"]
+                                   .values()),
+          "requests": lines, "card_against_cpu": card_cpu,
+          "failures": failures, "phase_s": time.perf_counter() - t_phase,
+          "ok": ok})
+    if not ok:
+        raise SystemExit("bridge phase failed")
+    return all_counts
+
+
+# -- phase 18: the sequential oracle -------------------------------------------------
+
+ORACLE_TIME = dict(refresh_interval_s=3.0, push_pull_interval_s=2.0,
+                   sweep_interval_s=1.0)
+
+
+def oracle_cases(n):
+    """(name, sim factory) of the oracle phase: the plain round on the
+    complete graph and ER(8); the suspicion window with the future bound
+    and the origin budget; a clock-only chaos plan; an adversary with the
+    defences on."""
+    import dataclasses
+
+    from sidecar_tpu_torch.chaos import (
+        AdversaryPlan,
+        Attack,
+        ChaosExactSim,
+        ClockFault,
+        FaultPlan,
+    )
+    from sidecar_tpu_torch.models.exact import ExactSim, SimParams
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+    from sidecar_tpu_torch.ops.topology import complete, erdos_renyi
+
+    p = SimParams(n=n, services_per_node=4, fanout=3, budget=15,
+                  drop_prob=0.1)
+    fast = TimeConfig(**ORACLE_TIME)
+    er = erdos_renyi(n, avg_degree=8.0, seed=3)
+    suspicion = dataclasses.replace(fast, alive_lifespan_s=2.0,
+                                    refresh_interval_s=600.0,
+                                    suspicion_window_s=1.0,
+                                    future_fudge_s=0.5, origin_budget=2)
+    clocks = FaultPlan(seed=11, clocks=(
+        ClockFault(nodes=(0, 1, 2), start_round=3, end_round=30,
+                   offset_ticks=30_000, drift_ticks_per_round=7.5),
+        ClockFault(nodes=(5,), start_round=5, end_round=35,
+                   offset_ticks=-9_000, step_ticks=2_000, step_round=12)))
+    attack = AdversaryPlan(seed=7, attacks=(
+        Attack(kind="tombstone_bomb", nodes=(0,), victims=(3, 4),
+               rate=0.8, start_round=2, end_round=40),
+        Attack(kind="sybil_flood", nodes=(2,), victims=(5,), rate=0.6,
+               magnitude_ticks=300, start_round=3, end_round=40)))
+    defended = dataclasses.replace(fast, future_fudge_s=0.5,
+                                   origin_budget=1, origin_quarantine=6)
+    return [
+        ("complete", lambda d: ExactSim(p, complete(n), fast, device=d)),
+        ("er8", lambda d: ExactSim(p, er, fast, device=d)),
+        ("suspicion_future_budget",
+         lambda d: ExactSim(p, er, suspicion, device=d)),
+        ("clock_plan", lambda d: ChaosExactSim(
+            p, complete(n), dataclasses.replace(fast, future_fudge_s=0.5),
+            clocks, device=d)),
+        ("adversary", lambda d: ChaosExactSim(
+            p, complete(n), defended, FaultPlan(seed=1), device=d,
+            adversary=attack)),
+    ]
+
+
+def phase_oracle(n=64, rounds=40):
+    """The card's exact model against the port's sequential NumPy oracle
+    (``sim/oracle.py``) at ``n`` × 4 services, ``rounds`` rounds on a
+    fast clock (push-pull every 10 rounds, the sweep every 5), draws
+    drawn on the CPU: ``known`` and ``sent`` equal after every round in
+    each case of :func:`oracle_cases`; then the pipelined oracle against
+    ``step_pipelined`` and the provenance oracle against
+    ``run_with_provenance``.  K4a once a round of every card run."""
+    import numpy as np
+    import torch
+
+    from sidecar_tpu_torch.models.exact import ExactSim, SimParams
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+    from sidecar_tpu_torch.ops import provenance as prov_ops
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+    from sidecar_tpu_torch.sim.oracle import (
+        OracleSim,
+        PipelinedOracleSim,
+        ProvenanceOracle,
+    )
+
+    t_phase = time.perf_counter()
+    results, all_counts = {}, []
+
+    def same(sim_state, orc):
+        # The oracle counts ``sent`` in int32 and selects on its int8
+        # cast, the model's storage: an attacker's count past 127 wraps
+        # alike in both.
+        return (np.array_equal(sim_state.known.cpu().numpy(), orc.known)
+                and np.array_equal(sim_state.sent.cpu().numpy(),
+                                   orc.sent.astype(np.int8)))
+
+    for name, build in oracle_cases(n):
+        sim = build(DEVICE)
+        state = sim.init_state()
+        inner = getattr(state, "sim", state)
+        orc = OracleSim(sim, inner)
+        gen = torch.Generator().manual_seed(3)
+        reset_launches()
+        first_diff, wrap, oracle_s = None, None, 0.0
+        for r in range(1, rounds + 1):
+            d = sim.draw(gen, r)
+            state = sim.step(state, draws=d)
+            t0 = time.perf_counter()
+            orc.step(d)
+            oracle_s += time.perf_counter() - t0
+            if first_diff is None and not same(getattr(state, "sim", state),
+                                               orc):
+                first_diff = r
+            if wrap is None and int(orc.sent.max()) > 127:
+                wrap = r
+        torch.cuda.synchronize()
+        counts = launches()
+        all_counts.append(counts)
+        codes = np.unique(orc.known[orc.known > 0] & 7).tolist()
+        results[name] = {"equal": first_diff is None,
+                         "first_diff_round": first_diff,
+                         "sent_over_int8_round": wrap,
+                         "convergence": orc.convergence(),
+                         "status_codes": codes,
+                         "quarantined": list(orc.quarantined_origins()),
+                         "oracle_s": oracle_s,
+                         "launches_ok": counts == expected(
+                             scatter_max_apply=rounds)}
+
+    p = SimParams(n=n, services_per_node=4, fanout=3, budget=15,
+                  drop_prob=0.1)
+    er = erdos_renyi(n, avg_degree=8.0, seed=3)
+    fast = TimeConfig(**ORACLE_TIME)
+    sim = ExactSim(p, er, fast, pipeline="1")
+    gen = torch.Generator().manual_seed(4)
+    draws = [sim.draw(gen, r) for r in range(1, rounds + 2)]
+    state = sim.init_state()
+    orc = PipelinedOracleSim(sim, state)
+    reset_launches()
+    state, inflight = sim.prime_pipeline(state, draws=draws[0])
+    orc.prime(draws[0])
+    first_diff = None
+    for r in range(1, rounds + 1):
+        state, inflight = sim.step_pipelined(state, inflight,
+                                             draws=draws[r])
+        orc.step(draws[r])
+        if first_diff is None and not same(state, orc):
+            first_diff = r
+    torch.cuda.synchronize()
+    counts = launches()
+    all_counts.append(counts)
+    results["pipelined"] = {"equal": first_diff is None,
+                            "first_diff_round": first_diff,
+                            "launches_ok": counts == expected(
+                                scatter_max_apply=rounds)}
+
+    sim = ExactSim(p, er, TimeConfig(refresh_interval_s=10_000.0,
+                                     push_pull_interval_s=2.0))
+    tracked = prov_ops.default_tracked(p.m, 8)
+    tr = torch.tensor(tracked, dtype=torch.int32, device=sim.device)
+    draws = draws[:rounds]
+    start = sim.init_state()
+    reset_launches()
+    _, pv, _ = sim.run_with_provenance(start, rounds, tracked, draws=draws,
+                                       donate=False)
+    orc = ProvenanceOracle(sim._prov_belief(start, tr), 0)
+    st = start
+    for d in draws:
+        nxt = sim.step(st, draws=d)
+        orc.observe(orc.holders(sim._prov_belief(st, tr)),
+                    orc.holders(sim._prov_belief(nxt, tr)),
+                    nxt.round_idx, *sim._prov_channels(nxt, d))
+        st = nxt
+    torch.cuda.synchronize()
+    counts = launches()
+    all_counts.append(counts)
+    results["provenance"] = {
+        "equal": bool(
+            np.array_equal(pv.first_seen.cpu().numpy(), orc.first_seen)
+            and np.array_equal(pv.parent.cpu().numpy(), orc.parent)
+            and np.array_equal(pv.hops.cpu().numpy(), orc.hops)
+            and np.array_equal(pv.coverage.cpu().numpy()[:rounds],
+                               np.asarray(orc.coverage))),
+        "attributed": int((orc.parent >= 0).sum()),
+        "launches_ok": counts == expected(scatter_max_apply=2 * rounds)}
+    ok = all(r["equal"] and r["launches_ok"] for r in results.values()) \
+        and results["adversary"]["quarantined"] == [0, 2]
+    emit({"phase": "oracle", "n": n, "services_per_node": 4,
+          "rounds": rounds, "results": results,
+          "phase_s": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise SystemExit("oracle phase failed")
+    return all_counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5048,6 +5618,10 @@ def main(argv=None) -> int:
         runs += phase_autopilot()
     if "scenarios" in phases:
         runs += phase_scenarios()
+    if "bridge" in phases:
+        runs += phase_bridge()
+    if "oracle" in phases:
+        runs += phase_oracle()
     if records:
         emit({"kernels": [
             {"name": f"{name}_kernel", "route": "cuda",

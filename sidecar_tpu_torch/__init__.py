@@ -37,6 +37,13 @@ so each counterpart is easy to find:
   and the registry and protocol-config validation;
   ``sim/checkpoint.py`` — save and resume a run's state (and its
   generator);
+* ``bridge/sim_bridge.py`` — the simulator bridge: ``SimBridge``
+  (``simulate``, ``sweep``, ``autopilot_recommend``) and its HTTP server
+  ``serve_bridge``; with what it reads: ``catalog/`` (the catalog's read
+  side and wire form, the flap damper), ``service.py`` (status names,
+  the service record), ``ops/suspicion.py``'s ``ProtocolParams`` and
+  ``telemetry/span.py``;
+* ``sim/oracle.py`` — the sequential NumPy oracle of the exact round;
 * ``convert.py`` — moving state, params and graphs across from the
   reference's numpy form.
 

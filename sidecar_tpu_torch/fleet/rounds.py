@@ -216,13 +216,9 @@ def exact_convergence(known, alive):
         a, z = ch[0], ch[-1] + 1
         k, al = known[a:z], alive[a:z]
         truth = torch.where(al[:, :, None], k, 0).amax(dim=1)
-        # A count of agreeing cells over M is the float mean exactly
-        # (the count is an integer below 2^24), without a float copy.
+        # Each node's count of agreeing cells, without a float copy.
         agree = (k == truth[:, None, :]).sum(dim=2, dtype=I32)
-        alive_f = al.to(F32)
-        per_node = agree.to(F32) / m
-        out.append((per_node * alive_f).sum(dim=1)
-                   / torch.clamp(alive_f.sum(dim=1), min=1.0))
+        out.append(common.alive_mean(agree, m, al))
     return torch.cat(out)
 
 

@@ -1,8 +1,9 @@
 """What the port's models share: the checks at construction — the
 device (the card unless the caller asks for the CPU), the tick cadence
 (:func:`resolve_cadence`) and the partition cut (:func:`cut_tensor`) —
-the scenario hook's call (:func:`apply_perturb`) and the draw schedule
-of the ``run*`` methods (:func:`round_draws`)."""
+the scenario hook's call (:func:`apply_perturb`), the draw schedule
+of the ``run*`` methods (:func:`round_draws`) and the convergence
+metric's float32 sum (:func:`alive_mean`)."""
 
 from __future__ import annotations
 
@@ -155,3 +156,31 @@ def round_draws(sim, first_round: int, num_rounds: int, generator, draws):
             yield draws[i]
         else:
             yield sim.draw(generator, first_round + i)
+
+
+# The reference's CPU backend sums a float32 row of up to this many
+# values one after another, in index order.
+SEQUENTIAL_SUM_MAX = 32
+
+
+def alive_mean(agree, m: int, alive):
+    """The convergence metric from each node's count of agreeing cells
+    (int ``[..., N]`` of ``m`` cells) and its liveness: the mean agreement
+    of the alive nodes, float32, computed as the reference's compiled
+    program computes it — each node's mean as ``count · fl32(1/m)``,
+    their alive-weighted sum over the last axis, over the alive count.
+    The sum's order is the same on every device: in index order for at
+    most :data:`SEQUENTIAL_SUM_MAX` nodes (the reference's CPU order, so
+    the value is its bit for bit), else in float64 — exact for these
+    values at the sizes run — rounded to float32 once.  (``torch.sum``
+    orders a float32 sum differently on the CPU and on the card.)"""
+    alive_f = alive.to(torch.float32)
+    x = agree.to(torch.float32) * float(np.float32(1.0 / m)) * alive_f
+    n = x.shape[-1]
+    if n <= SEQUENTIAL_SUM_MAX:
+        total = x[..., 0]
+        for i in range(1, n):
+            total = total + x[..., i]
+    else:
+        total = x.to(torch.float64).sum(dim=-1).to(torch.float32)
+    return total / torch.clamp(alive_f.sum(dim=-1), min=1.0)

@@ -463,10 +463,8 @@ class ExactSim:
         alive = state.node_alive
         truth = torch.where(alive[:, None], state.known, 0).amax(dim=0)
         agree = state.known == truth[None, :]
-        alive_f = alive.to(torch.float32)
-        per_node = agree.to(torch.float32).mean(dim=1)
-        return (per_node * alive_f).sum() / torch.clamp(alive_f.sum(),
-                                                        min=1.0)
+        return common.alive_mean(agree.sum(dim=1, dtype=I32), self.p.m,
+                                 alive)
 
     # -- drivers ------------------------------------------------------------
     #

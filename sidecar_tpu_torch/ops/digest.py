@@ -208,6 +208,19 @@ def zero_digest(cap: int, device="cpu") -> DigestTrace:
 append_digest = append_record
 
 
+def digest_to_dicts(dt: DigestTrace) -> list:
+    """One dict a recorded round (padding dropped), the raw columns and
+    ``agreement`` (agree / alive) — the bridge's ``digest.rounds``."""
+    rec = dt.rec.cpu().numpy()
+    out = []
+    for row in rec[:min(int(dt.count), rec.shape[0])]:
+        doc = {name: int(row[i]) for i, name in enumerate(DIGEST_FIELDS)}
+        doc["agreement"] = (doc["agree"] / doc["alive"]
+                            if doc["alive"] else 1.0)
+        out.append(doc)
+    return out
+
+
 # -- NumPy helpers (the reference's oracle, copied) ----------------------------
 
 def mix32_np(x: np.ndarray) -> np.ndarray:
@@ -302,6 +315,12 @@ def default_idents(m: int) -> np.ndarray:
 def catalog_idents(slot_names) -> np.ndarray:
     """Identity table from ``(hostname, service_id)`` pairs per slot."""
     return np.asarray([ident_of(h, s) for h, s in slot_names], np.uint32)
+
+
+def digest_to_hex(dig) -> str:
+    """A digest (a ``[B, 2]`` array of uint32 lanes) in its wire form:
+    8 hex characters a lane, 16 a bucket."""
+    return "".join(f"{int(v) & _M32:08x}" for v in np.asarray(dig).ravel())
 
 
 # -- pure-Python helpers --------------------------------------------------------

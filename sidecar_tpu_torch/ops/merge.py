@@ -1,7 +1,7 @@
 """The LWW merge gates and the aligned merge — the port of
 ``sidecar_tpu/ops/merge.py`` (``staleness_mask``, ``future_mask``,
 ``budget_mask``, ``admit_gate``, ``sticky_adjust``, ``apply_stickiness``,
-``merge_packed``).
+``merge_packed``, ``merge_records``).
 
 Rule 2 of ``AddServiceEntry`` (strictly newer wins) is integer ``max``
 on packed keys; the staleness and future bounds, the per-origin budget
@@ -106,3 +106,14 @@ def merge_packed(known, incoming, now_tick: int, stale_ticks: int,
     incoming = admit_gate(incoming, now_tick, stale_ticks, future_ticks,
                           tomb_budget, own)
     return apply_stickiness(known, torch.maximum(known, incoming))
+
+
+def merge_records(known_ts, known_status, inc_ts, inc_status, now_tick: int,
+                  stale_ticks: int, future_ticks=None):
+    """:func:`merge_packed` for callers that keep separate timestamp and
+    status tensors: pack both sides, merge, and return ``(ts, status,
+    accepted)``, ``accepted`` True where the cell changed."""
+    known = pack(known_ts, known_status)
+    merged = merge_packed(known, pack(inc_ts, inc_status), now_tick,
+                          stale_ticks, future_ticks)
+    return unpack_ts(merged), unpack_status(merged), merged != known

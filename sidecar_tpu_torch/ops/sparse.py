@@ -47,16 +47,19 @@ STAT_OVERFLOW_ROUNDS = 1
 STAT_FRONTIER_HWM = 2
 
 
-def resolve_sparse(explicit: Optional[str] = None) -> str:
+def resolve_sparse(explicit: Optional[str] = None, *,
+                   record: bool = True) -> str:
     """The sparse-execution mode of a sim, ``"auto" | "0" | "1"``, from
     its constructor argument (None is ``"auto"``), counted as
-    ``sparse.mode.<mode>``."""
+    ``sparse.mode.<mode>`` unless ``record`` is False (a per-request
+    resolution, as the bridge's)."""
     mode = "auto" if explicit is None else explicit
     mode = {"on": "1", "off": "0"}.get(mode, mode)
     if mode not in SPARSE_MODES:
         raise ValueError(
             f"sparse mode must be one of {SPARSE_MODES}, got {explicit!r}")
-    metrics.incr(f"sparse.mode.{mode}")
+    if record:
+        metrics.incr(f"sparse.mode.{mode}")
     return mode
 
 

@@ -18,7 +18,9 @@ shift so no O(N²) structure exists.  Builders run on the host in numpy
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -68,26 +70,36 @@ def erdos_renyi(n: int, avg_degree: float, seed: int = 0) -> Topology:
     builder, so the graph is bit-identical for the same seed: edges are
     sampled on the upper triangle, both directions kept, and a lexsort
     leaves every adjacency row ascending.  O(n²) random draws on the
-    host — the cost of bit-identity (about two minutes at 100k nodes).
-    Isolated nodes keep degree 0 and a self-padded row; samplers clamp
-    the degree to 1, so such a node gossips with itself (a no-op).
+    host — the cost of bit-identity.  The blocks are drawn on a pool of
+    threads, each from the seed's PCG64 stream advanced to its block's
+    first draw (one draw a double), so the draws are the reference's
+    single stream, cut into pieces.  Isolated nodes keep degree 0 and a
+    self-padded row; samplers clamp the degree to 1, so such a node
+    gossips with itself (a no-op).
     """
-    rng = np.random.default_rng(seed)
     p = min(1.0, avg_degree / max(1, n - 1))
-    srcs, dsts = [], []
     # Sample undirected edges in blocks of rows to bound memory.
     block = max(1, min(n, 4_000_000 // max(n, 1) + 1))
-    for start in range(0, n, block):
+
+    def block_edges(start):
         stop = min(n, start + block)
+        bits = np.random.PCG64(seed)      # default_rng(seed)'s stream
+        bits.advance(start * n)
         rows = np.arange(start, stop)
-        mask = rng.random((stop - start, n)) < p
+        mask = np.random.Generator(bits).random((stop - start, n)) < p
         # Keep the upper triangle only (i < j) to avoid double-sampling.
         mask &= np.arange(n)[None, :] > rows[:, None]
         r, c = np.nonzero(mask)
-        srcs.append(rows[r])
-        dsts.append(c)
-    i = np.concatenate(srcs) if srcs else np.zeros(0, np.int64)
-    j = np.concatenate(dsts) if dsts else np.zeros(0, np.int64)
+        return rows[r], c
+
+    starts = range(0, n, block)
+    workers = max(1, min(8, len(starts), os.cpu_count() or 1))
+    with ThreadPoolExecutor(workers) as pool:
+        parts = list(pool.map(block_edges, starts))
+    i = np.concatenate([r for r, _ in parts]) if parts \
+        else np.zeros(0, np.int64)
+    j = np.concatenate([c for _, c in parts]) if parts \
+        else np.zeros(0, np.int64)
     # Both directions of every undirected edge, ascending per node.
     src = np.concatenate([i, j])
     dst = np.concatenate([j, i])

@@ -1,3 +1,3 @@
 """Measurement-side instruments of the port: ``cost.py`` (the phase
-scopes of the round) and ``slo.py`` (the SLO rule grammar and its
-evaluator)."""
+scopes of the round), ``slo.py`` (the SLO rule grammar and its
+evaluator) and ``span.py`` (the span ring the sweep records into)."""

@@ -26,7 +26,6 @@ import numpy as np
 import pytest
 
 from sidecar_tpu import autopilot as japilot
-from sidecar_tpu import fleet as jfleet
 from sidecar_tpu import metrics as jmetrics
 from sidecar_tpu.autopilot import search as jsearch
 from sidecar_tpu.chaos import FaultPlan as JFaultPlan
@@ -48,6 +47,7 @@ from sidecar_tpu_torch.telemetry import slo as tslo
 from tests.torch_parity import (
     jax_exact_draw_seq,
     jax_fault_draw_seq,
+    reference_batch,
     reference_inputs,
 )
 
@@ -330,18 +330,6 @@ def test_fit_live_equals_reference():
 
 
 # -- the closed loop, in lockstep ------------------------------------------------
-
-def reference_batch(batch):
-    """The reference ``ScenarioBatch`` of a port batch: the same specs,
-    params, clock and plan."""
-    plan = None if batch.plan is None else JFaultPlan.loads(
-        batch.plan.dumps())
-    return jfleet.ScenarioBatch.build(
-        [jfleet.ScenarioSpec(**dataclasses.asdict(s)) for s in batch.specs],
-        JSimParams(**dataclasses.asdict(batch.params)),
-        JTimeConfig(**dataclasses.asdict(batch.timecfg)),
-        family=batch.family, plan=plan)
-
 
 RUN_BATCH = tsearch.FleetEvaluator._run_batch
 

@@ -1,10 +1,11 @@
 """Tests of the port that need the card: each CUDA kernel against its
 plain PyTorch version on the same CUDA tensors, and short runs of the
 compressed model, its sharded twin, the exact model, the scenario
-fleet of each family, the autopilot's recommendation and the scenario
-configs on the card against the same runs on the CPU.  Marked ``cuda``; each decides
-inside a fixture whether a card is present and skips with the reason
-where none is.  ``python3 chip_smoke.py`` covers the same ground at the
+fleet of each family, the autopilot's recommendation, the scenario
+configs and the simulator bridge's routes on the card against the same
+runs on the CPU, and the card's exact model against the NumPy oracle.
+Marked ``cuda``; each decides inside a fixture whether a card is present
+and skips with the reason where none is.  ``python3 chip_smoke.py`` covers the same ground at the
 north-star shapes.
 """
 
@@ -1077,3 +1078,103 @@ def test_scenario_on_card_equals_cpu(card, monkeypatch, name, kw, rounds):
         np.testing.assert_array_equal(convert.state_to_numpy(b)[f], v,
                                       err_msg=f)
     np.testing.assert_allclose(ca.numpy(), cb.cpu().numpy(), atol=1e-6)
+
+
+# -- the bridge and the oracle ------------------------------------------------
+
+BRIDGE_CFG = dict(refresh_interval_s=1000.0, push_pull_interval_s=2.0)
+
+
+def card_and_cpu_bridges(**kw):
+    """The CPU and card bridges on ``chip_smoke.py``'s catalog of 64
+    hosts × 4, loaded from its wire document through ``decode``."""
+    import chip_smoke
+    from sidecar_tpu_torch.bridge import SimBridge
+    from sidecar_tpu_torch.catalog import decode
+
+    state = decode(chip_smoke.synthetic_catalog(64, 4, seed=5))
+    return [SimBridge(state, TimeConfig(**BRIDGE_CFG), device=d, **kw)
+            for d in ("cpu", "cuda")]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cold_nodes=["host-0003"]),
+    dict(deltas_cap=64, cold_nodes=["host-0003"],
+         protocol={"damping_threshold": 1.0}),
+    dict(digest=20, digest_buckets=32, cold_nodes=["host-0003"]),
+    dict(provenance={"count": 8}, cold_nodes=["host-0003"]),
+    dict(trace=20, sparse=True, cold_nodes=["host-0003"]),
+    dict(sharded=True, cold_nodes=["host-0003"]),
+], ids=["cold", "deltas_damping", "digest", "provenance", "trace_sparse",
+        "sharded"])
+def test_bridge_simulate_on_card_equals_cpu(card, kw):
+    """Each ``/simulate`` option at 64 hosts × 4, chunked (25-round
+    chunks), card against CPU from one set of draws drawn on the CPU."""
+    cpu, gpu = card_and_cpu_bridges(shards=4)
+    rounds = 60
+    cpu.CHUNK_ROUNDS = gpu.CHUNK_ROUNDS = 25
+    _, _, _, sim = cpu.snapshot(sharded=kw.get("sharded", False))
+    gen = torch.Generator().manual_seed(9)
+    draws = [sim.draw(gen, r) for r in range(1, rounds + 1)]
+    a = cpu.simulate(rounds, draws=draws, **kw).to_json()
+    b = gpu.simulate(rounds, draws=draws, **kw).to_json()
+    assert a == b
+
+
+def test_bridge_sweep_and_recommend_on_card_equal_cpu(card, monkeypatch):
+    """An 8-point ``/sweep`` and ``/autopilot/recommend`` with a given
+    estimate, card against CPU, every dispatch fed one set of inputs
+    drawn on the CPU (``fleet.cpu_inputs``)."""
+    from sidecar_tpu_torch.autopilot import search
+    from sidecar_tpu_torch.bridge import SimBridge
+    from sidecar_tpu_torch.fleet import cpu_inputs
+
+    run_sweep = SimBridge._run_sweep_batch
+    run_batch = search.FleetEvaluator._run_batch
+    monkeypatch.setattr(SimBridge, "_run_sweep_batch", staticmethod(
+        lambda batch, run_kw, inputs=None: run_sweep(
+            batch, run_kw, cpu_inputs(batch, run_kw["num_rounds"]))))
+    monkeypatch.setattr(search.FleetEvaluator, "_run_batch",
+                        lambda self, batch: run_batch(
+                            self, batch, cpu_inputs(batch, self.rounds)))
+    cpu, gpu = card_and_cpu_bridges()
+    axes = {"push_pull_interval_s": [1.0, 2.0, 4.0, 8.0],
+            "drop_prob": [0.0, 0.1]}
+    sweeps = [b.sweep(axes, rounds=40, slo=["converge <= 20 rounds"])
+              for b in (cpu, gpu)]
+    for k in sweeps[0]:
+        if k not in ("wall_seconds", "scenarios_per_sec"):
+            assert sweeps[0][k] == sweeps[1][k], k
+    req = {"rules": ["converge <= 30 rounds"],
+           "estimate": {"loss_rate": 0.1}, "rounds": 30, "seed": 2,
+           "generations": 1, "population": 4}
+    reps = [b.autopilot_recommend(dict(req)) for b in (cpu, gpu)]
+    for k in reps[0]:
+        if k not in ("wall_seconds", "replay"):
+            assert reps[0][k] == reps[1][k], k
+
+
+def test_exact_on_card_equals_oracle(card):
+    """The card's ``ExactSim`` against the NumPy oracle for 40 rounds
+    on ER(8) with loss, push-pull every 10 rounds and the sweep every
+    5: ``known`` and ``sent`` every round."""
+    from sidecar_tpu_torch.sim.oracle import OracleSim
+
+    p = SimParams(n=64, services_per_node=4, fanout=3, budget=10,
+                  drop_prob=0.1)
+    sim = ExactSim(p, topology.erdos_renyi(64, 8.0, seed=3),
+                   TimeConfig(refresh_interval_s=3.0,
+                              push_pull_interval_s=2.0,
+                              sweep_interval_s=1.0), device="cuda")
+    state = sim.init_state()
+    orc = OracleSim(sim, state)
+    gen = torch.Generator().manual_seed(4)
+    for r in range(1, 41):
+        d = sim.draw(gen, r)
+        state = sim.step(state, draws=d)
+        orc.step(d)
+        np.testing.assert_array_equal(state.known.cpu().numpy(), orc.known,
+                                      err_msg=f"round {r}")
+        np.testing.assert_array_equal(
+            state.sent.cpu().numpy().astype(np.int32), orc.sent,
+            err_msg=f"round {r}")

@@ -1,7 +1,7 @@
 """Ground rules of the PyTorch port: it imports neither ``jax`` nor
 anything of ``sidecar_tpu`` (nor does ``chip_smoke.py``), its entry
-points (both models and the fleet) refuse to fall back to the CPU when no GPU is
-present, the options once deferred run a round (the execution modes',
+points (both models, the fleet and the bridge) refuse to fall back to
+the CPU when no GPU is present, the options once deferred run a round (the execution modes',
 and the chaos options ``perturb``, ``cut_mask`` and ``node_side``, each
 equal to the JAX reference's round), no module names a deferred
 ROADMAP item any more, and state, params, time configs and graphs
@@ -74,9 +74,12 @@ def test_every_port_module_is_checked():
                      "plan.py", "adversary.py", "sim_inject.py",
                      "batch.py", "engine.py", "grid.py", "rounds.py",
                      "scenarios.py", "fit.py", "objective.py", "search.py",
-                     "controller.py", "slo.py", "checkpoint.py"):
+                     "controller.py", "slo.py", "checkpoint.py",
+                     "sim_bridge.py", "oracle.py", "service.py",
+                     "damping.py", "state.py", "span.py"):
         assert expected in names, expected
-    for package in ("chaos", "fleet", "sim", "autopilot", "telemetry"):
+    for package in ("chaos", "fleet", "sim", "autopilot", "telemetry",
+                    "bridge", "catalog"):
         assert any(p.parent.name == package for p in PORT_FILES), package
 
 
@@ -175,6 +178,13 @@ def small_scenario(**kw):
     return scenarios.config6_sim(n=32, **kw)
 
 
+def small_bridge(**kw):
+    from sidecar_tpu_torch.bridge import SimBridge
+    from sidecar_tpu_torch.catalog import ServicesState
+
+    return SimBridge(ServicesState(hostname="h0"), TimeConfig(), **kw)
+
+
 def small_fault_plan(**kw):
     from sidecar_tpu_torch.chaos import CompiledFaultPlan, EdgeFault, FaultPlan
 
@@ -198,9 +208,9 @@ def small_adversary(**kw):
 @pytest.mark.parametrize(
     "make",
     [small_sim, small_exact, small_chaos, small_fault_plan, small_adversary,
-     small_fleet, small_evaluator, small_scenario],
+     small_fleet, small_evaluator, small_scenario, small_bridge],
     ids=["compressed", "exact", "chaos", "fault_plan", "adversary",
-         "fleet", "evaluator", "scenario"])
+         "fleet", "evaluator", "scenario", "bridge"])
 def test_default_device_needs_a_gpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -214,8 +214,9 @@ class TestGossip:
 
 
 class TestTopology:
-    @pytest.mark.parametrize("n", [64, 1000])
+    @pytest.mark.parametrize("n", [64, 1000, 5000])
     def test_erdos_renyi_bit_identical(self, n):
+        """n = 5,000 draws 7 blocks of rows, on a pool of threads."""
         a, b = ttopo.erdos_renyi(n, 8.0, seed=3), \
             jtopo.erdos_renyi(n, 8.0, seed=3)
         eq(a.nbrs, b.nbrs)

@@ -513,3 +513,18 @@ def chaos_option_kwargs(option, topo, round_ticks, key, n):
             state, node_alive=state.node_alive ^ masks[now // round_ticks])
 
     return dict(perturb=jax_hook), dict(perturb=port_hook)
+
+
+def reference_batch(batch):
+    """The reference ``ScenarioBatch`` of a port batch: the same specs,
+    params, clock and plan."""
+    from sidecar_tpu import fleet as jfleet
+    from sidecar_tpu.chaos import FaultPlan as JFaultPlan
+
+    plan = None if batch.plan is None else JFaultPlan.loads(
+        batch.plan.dumps())
+    return jfleet.ScenarioBatch.build(
+        [jfleet.ScenarioSpec(**dataclasses.asdict(s)) for s in batch.specs],
+        jax_exact.SimParams(**dataclasses.asdict(batch.params)),
+        JaxTimeConfig(**dataclasses.asdict(batch.timecfg)),
+        family=batch.family, plan=plan)
