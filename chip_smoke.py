@@ -218,7 +218,25 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    window with the future bound and the origin budget, a clock-only
    chaos plan and an adversary with the defences on, every round; the
    pipelined oracle against ``step_pipelined`` and the provenance
-   oracle against ``run_with_provenance``.
+   oracle against ``run_with_provenance``;
+19. dist — the twins and the fleet's scenario axis over a
+   ``torch.distributed`` group on the one card (``parallel/dist.py``,
+   started by ``parallel/launch.spawn_group``): NCCL with one rank
+   holding d = 4 shards — the exact twin at the ``value`` shape in
+   every mode (200 rounds) and the compressed twin at the north star's
+   shape in every mode (100 rounds, from the 0.1 % burst) — then gloo
+   with two ranks of two shards sharing the card, every exchanged
+   tensor copied through the host — the exact twin in ``all_gather``
+   and ``ring`` (50 rounds), the compressed twin at n = 16,384 in
+   ``all_gather`` and ``all_to_all`` (50 rounds) and the 64-point grid
+   at n = 1,024 over the two ranks (100 rounds).  Each job's final state
+   (SHA-256 of each rank's part) and curve, or every row of the grid's
+   table, must equal the same run through ``LocalShardGroup`` in this
+   process, and each rank must launch its kernels once a local shard a
+   round; per rank its wall, rounds/s, a 5-round profile (busy ms and
+   idle share a round), peak memory, the bytes it sent and gloo's host
+   staging bytes.  On one card this measures launches and host
+   staging, not a link between cards.
 
 Each phase prints one JSON line; then the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -237,7 +255,7 @@ import time
 PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
           "north_star", "sharded", "scatter", "exact_lockstep", "exact",
           "exact_modes", "telemetry", "sharded_exact", "chaos", "fleet",
-          "autopilot", "scenarios", "bridge", "oracle")
+          "autopilot", "scenarios", "bridge", "oracle", "dist")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
@@ -5512,6 +5530,281 @@ def phase_oracle(n=64, rounds=40):
     return all_counts
 
 
+# -- phase 19: the shard groups over torch.distributed -------------------------
+
+DIST_EXACT_ROUNDS = {"nccl": 200, "gloo": 50}
+DIST_COMPRESSED_ROUNDS = {"nccl": 100, "gloo": 50}
+DIST_CONV_EVERY = 25
+DIST_GRID_ROUNDS = 100
+DIST_GLOO_N = 16_384
+
+
+def dist_jobs(north_star_n):
+    """The groups of the ``dist`` phase, ``[(backend, world, jobs)]``,
+    each job ``(kind, mode, d, n, rounds)``."""
+    nccl = [("exact", mode, 4, 4096, DIST_EXACT_ROUNDS["nccl"])
+            for mode in ("all_gather", "ring", "zoned")] + \
+        [("compressed", mode, 4, north_star_n, DIST_COMPRESSED_ROUNDS["nccl"])
+         for mode in ("all_gather", "all_to_all", "ring", "zoned")]
+    gloo = [("exact", mode, 4, 4096, DIST_EXACT_ROUNDS["gloo"])
+            for mode in ("all_gather", "ring")] + \
+        [("compressed", mode, 4, DIST_GLOO_N, DIST_COMPRESSED_ROUNDS["gloo"])
+         for mode in ("all_gather", "all_to_all")] + \
+        [("grid", None, 2, 1024, DIST_GRID_ROUNDS)]
+    return [("nccl", 1, nccl), ("gloo", 2, gloo)]
+
+
+def field_digests(arrays: dict) -> dict:
+    """SHA-256 of each field's bytes (dtype and shape included)."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    for name, value in arrays.items():
+        a = np.ascontiguousarray(value)
+        h = hashlib.sha256(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+        out[name] = h.hexdigest()
+    return out
+
+
+def dist_topology(n, graphs):
+    """ER(8, seed 3) at ``n``, built once: ``graphs`` maps n to the
+    graphs built so far (the north star's is passed in)."""
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+    if n not in graphs:
+        graphs[n] = erdos_renyi(n, avg_degree=8.0, seed=3)
+    return graphs[n]
+
+
+def dist_sim(kind, mode, d, n, topo, group, device=None):
+    """The job's twin: the exact model at the ``value`` shape, or the
+    compressed model at ``bench_params``; ``group`` None is the
+    one-process ``LocalShardGroup``."""
+    from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.parallel import ShardedCompressedSim, ShardedSim
+
+    device = DEVICE if device is None else device
+    if kind == "exact":
+        return ShardedSim(SimParams(n=n, services_per_node=10, fanout=3,
+                                    budget=15), topo, d=d,
+                          board_exchange=mode, group=group, device=device)
+    return ShardedCompressedSim(bench_params(n), topo, bench_time(), d=d,
+                                board_exchange=mode, group=group,
+                                device=device)
+
+
+def dist_drive(sim, kind, rounds):
+    """Run the job from its start state: the exact model's cold start, or
+    the compressed boot plus the bench's 0.1 % burst; returns ``(final,
+    curve)`` (the curve every round, or every 25 rounds on the compressed
+    model)."""
+    gen = sim.default_generator(0)
+    if kind == "exact":
+        return sim.run(sim.init_state(), rounds, generator=gen)
+    state = sim.mint(sim.init_state(), burst(sim.p.m, 0.001), 10)
+    return sim.run(state, rounds, DIST_CONV_EVERY, generator=gen)
+
+
+def dist_grid(device, n, rounds, group=None):
+    """The 64-point grid at n × 10 services (``fleet_exact_grid``'s
+    batch), its scenarios over ``group``'s ranks; returns the run and its
+    table."""
+    from sidecar_tpu_torch.fleet import FleetSim, ScenarioBatch, expand_grid
+    from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+
+    t = TimeConfig(refresh_interval_s=10_000.0)
+    batch = ScenarioBatch.build(
+        expand_grid(sweep_grid_axes(), base={"seed": 0}),
+        SimParams(n=n, services_per_node=10, fanout=3, budget=15), t,
+        device=device)
+    fleet = FleetSim(batch, group=group)
+    run = fleet.run(fleet.init_states(), rounds, eps=0.01)
+    return run, run.table(t.round_ticks, t.ticks_per_second)
+
+
+def dist_rank(ctx, jobs, topo_data):
+    """A rank of the ``dist`` phase: each job through a group over the
+    ranks; returns per job the rank's digests, curve or table, wall,
+    launches, peak memory, exchange accounting and a 5-round profile."""
+    import torch
+
+    from sidecar_tpu_torch import convert
+
+    big = convert.topology_from_numpy(*topo_data)
+    graphs = {big.n: big}
+    out = []
+    for kind, mode, d, n, rounds in jobs:
+        t_setup = time.perf_counter()
+        g = ctx.group(d)
+        if kind != "grid":
+            sim = dist_sim(kind, mode, d, n, dist_topology(n, graphs), g,
+                           ctx.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(ctx.device)
+        reset_launches()
+        t0 = time.perf_counter()
+        setup_s = t0 - t_setup
+        if kind == "grid":
+            run, table = dist_grid(ctx.device, n, rounds, g)
+        else:
+            final, curve = dist_drive(sim, kind, rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = {"rank": ctx.rank, "wall_s": wall, "setup_s": setup_s,
+               "launches": launches(),
+               "max_memory_allocated":
+                   torch.cuda.max_memory_allocated(ctx.device),
+               "exchange": dict(g.stats)}
+        t_check = time.perf_counter()
+        if kind == "grid":
+            rec.update(table=table, fleet_wall_s=run.wall_seconds)
+        else:
+            rec.update(digests=field_digests(convert.state_to_numpy(final)),
+                       curve=curve_list(curve))
+            rec["digest_s"] = time.perf_counter() - t_check
+            t_check = time.perf_counter()
+            rec["profile"] = profile_rounds(sim, final)
+            rec["profile_s"] = time.perf_counter() - t_check
+            del sim, final
+        out.append(rec)
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_reference(kind, mode, d, n, rounds, world, graphs):
+    """The job through ``LocalShardGroup`` in this process: the digests of
+    each rank's part of the final state (``convert.shard_state``), the
+    curve (or the grid's table), the wall and the launches."""
+    import torch
+
+    from sidecar_tpu_torch import convert
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    if kind == "grid":
+        run, table = dist_grid(DEVICE, n, rounds)
+        torch.cuda.synchronize()
+        return {"table": table, "wall_s": time.perf_counter() - t0,
+                "fleet_wall_s": run.wall_seconds, "launches": launches()}
+    sim = dist_sim(kind, mode, d, n, dist_topology(n, graphs), None)
+    final, curve = dist_drive(sim, kind, rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    arrays = convert.state_to_numpy(final)
+    del sim, final
+    torch.cuda.empty_cache()
+    return {"digests": [field_digests(convert.shard_state(arrays, r, world,
+                                                         d))
+                        for r in range(world)],
+            "curve": curve_list(curve), "wall_s": wall, "launches": counts}
+
+
+def dist_expected(kind, d, world, rounds):
+    """A rank's launches of a job: K4a once a local shard a round (exact),
+    K2 and K3 once a local shard a round (compressed), K4a once a round
+    for the rank's batch (grid)."""
+    dl = d // world
+    if kind == "exact":
+        return expected(scatter_max_apply=dl * rounds)
+    if kind == "compressed":
+        return expected(publish_board=dl * rounds,
+                        board_row_gather=dl * rounds)
+    return expected(scatter_max_apply=rounds)
+
+
+def phase_dist(smi, topo=None, north_star_n=100_000):
+    """The twins and the fleet's scenario axis over a ``torch.distributed``
+    group (``parallel/dist.py``, ``parallel/launch.py``) on this one card:
+    NCCL with one rank holding d = 4 shards (real NCCL collectives on the
+    card's tensors), then gloo with two ranks of two shards each sharing
+    the card (every exchanged tensor copied through the host), each job
+    held against the same run through ``LocalShardGroup`` in this
+    process — the final state's digests rank by rank and the curve, or
+    every row of the grid's table.  Returns the launch counts of every
+    run, the ranks' summed."""
+    import math
+
+    from sidecar_tpu_torch.parallel import spawn_group
+
+    graphs = {} if topo is None else {topo.n: topo}
+    topo = dist_topology(north_star_n, graphs)
+    topo_data = (topo.n, topo.nbrs, topo.deg, topo.name)
+    all_counts, failed, cache = [], [], {}
+    t_phase = time.perf_counter()
+    for backend, world, jobs in dist_jobs(north_star_n):
+        refs = []
+        for kind, mode, d, n, rounds in jobs:
+            # The exact twin's trajectory is the same in every mode (the
+            # port's generator), so one reference serves them all.
+            key = (kind, n, rounds, world,
+                   None if kind == "exact" else mode)
+            if key not in cache:
+                cache[key] = dist_reference(kind, mode, d, n, rounds, world,
+                                            graphs)
+                all_counts.append(cache[key]["launches"])
+            refs.append(cache[key])
+        t0 = time.perf_counter()
+        ranks = spawn_group(dist_rank, world, backend, (jobs, topo_data),
+                            device=DEVICE, timeout_s=600.0)
+        spawn_wall = time.perf_counter() - t0
+        for j, (kind, mode, d, n, rounds) in enumerate(jobs):
+            recs = [r[j] for r in ranks]
+            ref = refs[j]
+            counts = {k: sum(r["launches"][k] for r in recs)
+                      for k in recs[0]["launches"]}
+            all_counts.append(counts)
+            want = dist_expected(kind, d, world, rounds)
+            if kind == "grid":
+                equal = all(r["table"] == ref["table"] for r in recs)
+                finite = all(math.isfinite(row["final_convergence"])
+                             for row in recs[0]["table"])
+            else:
+                equal = all(r["digests"] == ref["digests"][r["rank"]]
+                            and r["curve"] == ref["curve"] for r in recs)
+                finite = all(math.isfinite(c) for c in ref["curve"])
+            ok = (equal and finite
+                  and all(r["launches"] == want for r in recs))
+            wall = max(r["wall_s"] for r in recs)
+            line = {"phase": "dist", "backend": backend, "world": world,
+                    "job": kind, "board_exchange": mode, "d": d, "n": n,
+                    "rounds": rounds, "card": smi,
+                    "wall_s": wall, "rounds_per_s": rounds / wall,
+                    "local_group_wall_s": ref["wall_s"],
+                    "local_group_rounds_per_s": rounds / ref["wall_s"],
+                    "equal_to_local_group": equal, "launches": counts,
+                    "ranks": [{k: r[k] for k in (
+                        "rank", "wall_s", "fleet_wall_s", "setup_s",
+                        "digest_s", "profile_s",
+                        "launches", "max_memory_allocated", "exchange",
+                        "profile") if k in r} for r in recs],
+                    "ok": ok}
+            if kind == "grid":
+                # The walls above include each side's table (its host
+                # digest of every final belief); the runs alone:
+                line["scenarios"] = len(ref["table"])
+                line["fleet_wall_s"] = max(r["fleet_wall_s"] for r in recs)
+                line["local_group_fleet_wall_s"] = ref["fleet_wall_s"]
+                line["scenarios_per_s"] = len(ref["table"]) / \
+                    line["fleet_wall_s"]
+            else:
+                line["curve"] = ref["curve"]
+            emit(line)
+            if not ok:
+                failed.append((backend, kind, mode))
+        emit({"phase": "dist", "backend": backend, "world": world,
+              "spawn_wall_s": spawn_wall, "card": smi,
+              "phase_s": time.perf_counter() - t_phase})
+    if failed:
+        raise SystemExit(f"dist phase failed: {failed}")
+    return all_counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5613,7 +5906,6 @@ def main(argv=None) -> int:
             if name in records:
                 records[name]["max_abs_err"] = max(
                     records[name]["max_abs_err"], err)
-    del topo
     if "autopilot" in phases:
         runs += phase_autopilot()
     if "scenarios" in phases:
@@ -5622,6 +5914,10 @@ def main(argv=None) -> int:
         runs += phase_bridge()
     if "oracle" in phases:
         runs += phase_oracle()
+    if "dist" in phases:
+        # Last: it reuses the north star's graph.
+        runs += phase_dist(smi, topo, args.n)
+    del topo
     if records:
         emit({"kernels": [
             {"name": f"{name}_kernel", "route": "cuda",

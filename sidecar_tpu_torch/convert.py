@@ -197,3 +197,79 @@ def batched_knobs_from_numpy(fields: dict, device="cuda"):
                 else int(v)
         host.append(knob_ops.RoundKnobs(**kw))
     return knob_ops.BatchedKnobs.stack(host, device)
+
+
+# -- rank-local states --------------------------------------------------------
+
+# The node-major fields of either model's state: row i is node i's.  The
+# other fields (the compressed model's floor, the counters, round_idx)
+# are whole on every rank.
+NODE_FIELDS = ("known", "sent", "own", "cache_slot", "cache_val",
+               "cache_sent", "node_alive")
+
+
+def _is_fleet(arrays: dict) -> bool:
+    """A fleet state: ``round_idx`` is ``[S]`` and every leaf leads with
+    the scenario axis."""
+    return np.ndim(arrays["round_idx"]) == 1
+
+
+def _split(a, rank: int, world: int):
+    a = np.asarray(a)
+    if a.shape[0] % world:
+        raise ValueError(f"an axis of {a.shape[0]} does not divide over "
+                         f"{world} ranks")
+    per = a.shape[0] // world
+    return a[rank * per:(rank + 1) * per]
+
+
+def shard_state(arrays: dict, rank: int, world: int, d: int = 0) -> dict:
+    """Rank ``rank``'s part of a global state in numpy form (``{field:
+    np.ndarray}`` of either model, a reference's or the port's): the
+    rows of its ``d / world`` shards on the node-major fields, the rest
+    whole.  A fleet state (``round_idx`` ``[S]``, the chaos rings and
+    counters included) splits its scenario axis instead: rank ``rank``
+    holds scenarios ``[rank·S/world, (rank+1)·S/world)`` of every leaf,
+    and ``d`` is not used."""
+    if _is_fleet(arrays):
+        def part(v):
+            if isinstance(v, dict):
+                return {k: part(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [tuple(_split(t, rank, world) for t in ring)
+                        for ring in v]
+            return _split(v, rank, world)
+        return {k: part(v) for k, v in arrays.items()}
+    if d < 1 or d % world:
+        raise ValueError(f"d={d} shards must divide over {world} ranks")
+    return {k: _split(v, rank, world) if k in NODE_FIELDS else np.asarray(v)
+            for k, v in arrays.items()}
+
+
+def join_state(parts: list) -> dict:
+    """The inverse of :func:`shard_state`: the ranks' parts, in rank
+    order, as the global numpy state.  A field held whole must be equal
+    on every rank, or this raises."""
+    first = parts[0]
+    if _is_fleet(first):
+        def join(vs):
+            if isinstance(vs[0], dict):
+                return {k: join([v[k] for v in vs]) for k in vs[0]}
+            if isinstance(vs[0], (list, tuple)):
+                return [tuple(np.concatenate([v[i][j] for v in vs])
+                              for j in range(len(vs[0][i])))
+                        for i in range(len(vs[0]))]
+            return np.concatenate([np.asarray(v) for v in vs])
+        return {k: join([p[k] for p in parts]) for k in first}
+    out = {}
+    for k in first:
+        vs = [np.asarray(p[k]) for p in parts]
+        if k in NODE_FIELDS:
+            out[k] = np.concatenate(vs)
+            continue
+        for r, v in enumerate(vs[1:], 1):
+            if not np.array_equal(v, vs[0]):
+                raise ValueError(f"field {k!r} is held whole but rank {r}'s "
+                                 "differs from rank 0's")
+        out[k] = vs[0]
+    return out

@@ -20,9 +20,19 @@ device; knowing which scenarios to run costs one host read of it per
 convergence sample (``FleetRun.host_reads``).  ``stop=False`` runs the
 full horizon: each row then equals its unbatched run.
 
-Not ported: the reference's ``fleet_mesh``/``resolve_fleet_mesh``
-(scenarios laid over a device mesh); the port runs a batch on one
-device.
+The scenario axis over ranks (the reference's ``fleet_mesh``
+``("scenario", "node")`` with ``node_devices = 1``): with ``group=`` (a
+shard group of ``world`` ranks, ``parallel/dist.py``) the batch's S
+scenarios split contiguously over the ranks, ``S / world`` a rank, and
+each rank runs its share through the batched round.  The ranks exchange
+nothing while they run but the live mask at each convergence sample
+(gathered, so the early exit decides from every scenario's), and at the
+end :class:`FleetRun` gathers every per-scenario row — curves, rounds,
+crossings, bytes, frontiers, ``first_seen``, the end-state digest
+agreement — so each rank's ``table(...)`` equals the one-process run's,
+row for row.  The final states stay rank-local.  The node axis
+(``node_devices > 1``) is not ported (ROADMAP Queue 1 item 10) and
+raises.
 """
 
 from __future__ import annotations
@@ -102,10 +112,10 @@ class FleetRun:
         nodes whose catalog digest (``ops/digest.node_digests_np`` over
         the final belief) matches the modal digest — 1.0 iff every alive
         node holds the same catalog."""
-        if self.belief_fn is None:
-            return None
         if i in self._digests:
             return self._digests[i]
+        if self.belief_fn is None:
+            return None
         from sidecar_tpu_torch.ops import digest as digest_ops
         known, alive = self.belief_fn(i)
         rows = known.cpu().numpy()[alive.cpu().numpy()]
@@ -261,10 +271,35 @@ class FleetSim:
     """S scenarios of one :class:`ScenarioBatch`, advanced together on the
     batch's device.  ``perturb`` overrides the knob-driven churn hook a
     batch with churn gets (``restart_churn_perturb``, its generators
-    seeded by ``churn_seed(spec.seed)``)."""
+    seeded by ``churn_seed(spec.seed)``).  ``group`` lays the scenarios
+    over its ranks (see the module docstring): ``batch`` is then this
+    rank's share, ``names`` every scenario's."""
 
     def __init__(self, batch: ScenarioBatch, topo: Optional[Topology] = None,
-                 *, perturb=None):
+                 *, perturb=None, group=None, node_devices: int = 1):
+        if node_devices != 1:
+            raise ValueError(
+                "the fleet's node axis (node_devices > 1) is not ported "
+                "(ROADMAP Queue 1 item 10): lay the scenarios over the "
+                "ranks with group= instead")
+        self.group = group
+        self.names = [sp.name for sp in batch.specs]
+        self.scenarios = range(batch.size)
+        if group is not None and group.world > 1:
+            if batch.size % group.world:
+                raise ValueError(
+                    f"a batch of {batch.size} scenarios does not divide "
+                    f"over {group.world} ranks")
+            if perturb is not None:
+                raise ValueError(
+                    "a given perturb hook spans the whole batch and is not "
+                    "ported to a group of ranks (ROADMAP Queue 1 item 10)")
+            per = batch.size // group.world
+            self.scenarios = range(group.rank * per, (group.rank + 1) * per)
+            batch = ScenarioBatch.build(
+                batch.specs[self.scenarios.start:self.scenarios.stop],
+                batch.params, batch.timecfg, family=batch.family,
+                plan=batch.plan, device=batch.device)
         self.batch = batch
         p = batch.params
         dev = batch.device
@@ -398,10 +433,17 @@ class FleetSim:
         unbatched run); ``eps`` still sets where ``eps_round`` is
         recorded.  ``tracked`` (service slots) turns on the provenance
         plane's ``first_seen``.  ``draws`` (and, on the chaos family,
-        ``fault_draws``): one sequence a scenario, consumed a round at a
-        time as that scenario runs, in place of its generator (its fault
-        seed).  The state is updated in place unless ``donate=False``."""
+        ``fault_draws``): one sequence a scenario of the whole batch,
+        consumed a round at a time as that scenario runs, in place of its
+        generator (its fault seed).  The state is updated in place unless
+        ``donate=False``."""
         b = self.batch
+        ranks = self.group is not None and self.group.world > 1
+        mine = slice(self.scenarios.start, self.scenarios.stop)
+        if draws is not None:
+            draws = list(draws)[mine]
+        if fault_draws is not None:
+            fault_draws = list(fault_draws)[mine]
         s_n = b.size
         p = b.params
         dev = self.device
@@ -477,16 +519,24 @@ class FleetSim:
             fs.eps_round = torch.where(crossed, rounds_t, fs.eps_round)
             if stop:
                 live = live & (conv < 1.0 - eps)
-                live_host = live.tolist()
+                # Over ranks: decided from every scenario's live mask.
+                live_host = (self.group.gather_rows(live).tolist()[mine]
+                             if ranks else live.tolist())
                 live_reads += 1
             if curve:
                 samples.append(conv)
-        conv_np = (torch.stack(samples).cpu().numpy() if samples
-                   else np.zeros((0, s_n), np.float32))
-        eps_np = fs.eps_round.cpu().numpy()
+        conv_t = torch.stack(samples) if samples else \
+            torch.zeros((0, s_n), dtype=F32, device=dev)
         wall = time.perf_counter() - t0
+        digests = None
+        if ranks:
+            fs, conv_t, wall, stride_reads[0], digests = self._gather_rows(
+                states, fs, conv_t, wall, stride_reads[0])
+        conv_np = conv_t.cpu().numpy()
+        eps_np = fs.eps_round.cpu().numpy()
 
         rounds = np.asarray(fs.rounds, dtype=np.int32)
+        s_n = len(rounds)
         metrics.incr("fleet.batches")
         metrics.incr("fleet.scenarios", s_n)
         metrics.incr("fleet.rounds", int(rounds.sum()))
@@ -504,18 +554,9 @@ class FleetSim:
                                     "chaos.sim.duplicatedPackets"), totals):
                 if total:
                     metrics.incr(name, total)
-        if self.family == "compressed":
-            def belief_fn(i, st=states):
-                return (self.scenario_sims[i]._delta_belief(
-                    scenario_state(st, i)),
-                        st.node_alive[i])
-        else:
-            st_x = states.sim if self.family == "chaos" else states
-
-            def belief_fn(i, st=st_x):
-                return st.known[i], st.node_alive[i]
-        return FleetRun(
-            names=[sp.name for sp in b.specs],
+        belief_fn = None if ranks else self._belief_fn(states)
+        run = FleetRun(
+            names=list(self.names),
             convergence=conv_np,
             rounds=rounds,
             eps_round=[int(r) if r >= 0 else None for r in eps_np],
@@ -530,6 +571,60 @@ class FleetSim:
             host_reads={"live": live_reads, "stride": stride_reads[0]},
             belief_fn=belief_fn,
         )
+        if digests is not None:
+            run._digests = digests
+        return run
+
+    def _gather_rows(self, states, fs, conv_t, wall: float,
+                     stride_reads: int):
+        """Every rank's per-scenario rows of a run, in scenario order: the
+        stats, the curve, the end-state digest agreement (computed here
+        for this rank's scenarios, from its states); the slowest rank's
+        wall and the ranks' stride reads summed."""
+        g, dev = self.group, self.device
+        s_n = self.batch.size
+        local = FleetRun(names=self.names[self.scenarios.start:
+                                          self.scenarios.stop],
+                         convergence=None, rounds=None, eps_round=None,
+                         exchange_bytes=None, frontier_max=None,
+                         conv_every=1, wall_seconds=0.0,
+                         scenarios_per_sec=0.0,
+                         belief_fn=self._belief_fn(states))
+        agree = torch.tensor(
+            [np.nan if a is None else a for a in
+             (local.digest_agreement(i) for i in range(s_n))],
+            dtype=torch.float64, device=dev)
+        agree = g.gather_rows(agree).tolist()
+        rounds = g.gather_rows(torch.as_tensor(fs.rounds, dtype=I32,
+                                               device=dev)).tolist()
+        fs = dataclasses.replace(
+            fs, rounds=rounds,
+            eps_round=g.gather_rows(fs.eps_round),
+            exchange_bytes=g.gather_rows(fs.exchange_bytes),
+            frontier_max=g.gather_rows(fs.frontier_max),
+            prov_ref=g.gather_rows(fs.prov_ref),
+            first_seen=g.gather_rows(fs.first_seen))
+        conv_t = g.gather_rows(conv_t.T.contiguous()).T
+        extra = g.all_reduce_max(torch.tensor(
+            [wall], dtype=torch.float64, device=dev))
+        reads = g.all_reduce_sum(torch.tensor(
+            [stride_reads], dtype=torch.int64, device=dev))
+        digests = {i: None if a != a else a for i, a in enumerate(agree)}
+        return fs, conv_t, float(extra[0]), int(reads[0]), digests
+
+    def _belief_fn(self, states):
+        """``i -> (final [N, M] belief, alive [N])`` of this sim's
+        scenario ``i``."""
+        if self.family == "compressed":
+            def belief_fn(i, st=states):
+                return (self.scenario_sims[i]._delta_belief(
+                    scenario_state(st, i)), st.node_alive[i])
+            return belief_fn
+        st_x = states.sim if self.family == "chaos" else states
+
+        def belief_fn(i, st=st_x):
+            return st.known[i], st.node_alive[i]
+        return belief_fn
 
     def _seed_stats(self, states, tr) -> FleetStats:
         """Zero stats, with the provenance plane seeded: each scenario's

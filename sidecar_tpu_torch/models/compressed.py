@@ -272,6 +272,41 @@ class CompressedSim:
         # or pipelined one.
         self.last_sparse_stats = None
 
+    # -- the node rows this sim holds -----------------------------------------
+    #
+    # The global phases (push-pull, the sweep's census, mint, the behind
+    # census) read every node's row.  This model holds them all, so the
+    # hooks below are the identity; a rank of the sharded twin's
+    # distributed group holds a contiguous range of rows and overrides
+    # them with its group's collectives.
+
+    def _rows(self) -> slice:
+        """The global node rows this sim's state holds."""
+        return slice(0, self.p.n)
+
+    @staticmethod
+    def _gather_rows(x):
+        """Every holder's rows of ``x``, in node order: the global
+        tensor."""
+        return x
+
+    @staticmethod
+    def _shift_rows(x, k: int):
+        """Row ``i`` of the result is global row ``(i + k) mod N``."""
+        return torch.roll(x, -k, 0)
+
+    @staticmethod
+    def _reduce_max(x):
+        """The elementwise max of a holder-local reduction over every
+        holder."""
+        return x
+
+    @staticmethod
+    def _reduce_sum(x):
+        """The elementwise sum of a holder-local count over every
+        holder."""
+        return x
+
     # -- state construction -------------------------------------------------
 
     def init_state(self) -> CompressedState:
@@ -305,23 +340,30 @@ class CompressedSim:
         if not isinstance(slots, torch.Tensor):
             slots = torch.as_tensor(np.asarray(slots))
         slots = slots.to(self.device, I64)
+        # The slots whose owners are this sim's rows, owners as local
+        # row ids.
+        rows_held = self._rows()
         owner = torch.div(slots, s, rounding_mode="floor")
-        col = slots - owner * s
+        held = (owner >= rows_held.start) & (owner < rows_held.stop)
+        slots, owner = slots[held], owner[held] - rows_held.start
+        n = rows_held.stop - rows_held.start
+        col = slots - (owner + rows_held.start) * s
         val = torch.full(slots.shape, pack(int(now_tick), int(status)),
                          dtype=I32, device=self.device)
         val = torch.where(state.node_alive[owner], val, 0)
         cur = torch.maximum(state.own[owner, col], state.floor[slots])
         val = sticky_adjust(val, cur, val > cur)
-        rows = torch.where(val > 0, owner, p.n)
+        rows = torch.where(val > 0, owner, n)
         own_p = torch.cat([state.own.reshape(-1),
                            torch.zeros(s, dtype=I32, device=self.device)])
-        own = _scatter_amax(own_p, rows * s + col, val)[:p.m]
+        own = _scatter_amax(own_p, rows * s + col, val)[:n * s]
         cs, cv, se, ev = _line_compete(
             state.cache_slot, state.cache_val, state.cache_sent,
             owner, slots, val, p.cache_lines, s, state.floor)
         return dataclasses.replace(
-            state, own=own.reshape(p.n, s), cache_slot=cs, cache_val=cv,
-            cache_sent=se, evictions=(state.evictions + ev).to(I32))
+            state, own=own.reshape(n, s), cache_slot=cs, cache_val=cv,
+            cache_sent=se,
+            evictions=(state.evictions + self._reduce_sum(ev)).to(I32))
 
     # -- the round's phases -------------------------------------------------
 
@@ -511,60 +553,66 @@ class CompressedSim:
         kn = self._knobs
         s = p.services_per_node
         dev = state.own.device
-        alive = state.node_alive
-        own_slots = torch.arange(p.m, dtype=I32, device=dev).reshape(p.n, s)
+        rows = self._rows()
+        alive = self._gather_rows(state.node_alive)
         floor_rs = state.floor.reshape(p.n, s)
-        node_ids = torch.arange(p.n, dtype=I32, device=dev)
+        node_ids = torch.arange(rows.start, rows.stop, dtype=I32, device=dev)
         tb = kn.budget_arg()
 
         cv0, cs0 = state.cache_val, state.cache_slot
         wv, ws = cv0, cs0
         sent = state.cache_sent
         for roll_amt in (-stride, stride):
-            ok = common.exchange_ok(alive, self._side, roll_amt)
+            # Row i exchanges with node i - roll_amt (mod N).
+            partner = (node_ids - roll_amt) % p.n
+            ok = common.exchange_ok(alive, self._side, roll_amt)[rows]
             okc = ok[:, None]
-            p_slot = torch.roll(cs0, roll_amt, 0)
-            p_val = torch.roll(cv0, roll_amt, 0)
+            p_slot = self._shift_rows(cs0, -roll_amt)
+            p_val = self._shift_rows(cv0, -roll_amt)
             p_val = torch.where(okc & (p_slot >= 0), p_val, 0)
             p_own = None
             if tb is not None:
                 p_own = torch.div(p_slot, s, rounding_mode="floor") == \
-                    torch.roll(node_ids, roll_amt, 0)[:, None]
+                    partner[:, None]
             p_val = admit_gate(p_val, now, kn.stale_ticks, kn.future_arg(),
                                tb, p_own)
             p_slot = torch.where(p_val > 0, p_slot, -1)
             p_val = sticky_adjust(p_val, cv0,
                                   (p_slot == cs0) & (p_val > cv0))
             wv, ws = self._lex_max(wv, ws, p_val, p_slot)
-            t_slot = torch.roll(own_slots, roll_amt, 0)
-            t_val = torch.where(okc, torch.roll(state.own, roll_amt, 0), 0)
-            t_floor = torch.roll(floor_rs, roll_amt, 0)
+            t_val = torch.where(okc, self._shift_rows(state.own, -roll_amt),
+                                0)
+            t_floor = floor_rs[partner.to(I64)]
             t_val = torch.where(t_val > t_floor, t_val, 0)
             t_val = admit_gate(t_val, now, kn.stale_ticks, kn.future_arg())
             wv, ws, sent, _ = self._insert_own_offers(
-                wv, ws, sent, t_val, t_slot[:, 0])
+                wv, ws, sent, t_val, partner * s)
 
         changed = (wv != cv0) | (ws != cs0)
         sent = torch.where(changed, 0, sent)
-        ev = ((cs0 >= 0) & (ws != cs0)).sum()
+        ev = self._reduce_sum(((cs0 >= 0) & (ws != cs0)).sum())
         return dataclasses.replace(
             state, cache_slot=ws, cache_val=wv, cache_sent=sent,
             evictions=(state.evictions + ev).to(I32))
 
     def _line_census(self, state):
-        """Per-line winner ``(ws, wv)`` and its holder count across
-        alive nodes — column reductions over the node axis; the owner
-        counts through ``own`` (its cached copy is excluded)."""
+        """Per-line winner ``(ws, wv)``, its holder count across alive
+        nodes and the alive count — column reductions over the node
+        axis; the owner counts through ``own`` (its cached copy is
+        excluded)."""
         p = self.p
         s = p.services_per_node
         dev = state.own.device
+        rows = self._rows()
         occupied = (state.cache_slot >= 0) & state.node_alive[:, None]
         val = torch.where(occupied, state.cache_val, 0)
-        wv = val.amax(dim=0)                                    # [K]
-        ws = torch.where(occupied & (val == wv[None, :]),
-                         state.cache_slot, -1).amax(dim=0)      # [K]
+        wv = self._reduce_max(val.amax(dim=0))                  # [K]
+        ws = self._reduce_max(torch.where(
+            occupied & (val == wv[None, :]), state.cache_slot,
+            -1).amax(dim=0))                                    # [K]
 
-        node = torch.arange(p.n, dtype=I32, device=dev)[:, None]
+        node = torch.arange(rows.start, rows.stop, dtype=I32,
+                            device=dev)[:, None]
         holder = occupied & (state.cache_slot == ws[None, :]) & \
             (state.cache_val == wv[None, :])
         owner_of_ws = torch.where(
@@ -572,11 +620,18 @@ class CompressedSim:
         holder = holder & (node != owner_of_ws[None, :])
         count = holder.sum(dim=0, dtype=I32)                    # [K]
 
-        own_flat = state.own.reshape(p.m)
-        owner_alive = state.node_alive[owner_of_ws.clamp(min=0).to(I64)]
-        own_at = own_flat[ws.clamp(min=0).to(I64)]
-        owner_holds = (ws >= 0) & owner_alive & (own_at >= wv)
-        return ws, wv, count + owner_holds.to(I32)
+        # The owner's own copy counts where this sim holds the owner.
+        own_flat = state.own.reshape(-1)
+        at = ws.to(I64) - rows.start * s
+        held = (ws >= 0) & (at >= 0) & (at < own_flat.numel())
+        owner_alive = state.node_alive[
+            (owner_of_ws.to(I64) - rows.start).clamp(0, rows.stop
+                                                     - rows.start - 1)]
+        own_at = own_flat[at.clamp(0, own_flat.numel() - 1)]
+        owner_holds = held & owner_alive & (own_at >= wv)
+        hits = self._reduce_sum(count + owner_holds.to(I32))
+        return ws, wv, hits, self._reduce_sum(
+            state.node_alive.sum(dtype=I32))
 
     @cost.phased("ttl_sweep")
     def _floor_advance_and_sweep(self, state, now: int):
@@ -584,8 +639,7 @@ class CompressedSim:
         (when due) the exact below-floor free."""
         p, t = self.p, self.t
         kn = self._knobs
-        ws, wv, hits = self._line_census(state)
-        n_alive = state.node_alive.sum(dtype=I32)
+        ws, wv, hits, n_alive = self._line_census(state)
         safe_ws = ws.clamp(min=0).to(I64)
         above = (ws >= 0) & (wv > state.floor[safe_ws])
         caught_up = above & (hits >= n_alive)
@@ -703,7 +757,7 @@ class CompressedSim:
         the stagger and the tick cadence at that round."""
         return gossip_ops.sample_peers(
             draws.peer_slot.to(self.device, I32), self.p.n,
-            nbrs=self._nbrs, node_alive=state.node_alive,
+            nbrs=self._nbrs, node_alive=self._gather_rows(state.node_alive),
             cut_mask=self._cut, **common.gate_kwargs(self, round_idx))
 
     def _keep(self, draws: RoundDraws):
@@ -916,16 +970,21 @@ class CompressedSim:
         ``"fast_list"`` (≤ ``metric_inflight_cap`` slots in flight) or
         ``"fast"``.  Reads two device scalars."""
         p = self.p
+        s = p.services_per_node
+        rows = self._rows()
         draining = is_known(state.own) & \
             (unpack_status(state.own) == DRAINING)
         draining_f = is_known(state.floor) & \
             (unpack_status(state.floor) == DRAINING)
         draining_c = (state.cache_slot >= 0) & \
             (unpack_status(state.cache_val) == DRAINING)
-        fast_ok = state.node_alive.all() & ~draining.any() & \
-            ~draining_f.any() & ~draining_c.any()
-        n_if = (torch.maximum(state.floor, state.own.reshape(p.m))
-                > state.floor).sum()
+        bad = self._reduce_max(torch.stack([
+            ~state.node_alive.all(), draining.any(),
+            draining_c.any()]).any().to(I32))
+        fast_ok = (bad == 0) & ~draining_f.any()
+        floor_l = state.floor[rows.start * s:rows.stop * s]
+        n_if = self._reduce_sum(
+            (torch.maximum(floor_l, state.own.reshape(-1)) > floor_l).sum())
         small = n_if <= min(p.metric_inflight_cap, p.m)
         if not bool(fast_ok):
             return "exact"
@@ -948,7 +1007,7 @@ class CompressedSim:
     def _behind_exact(self, state):
         """The exact per-slot scatter census (:func:`_census`)."""
         p = self.p
-        _truth, hits, n_alive = _census(state, p)
+        _truth, hits, n_alive = _census(state, p, self)
         behind = torch.clamp(n_alive - hits, min=0)
         denom = torch.clamp(
             n_alive.to(torch.float32)
@@ -963,11 +1022,13 @@ class CompressedSim:
         p = self.p
         dev = state.own.device
         s = p.services_per_node
-        own_flat = state.own.reshape(p.m)
+        rows = self._rows()
+        own_flat = self._gather_rows(state.own).reshape(p.m)
         truth = torch.maximum(state.floor, own_flat)
         in_flight = truth > state.floor
         aux = torch.where(in_flight, truth, 2**31 - 1)
-        node = torch.arange(p.n, dtype=I32, device=dev)[:, None]
+        node = torch.arange(rows.start, rows.stop, dtype=I32,
+                            device=dev)[:, None]
         occ = state.cache_slot >= 0
         not_own = torch.where(
             occ, torch.div(state.cache_slot, s, rounding_mode="floor"),
@@ -976,7 +1037,7 @@ class CompressedSim:
             state.cache_val
             >= aux[state.cache_slot.clamp(min=0).to(I64)])
         n_inflight = in_flight.sum(dtype=I32)
-        sum_hits = at_truth.sum(dtype=I32) + n_inflight
+        sum_hits = self._reduce_sum(at_truth.sum(dtype=I32)) + n_inflight
         return self._fast_behind(n_inflight, sum_hits), self._denom_all(dev)
 
     def _behind_fast_list(self, state):
@@ -986,8 +1047,9 @@ class CompressedSim:
         p = self.p
         dev = state.own.device
         s = p.services_per_node
+        rows = self._rows()
         cap = min(p.metric_inflight_cap, p.m)
-        own_flat = state.own.reshape(p.m)
+        own_flat = self._gather_rows(state.own).reshape(p.m)
         truth = torch.maximum(state.floor, own_flat)
         in_flight = truth > state.floor
         n_inflight = in_flight.sum(dtype=I32)
@@ -1001,10 +1063,11 @@ class CompressedSim:
         held_s = state.cache_slot[:, lines_if]               # [N, P]
         held_v = state.cache_val[:, lines_if]
         owner = torch.div(slot, s, rounding_mode="floor")
-        node = torch.arange(p.n, dtype=I64, device=dev)[:, None]
+        node = torch.arange(rows.start, rows.stop, dtype=I64,
+                            device=dev)[:, None]
         match = (held_s == slot[None, :]) & (held_v >= t_if[None, :]) & \
             (node != owner[None, :]) & valid[None, :]
-        sum_hits = match.sum(dtype=I32) + n_inflight
+        sum_hits = self._reduce_sum(match.sum(dtype=I32)) + n_inflight
         return self._fast_behind(n_inflight, sum_hits), self._denom_all(dev)
 
     def _fast_behind(self, n_inflight, sum_hits):
@@ -1402,36 +1465,44 @@ def _line_compete(cache_slot, cache_val, cache_sent, rows, slots, vals,
     return slot1, val1, sent1, evicted.sum(dtype=I32)
 
 
-def _census(state: CompressedState, p: CompressedParams):
+def _census(state: CompressedState, p: CompressedParams, sim):
     """Per-slot truth (freshest belief among alive nodes) and hit count
-    (#alive nodes whose belief is at truth).  O(N·K + M)."""
+    (#alive nodes whose belief is at truth).  O(N·K + M).  ``state``
+    holds ``sim``'s node rows; their partial truths and counts are
+    reduced over every holder (``sim._reduce_max``/``_reduce_sum``)
+    before anything is compared with them."""
     s, m, k = p.services_per_node, p.m, p.cache_lines
     dev = state.own.device
+    rows = sim._rows()
+    lo, hi = rows.start * s, rows.stop * s
     alive = state.node_alive
-    n_alive = alive.sum(dtype=I32)
+    n_alive = sim._reduce_sum(alive.sum(dtype=I32))
 
-    own_flat = state.own.reshape(m)
+    own_flat = state.own.reshape(-1)
     owner_alive = torch.repeat_interleave(alive, s)
     own_val = torch.where(owner_alive, own_flat, 0)
 
-    truth = torch.maximum(state.floor, own_val)
+    truth = state.floor.clone()
+    truth[lo:hi] = torch.maximum(state.floor[lo:hi], own_val)
     cslot = state.cache_slot.reshape(-1)
     cval = state.cache_val.reshape(-1)
     centry_alive = torch.repeat_interleave(alive, k)
     cval = torch.where((cslot >= 0) & centry_alive, cval, 0)
     cidx = torch.where(cslot >= 0, cslot, m).to(I64)
     pad = torch.zeros(1, dtype=I32, device=dev)
-    truth = _scatter_amax(torch.cat([truth, pad]), cidx, cval)[:m]
+    truth = sim._reduce_max(
+        _scatter_amax(torch.cat([truth, pad]), cidx, cval)[:m])
 
     all_know = state.floor >= truth
     node_of_entry = torch.repeat_interleave(
-        torch.arange(p.n, dtype=I32, device=dev), k)
+        torch.arange(rows.start, rows.stop, dtype=I32, device=dev), k)
     entry_owner = torch.where(
         cslot >= 0, torch.div(cslot, s, rounding_mode="floor"), -1)
     counts = (cval >= truth[cslot.clamp(min=0).to(I64)]) & (cslot >= 0) \
         & centry_alive & (entry_owner != node_of_entry)
     hits = torch.zeros(m + 1, dtype=I32, device=dev)
     hits.index_add_(0, cidx, counts.to(I32))
-    hits = hits[:m] + (owner_alive & (own_flat >= truth)).to(I32)
-    hits = torch.where(all_know, n_alive, hits)
+    hits = hits[:m]
+    hits[lo:hi] += (owner_alive & (own_flat >= truth[lo:hi])).to(I32)
+    hits = torch.where(all_know, n_alive, sim._reduce_sum(hits))
     return truth, hits, n_alive

@@ -3,16 +3,27 @@ the port of ``sidecar_tpu/parallel/mesh.py``.
 
 The reference splits the node axis over a device mesh and runs one
 round body per device under ``shard_map``, with XLA collectives between
-the phases.  The port runs the same body as phases over a loop of
-shards; a *shard group* supplies the collectives between the phases.
-Every collective takes one tensor per shard (a list of ``d``) and
-returns one tensor per shard.
+the phases.  The port runs the same body as phases over a loop of the
+shards a process holds; a *shard group* supplies the collectives between
+the phases.  Every group has one contract:
 
-:class:`LocalShardGroup` holds all ``d`` shards on one device, so a
-collective is a tensor operation on that device.  A group over several
-cards (``torch.distributed`` with NCCL, each rank holding one shard and
-exchanging through the same method names) is where a multi-card run
-plugs in later.
+* ``d`` — the global shard count;
+* ``rank`` and ``world`` — this process's place among the processes of
+  the group, and ``local`` — the shard indices it holds, the contiguous
+  range ``[rank·dl, (rank+1)·dl)`` with ``dl = d / world``;
+* the shard collectives (``all_gather``, ``all_to_all``, ``ppermute``,
+  ``pmax``, ``psum``) take one tensor per LOCAL shard and return one
+  tensor per local shard;
+* the row collectives of the global phases, on a rank's node rows
+  (``gather_rows``, ``shift_rows``) or on a tensor every rank holds
+  whole (``all_reduce_max``, ``all_reduce_sum``).
+
+:class:`LocalShardGroup` is the one-rank case: all ``d`` shards on one
+device, every collective a tensor operation on that device and every row
+collective the identity (``shift_rows`` a ``torch.roll``).
+:class:`~sidecar_tpu_torch.parallel.dist.DistShardGroup` is the group
+over ``torch.distributed`` ranks (``parallel/dist.py``), each rank
+holding only its shards' rows.
 """
 
 from __future__ import annotations
@@ -46,15 +57,28 @@ def resolve_board_exchange(explicit: Optional[str] = None, *,
     return mode
 
 
+def local_rows(group, n: int) -> slice:
+    """The global node rows ``group``'s rank holds, of ``n``: its shards'
+    contiguous rows."""
+    per = n // group.world
+    return slice(group.rank * per, (group.rank + 1) * per)
+
+
 class LocalShardGroup:
     """``d`` shards on one device, with the collectives of the sharded
-    round.  A collective whose result every shard receives alike returns
-    the same tensor object ``d`` times (no shard writes to it)."""
+    round: the group of one rank.  A collective whose result every shard
+    receives alike returns the same tensor object ``d`` times (no shard
+    writes to it)."""
+
+    rank = 0
+    world = 1
 
     def __init__(self, d: int):
         if d < 1:
             raise ValueError(f"a shard group needs d >= 1, got {d}")
         self.d = d
+        self.dl = d
+        self.local = tuple(range(d))
 
     def _check(self, xs):
         if len(xs) != self.d:
@@ -93,3 +117,46 @@ class LocalShardGroup:
         self._check(xs)
         total = torch.stack(xs).sum(dim=0)
         return [total] * self.d
+
+    # -- the row collectives of the global phases ---------------------------
+
+    @staticmethod
+    def gather_rows(x):
+        """Every rank's node rows, in rank order: here ``x`` itself."""
+        return x
+
+    @staticmethod
+    def shift_rows(x, k: int):
+        """Row ``i`` of the result is global row ``(i + k) mod N``."""
+        return torch.roll(x, -k, 0)
+
+    @staticmethod
+    def all_reduce_max(x):
+        """The elementwise max of ``x`` over the ranks: ``x``."""
+        return x
+
+    @staticmethod
+    def all_reduce_sum(x):
+        """The elementwise sum of ``x`` over the ranks: ``x``."""
+        return x
+
+
+def resolve_group(group, d: int):
+    """``group``, checked to hold ``d`` shards; None is the one-process
+    :class:`LocalShardGroup`."""
+    if group is None:
+        return LocalShardGroup(d)
+    if group.d != d:
+        raise ValueError(f"the shard group holds d={group.d} shards, the "
+                         f"sim was given d={d}")
+    return group
+
+
+def refuse_ranks(group, what: str) -> None:
+    """Raise when ``group`` spans more than one rank: ``what`` runs on
+    global tensors."""
+    if group.world > 1:
+        raise ValueError(
+            f"{what} runs on global tensors and is not ported to a group "
+            f"of {group.world} ranks (ROADMAP Queue 1 item 10); run it "
+            "with a LocalShardGroup")

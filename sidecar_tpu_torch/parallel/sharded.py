@@ -29,13 +29,40 @@ between them (:meth:`ShardedSim._gossip_shards`):
    ``known[r0:r0+nl]``, local row ``nl`` the dropped pad;
 6. the TTL sweep on sweep rounds.
 
-Then the anti-entropy runs on the global tensors, as in the reference:
-the random-stride ring exchange (:meth:`ShardedSim._push_pull_stride`)
-in place of the single-device model's uniform partner — every node
-exchanges full rows with node ``(i + stride) mod N``.  A partition is
-``cut_mask`` on the sample (as on one device) and ``node_side``, which
-keeps the stride exchange within a side; the pipelined round refuses
-the sides, as the reference's does.
+Then the anti-entropy: the random-stride ring exchange
+(:meth:`ShardedSim._push_pull_stride`) in place of the single-device
+model's uniform partner — every node exchanges full rows with node
+``(i + stride) mod N``.  A partition is ``cut_mask`` on the sample (as on
+one device) and ``node_side``, which keeps the stride exchange within a
+side; the pipelined round refuses the sides, as the reference's does.
+
+The shard group (``group=``, ``parallel/mesh.py``) decides where the
+rows live.  With the default :class:`LocalShardGroup` every shard is in
+this process.  With a :class:`~sidecar_tpu_torch.parallel.dist.
+DistShardGroup` of ``world`` ranks the state is RANK-LOCAL: ``known``,
+``sent`` and ``node_alive`` hold only the rank's ``dl·nl`` rows
+(``init_state`` builds them from the global state; ``convert.
+shard_state`` splits a given one).  Then:
+
+* per local shard, as above — select, own-shard candidates, announce,
+  the remote blocks of every mode (and the digest gate), one K4a a
+  shard and the sweep;
+* with collectives — the liveness vector (``gather_rows``, once a
+  round, for the sample and the delivery gates), the stride push-pull
+  (``shift_rows`` fetches only the partner rows, from at most two ranks
+  each way), the convergence metric (an ``all_reduce`` max of each
+  rank's per-column truth, the integer agreement counts gathered, the
+  float32 mean taken once on the whole vector, so it is the one-process
+  value bit for bit), and every host decision: the sparse round's
+  per-shard sender counts and the digest gate's skip are gathered
+  before they are read, so every rank takes the same branch;
+* raising at ``world > 1`` (ROADMAP Queue 1 item 10) — the pipelined
+  round (a delegation to the single-device model on global tensors),
+  the telemetry planes and the host replica ``gate_predicates``.
+
+Every rank draws the round's global :class:`RoundDraws` (its cost: one
+``[N, F, B]`` loss mask a rank) and uses the rows it needs, so the
+trajectory is the same at every world size.
 
 Every candidate resolves against the pre-round block and the scatter-
 max and the ``sent`` reset commute, so the order in which blocks are
@@ -92,8 +119,10 @@ from sidecar_tpu_torch.ops.status import (
 )
 from sidecar_tpu_torch.ops.topology import Topology, zoned_exchange_plan
 from sidecar_tpu_torch.parallel.mesh import (
-    LocalShardGroup,
+    local_rows,
+    refuse_ranks,
     resolve_board_exchange,
+    resolve_group,
 )
 from sidecar_tpu_torch.telemetry import cost
 
@@ -114,8 +143,10 @@ class _Shard:
 
 
 class ShardedSim(ExactSim):
-    """The exact model over ``d`` node shards (default 1), sharing one
-    device (a :class:`LocalShardGroup`).  Same ``run*`` methods as
+    """The exact model over ``d`` node shards (default 1): on one device
+    (a :class:`LocalShardGroup`, the default) or over the ranks of
+    ``group`` (a ``DistShardGroup`` of ``d`` shards; the state is then
+    rank-local, see the module docstring).  Same ``run*`` methods as
     :class:`ExactSim`; ``board_exchange`` (``all_gather``, ``ring``, and
     ``zoned`` on a neighbour-list graph), ``exchange_stub``,
     ``digest_gate`` and ``gate_buckets`` as in the reference.
@@ -132,7 +163,8 @@ class ShardedSim(ExactSim):
                  exchange_stub: bool = False, sparse=None,
                  digest_gate: Optional[bool] = None, gate_buckets: int = 8,
                  pipeline=None, tick_period=None, tick_phase=None,
-                 device="cuda", cut_mask=None, node_side=None):
+                 device="cuda", cut_mask=None, node_side=None,
+                 group=None):
         super().__init__(params, topo, timecfg, device=device,
                          cut_mask=cut_mask, sparse=sparse,
                          pipeline=pipeline, tick_period=tick_period,
@@ -162,7 +194,7 @@ class ShardedSim(ExactSim):
         if d < 1 or params.n % d:
             raise ValueError(f"n={params.n} must divide into d={d} shards")
         self.d = d
-        self.group = LocalShardGroup(d)
+        self.group = resolve_group(group, d)
         nl = params.n // d
         # The per-shard sparse sender cap: the global cap split over the
         # shards with 2x slack for imbalance.
@@ -230,6 +262,7 @@ class ShardedSim(ExactSim):
         every receiver/sender pair digest-equal)."""
         if not self.digest_gate:
             raise ValueError("gate_predicates requires digest_gate=True")
+        refuse_ranks(self.group, "the host replica gate_predicates")
         known = state.known.cpu().numpy()
         dig = digest_ops.node_digests_np(
             known, digest_ops.default_idents(self.p.m), self._gate_buckets)
@@ -243,13 +276,17 @@ class ShardedSim(ExactSim):
 
     def _gate_skips(self, shards, live) -> set:
         """The zoned hops of ``live`` the digest gate skips this round,
-        from the pre-round blocks: one host read."""
+        from the pre-round blocks of every shard (each rank's gathered):
+        one host read."""
         if not live:
             return set()
+        g = self.group
         digs = [digest_ops.node_digests(x.known, self._gate_idents,
                                         self._gate_buckets) for x in shards]
-        uniform = torch.stack([(g == g[:1]).all() for g in digs]).all()
-        first = torch.stack([g[0] for g in digs])             # [d, gb, 2]
+        uniform = g.gather_rows(
+            torch.stack([(dg == dg[:1]).all() for dg in digs])).all()
+        first = g.gather_rows(torch.stack([dg[0] for dg in digs]))
+        # first: [d, gb, 2]
         agree = torch.stack([
             uniform & (first == torch.roll(first, -h, 0)).all()
             for h in live]).tolist()
@@ -397,38 +434,43 @@ class ShardedSim(ExactSim):
                 with cost.phase("exchange"):
                     cur = tuple(g.ppermute(b, perm) for b in cur)
                 for x, bd, bs, bm in zip(shards, *cur):
-                    snd = shards[(x.index + h) % d].senders
+                    snd = (x.index + h) % d * nl + torch.arange(
+                        nl, dtype=I32, device=dev)
                     self._block_candidates(x, bd, bs, bm, snd, alive, now,
                                            keep_rows(snd))
 
     def _gossip_shards(self, known, sent, alive, dst, keep, round_idx: int,
                        now: int, sparse: bool):
-        """Phases 1-6 of the round over the loop of shards, in place.
-        Returns the sparse stats ``(ran sparse, overflowed, senders)`` as
-        host ints on a sparse round, else None."""
-        p, kn, d = self.p, self._knobs, self.d
+        """Phases 1-6 of the round over the loop of this rank's shards,
+        in place: ``known`` and ``sent`` are its rows, ``alive``, ``dst``
+        and ``keep`` global.  Returns the sparse stats ``(ran sparse,
+        overflowed, senders)`` as host ints on a sparse round, else
+        None."""
+        p, kn, d, g = self.p, self._knobs, self.d, self.group
         nl = p.n // d
         dev = known.device
         shards = [_Shard(index=s, r0=s * nl,
-                         known=known[s * nl:(s + 1) * nl],
-                         sent=sent[s * nl:(s + 1) * nl],
+                         known=known[j * nl:(j + 1) * nl],
+                         sent=sent[j * nl:(j + 1) * nl],
                          dst=dst[s * nl:(s + 1) * nl],
                          senders=s * nl + torch.arange(nl, dtype=I32,
                                                        device=dev))
-                  for s in range(d)]
+                  for j, s in enumerate(g.local)]
 
         # 1. Select and charge; on the sparse round each shard compacts
         # its eligible senders unless they overflow its cap, reading the
-        # d frontier sizes once.
+        # d frontier sizes (every rank's, gathered) once.
         stats = None
-        senders = [None] * d
+        senders = [None] * len(shards)
         if sparse:
             elig = [gossip_ops.eligible_records(x.known, x.sent,
                                                 kn.limit).any(dim=1)
                     for x in shards]
-            sizes = torch.stack([e.sum() for e in elig]).tolist()
+            sizes = g.gather_rows(torch.stack([e.sum() for e in elig]))
+            sizes = sizes.tolist()
             over = [c > self._sparse_cap_shard for c in sizes]
-            senders = [None if o else e for o, e in zip(over, elig)]
+            senders = [None if over[x.index] else e
+                       for x, e in zip(shards, elig)]
             ov = int(any(over))
             stats = (1 - ov, ov, sum(sizes))
         for x, sender in zip(shards, senders):
@@ -458,29 +500,34 @@ class ShardedSim(ExactSim):
     @cost.phased("exchange", tag="push_pull")
     def _push_pull_stride(self, known, sent, alive, stride: int, now: int):
         """Two-way full-row exchange with the node ``stride`` positions
-        away on the ring, written back in place: pull the forward
-        partner's row through the merge gates, and take the backward
-        partner's admitted row, sticky-adjusted against the pre-exchange
-        row; ``sent`` resets where the row moved."""
-        p, kn = self.p, self._knobs
+        away on the ring, written back in place into this rank's rows
+        (``alive`` is global): pull the forward partner's row through the
+        merge gates, and take the backward partner's admitted row,
+        sticky-adjusted against the pre-exchange row; ``sent`` resets
+        where the row moved.  The partner rows come through the group's
+        ``shift_rows``."""
+        p, kn, g = self.p, self._knobs, self.group
         tb, ft = kn.budget_arg(), kn.future_arg()
+        rows = local_rows(g, p.n)
         own_pull = own_push = None
         if tb is not None:
             # The pulled row's origin is the forward partner; the
-            # offered row's origin is the offering node.
-            node_ids = torch.arange(p.n, dtype=I32, device=known.device)
+            # offered row's origin is the offering (backward) partner.
+            node_ids = torch.arange(rows.start, rows.stop, dtype=I32,
+                                    device=known.device)
             own_pull = self.owner[None, :] == \
-                torch.roll(node_ids, -stride, 0)[:, None]
-            own_push = self.owner[None, :] == node_ids[:, None]
-        ok = common.exchange_ok(alive, self._side, -stride)
-        fwd = torch.where(ok[:, None], torch.roll(known, -stride, 0), 0)
+                ((node_ids + stride) % p.n)[:, None]
+            own_push = self.owner[None, :] == \
+                ((node_ids - stride) % p.n)[:, None]
+        ok = common.exchange_ok(alive, self._side, -stride)[rows]
+        fwd = torch.where(ok[:, None], g.shift_rows(known, stride), 0)
         pulled = merge_packed(known, fwd, now, kn.stale_ticks, ft, tb,
                               own_pull)
         del fwd
-        offered = admit_gate(known, now, kn.stale_ticks, ft, tb, own_push)
-        ok_back = common.exchange_ok(alive, self._side, stride)
-        back = torch.where(ok_back[:, None], torch.roll(offered, stride, 0),
-                           0)
+        offered = admit_gate(g.shift_rows(known, -stride), now,
+                             kn.stale_ticks, ft, tb, own_push)
+        ok_back = common.exchange_ok(alive, self._side, stride)[rows]
+        back = torch.where(ok_back[:, None], offered, 0)
         del offered
         back = sticky_adjust(back, known, back > known)
         merged = torch.maximum(pulled, back)
@@ -492,15 +539,47 @@ class ShardedSim(ExactSim):
     def _round(self, state: SimState, draws: RoundDraws, sparse: bool):
         round_idx = state.round_idx + 1
         now = round_idx * self.t.round_ticks
-        dst = self._sample(state.node_alive, draws, round_idx)
-        stats = self._gossip_shards(state.known, state.sent,
-                                    state.node_alive, dst,
+        alive = self.group.gather_rows(state.node_alive)
+        dst = self._sample(alive, draws, round_idx)
+        stats = self._gossip_shards(state.known, state.sent, alive, dst,
                                     self._keep(draws), round_idx, now,
                                     sparse)
         if round_idx % self._knobs.push_pull_rounds == 0:
-            self._push_pull_stride(state.known, state.sent,
-                                   state.node_alive, int(draws.stride), now)
+            self._push_pull_stride(state.known, state.sent, alive,
+                                   int(draws.stride), now)
         return dataclasses.replace(state, round_idx=round_idx), stats
+
+    # -- the rank-local state and metric --------------------------------------
+
+    def init_state(self, live_fraction: float = 1.0,
+                   seed: int = 0) -> SimState:
+        """:meth:`ExactSim.init_state`'s cold start, this rank's rows of
+        it."""
+        state = super().init_state(live_fraction, seed)
+        if self.group.world == 1:
+            return state
+        rows = local_rows(self.group, self.p.n)
+        return dataclasses.replace(
+            state, known=state.known[rows].clone(),
+            sent=state.sent[rows].clone(),
+            node_alive=state.node_alive[rows].clone())
+
+    def convergence(self, state: SimState) -> torch.Tensor:
+        """:meth:`ExactSim.convergence` over every rank's rows: the
+        per-column truth is an all-reduce max of each rank's, each
+        node's integer agreement count is gathered, and the float32
+        mean runs once on the whole vector."""
+        g = self.group
+        alive = state.node_alive
+        truth = g.all_reduce_max(
+            torch.where(alive[:, None], state.known, 0).amax(dim=0))
+        agree = (state.known == truth[None, :]).sum(dim=1, dtype=I32)
+        return common.alive_mean(g.gather_rows(agree), self.p.m,
+                                 g.gather_rows(alive))
+
+    def _run_plane(self, *args, **kwargs):
+        refuse_ranks(self.group, "the telemetry planes")
+        return super()._run_plane(*args, **kwargs)
 
     def _step(self, state: SimState, draws: RoundDraws) -> SimState:
         """One dense round from this round's draws, in place: the shard
@@ -515,7 +594,7 @@ class ShardedSim(ExactSim):
         shard overflowed."""
         return self._round(state, draws, True)
 
-    # -- telemetry --------------------------------------------------------------
+    # -- telemetry ------------------------------------------------------------
 
     def _prov_channels(self, state: SimState, draws: RoundDraws):
         """The round's channels, given the post-round ``state``: the
@@ -572,6 +651,7 @@ class ShardedSim(ExactSim):
         return self._pipe_twin
 
     def _delegate(self):
+        refuse_ranks(self.group, "the pipelined round")
         self._resolve_pipeline_request(True)
         self._pipeline_dispatch(False)
         self.last_sparse_stats = None
@@ -608,3 +688,4 @@ class ShardedSim(ExactSim):
         return self._delegate().run_fast_pipelined(
             state, num_rounds, inflight=inflight, generator=generator,
             draws=draws, donate=donate, start_round=start_round)
+

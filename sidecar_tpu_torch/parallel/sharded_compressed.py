@@ -17,14 +17,13 @@ re-merge the floor replicas:
 * ``zoned`` — each hop carries only the rows the overlay can make
   another shard sample (``ops/topology.zoned_exchange_plan``).
 
-The state stays the single-device :class:`CompressedState` of global
-tensors; a shard works on its row slice of them, and its kernels run on
-that slice (a contiguous block, which the kernel wrappers accept).  The
-round (``CompressedSim._step``) is inherited: this class replaces its
-gossip-and-announce half (:meth:`_round_gossip_announce`) with the
-reference's split-phase shard body (``_gossip_shard_body``), run as
-phases over the loop of shards with the shard group's collectives
-between them:
+The state is the single-device :class:`CompressedState`; a shard works
+on its row slice of it, and its kernels run on that slice (a contiguous
+block, which the kernel wrappers accept).  The round replaces the
+single-device gossip-and-announce half with the reference's split-phase
+shard body (``_gossip_shard_body``), run as phases over the loop of the
+shards this process holds with the shard group's collectives between
+them:
 
 1. the ``all_to_all`` request leg (routing is index math only);
 2. each shard's board — the publish kernel at ``row_offset = r0`` —
@@ -38,10 +37,34 @@ between them:
 6. the finalize (transmit resets, evictions) and the owner-offer insert;
 7. ``pmax`` of the floor replicas, ``psum`` of evictions and drops.
 
-The push-pull and the sweep then run on the global tensors, as in the
-reference.  The round stagger and the tick cadence gate the sampled
-peers in the inherited round, on the global node ids, as the
-reference's sharded round does.  With the same peers, the same loss
+The push-pull and the sweep then run as the single-device model's
+phases over the node rows this process holds (``CompressedSim``'s row
+hooks).  The round stagger and the tick cadence gate the sampled peers
+on the global node ids, as the reference's sharded round does.
+
+The shard group (``group=``, ``parallel/mesh.py``) decides where the
+rows live.  With the default :class:`LocalShardGroup` every shard is in
+this process and the row hooks are the identity.  With a
+:class:`~sidecar_tpu_torch.parallel.dist.DistShardGroup` of ``world``
+ranks the node-major leaves (``own``, ``cache_*``, ``node_alive``) hold
+only the rank's rows, while ``floor`` and the counters stay whole on
+every rank (``init_state`` builds the rank's state from the global one;
+``convert.shard_state`` splits a given one).  Then:
+
+* per local shard — phases 1–6 above, K2 and K3 once a local shard, the
+  ``all_to_all`` request buffers of every local shard in one exchange;
+* with collectives, where the reference's GSPMD inserts them — the
+  liveness vector (gathered once a round), the sparse frontiers (the
+  senders gathered, the announce's floor replicas max-reduced, the
+  per-shard sizes gathered before the one host read), the stride
+  push-pull (the partner rows fetched by ``shift_rows``), the sweep's
+  line census (max of the winners, sum of the holder counts, the floor
+  advance then the same on every rank), ``mint`` (on the owners' rank),
+  the ``behind`` census and ``convergence`` (integer counts reduced
+  before the float is taken once), and the counters (``psum``);
+* raising at ``world > 1`` (ROADMAP Queue 1 item 10) — the pipelined
+  round, the telemetry planes and a scenario hook (``perturb``), which
+  work on global tensors.  With the same peers, the same loss
 mask and no dropped pull, every mode at every ``d`` ends each round in
 the single-device model's state: the line fold is a max, so the order
 in which groups of pulled rows fold does not matter.
@@ -62,7 +85,8 @@ as in the reference.
 Randomness comes through the ``RoundDraws`` seam as one ``[N, F]``
 ``peer_slot`` (and ``[N, F, K]`` ``keep``) per round, so with the
 port's generator this twin draws exactly what the single-device model
-draws.  The reference draws per shard (``fold_in(k_peers, shard)``);
+draws, on every rank alike (each uses the rows it needs).  The
+reference draws per shard (``fold_in(k_peers, shard)``);
 the tests rebuild those streams and feed them in through ``draws=``.
 Its pipelined round is the single-device program and draws the
 single-device stream.
@@ -89,8 +113,10 @@ from sidecar_tpu_torch.ops.merge import admit_gate
 from sidecar_tpu_torch.ops.topology import Topology, zoned_exchange_plan
 from sidecar_tpu_torch.telemetry import cost
 from sidecar_tpu_torch.parallel.mesh import (
-    LocalShardGroup,
+    local_rows,
+    refuse_ranks,
     resolve_board_exchange,
+    resolve_group,
 )
 
 
@@ -121,7 +147,8 @@ class _Shard:
 
     index: int
     r0: int                  # global id of the shard's row 0
-    rows: slice              # its rows of the global tensors
+    rows: slice              # its rows of the state's tensors
+    grows: slice             # its rows of the global tensors
     dst: torch.Tensor        # int32 [nl, F] sampled peers (global ids)
     ok: torch.Tensor         # bool [nl, F] source and receiver alive
     keep: Optional[torch.Tensor]   # bool [nl, F, K] loss mask, or None
@@ -148,14 +175,17 @@ class ShardedCompressedSim(CompressedSim):
     ``run*`` methods as :class:`CompressedSim`, the sparse and pipelined
     rounds included; ``board_exchange`` (default ``all_gather``),
     ``a2a_slack`` and ``exchange_stub`` as in the reference.  The shards
-    share one device (a :class:`LocalShardGroup`)."""
+    share one device (a :class:`LocalShardGroup`, the default) or lie on
+    the ranks of ``group`` (a ``DistShardGroup`` of ``d`` shards; the
+    state is then rank-local, see the module docstring)."""
 
     def __init__(self, params: CompressedParams, topo: Topology,
                  timecfg: TimeConfig = TimeConfig(), *, d: int = 1,
                  board_exchange: Optional[str] = None, a2a_slack: int = 2,
                  exchange_stub: bool = False, device="cuda",
                  perturb=None, cut_mask=None, node_side=None, sparse=None,
-                 pipeline=None, tick_period=None, tick_phase=None):
+                 pipeline=None, tick_period=None, tick_phase=None,
+                 group=None):
         super().__init__(params, topo, timecfg, device=device,
                          fused_gather=False, perturb=perturb,
                          cut_mask=cut_mask, node_side=node_side,
@@ -181,7 +211,9 @@ class ShardedCompressedSim(CompressedSim):
         if d < 1 or params.n % d:
             raise ValueError(f"n={params.n} must divide into d={d} shards")
         self.d = d
-        self.group = LocalShardGroup(d)
+        self.group = resolve_group(group, d)
+        if perturb is not None:
+            refuse_ranks(self.group, "a scenario hook (perturb)")
         nl = params.n // d
         self._a2a_cap = max(16, -(-nl * params.fanout // d) * a2a_slack)
         # Per-shard sparse frontier caps (senders, receivers,
@@ -239,6 +271,43 @@ class ShardedCompressedSim(CompressedSim):
         self._overflow_synced = dropped
         return dropped
 
+    # -- the rows this rank holds (CompressedSim's row hooks) ---------------
+
+    def _rows(self) -> slice:
+        return local_rows(self.group, self.p.n)
+
+    def _gather_rows(self, x):
+        return self.group.gather_rows(x)
+
+    def _shift_rows(self, x, k: int):
+        return self.group.shift_rows(x, k)
+
+    def _reduce_max(self, x):
+        return self.group.all_reduce_max(x)
+
+    def _reduce_sum(self, x):
+        return self.group.all_reduce_sum(x)
+
+    def init_state(self) -> "CompressedState":
+        """:meth:`CompressedSim.init_state`'s boot state, this rank's
+        rows of its node-major leaves."""
+        state = super().init_state()
+        if self.group.world == 1:
+            return state
+        rows = self._rows()
+        return dataclasses.replace(state, **{
+            f: getattr(state, f)[rows].clone() for f in (
+                "own", "cache_slot", "cache_val", "cache_sent",
+                "node_alive")})
+
+    def _run_plane(self, *args, **kwargs):
+        refuse_ranks(self.group, "the telemetry planes")
+        return super()._run_plane(*args, **kwargs)
+
+    def _select_inflight(self, state, draws, round_sel: int):
+        refuse_ranks(self.group, "the pipelined round")
+        return super()._select_inflight(state, draws, round_sel)
+
     # -- the all_to_all request routing -----------------------------------
 
     def _a2a_route(self, dst, shard: int, nl: int) -> A2aRoute:
@@ -273,15 +342,18 @@ class ShardedCompressedSim(CompressedSim):
 
     # -- the shard body -----------------------------------------------------
 
-    def _open_shard(self, state, src, keep, s: int, nl: int) -> _Shard:
-        rows = slice(s * nl, (s + 1) * nl)
-        dst = src[rows]
-        alive = state.node_alive
+    def _open_shard(self, state, src, keep, alive, s: int, j: int,
+                    nl: int) -> _Shard:
+        """Global shard ``s``, the ``j``-th this rank holds; ``src``,
+        ``keep`` and ``alive`` are global."""
+        rows = slice(j * nl, (j + 1) * nl)
+        grows = slice(s * nl, (s + 1) * nl)
+        dst = src[grows]
         src_shard = torch.div(dst, nl, rounding_mode="floor")
         return _Shard(
-            index=s, r0=s * nl, rows=rows, dst=dst,
-            ok=alive[dst.to(I64)] & alive[rows][:, None],
-            keep=None if keep is None else keep[rows],
+            index=s, r0=s * nl, rows=rows, grows=grows, dst=dst,
+            ok=alive[dst.to(I64)] & alive[grows][:, None],
+            keep=None if keep is None else keep[grows],
             cv0=state.cache_val[rows], cs0=state.cache_slot[rows],
             wv=state.cache_val[rows], ws=state.cache_slot[rows],
             src_shard=src_shard, src_row=dst - src_shard * nl)
@@ -323,7 +395,7 @@ class ShardedCompressedSim(CompressedSim):
         k = p.cache_lines
         idx_s, row_s, valid_s, pos_s = sparse_ops.compact_rows(
             sender, self._sparse_caps_shard[0])
-        rs = (x.r0 + row_s).to(I64)
+        rs = (x.rows.start + row_s).to(I64)
         cv_s = torch.where(valid_s[:, None], state.cache_val[rs], 0)
         sl_s = torch.where(valid_s[:, None], state.cache_slot[rs], -1)
         with cost.phase("publish"):
@@ -475,29 +547,20 @@ class ShardedCompressedSim(CompressedSim):
         return (torch.where(ac, cv2[pa], cv), torch.where(ac, cs2[pa], cs),
                 torch.where(ac, se2[pa], se), ev_merge + ev_ann.to(I32))
 
-    def _round_gossip_announce(self, state, src, keep, round_idx: int,
-                               now: int, ann=None):
+    def _shard_round(self, state, src, keep, alive, round_idx, now: int,
+                     ann, frontiers=None):
         """Publish, exchange, pull and merge, then announce — shard by
-        shard, phase by phase (see the module docstring).  ``ann`` is
-        the announce's own/floor half when the sparse round has computed
-        it already (its overflow fallback)."""
-        return self._shard_round(state, src, keep, round_idx, now, ann)
-
-    def _round_gossip_announce_sparse(self, st, src, keep, now: int,
-                                      sender, recv, announcer, ann):
-        """The shard body on the compacted frontiers (the caller checked
-        that no shard's frontier overflows its cap)."""
-        return self._shard_round(st, src, keep, None, now, ann,
-                                 (sender, recv, announcer))
-
-    def _shard_round(self, state, src, keep, round_idx, now: int, ann,
-                     frontiers=None):
+        shard, phase by phase (see the module docstring).  ``src``,
+        ``keep`` and ``alive`` are global; ``ann`` is the announce's
+        own/floor half when the sparse round has computed it already,
+        and ``frontiers`` its ``(sender, recv, announcer)`` masks over
+        this rank's rows when the compacted body runs."""
         p, g, d = self.p, self.group, self.d
         nl = p.n // d
         mode = self.board_exchange
         stub = self._exchange_stub
-        shards = [self._open_shard(state, src, keep, s, nl)
-                  for s in range(d)]
+        shards = [self._open_shard(state, src, keep, alive, s, j, nl)
+                  for j, s in enumerate(g.local)]
 
         # 1. The all_to_all request leg: index math over the peers only
         # (on the sparse round too: requests to a row without an
@@ -518,8 +581,7 @@ class ShardedCompressedSim(CompressedSim):
                 self._publish_block(state, x, now)
             else:
                 self._publish_compacted(state, x, frontiers[0][x.rows], now)
-                self._compact_receivers(x, frontiers[1][x.rows],
-                                        state.node_alive)
+                self._compact_receivers(x, frontiers[1][x.rows], alive)
 
         # 3. Own-shard rows fold at once.  all_gather skips this: its
         # remote buffer is the whole board, local rows included.
@@ -571,15 +633,50 @@ class ShardedCompressedSim(CompressedSim):
             evictions=(state.evictions + evictions).to(I32),
             dropped=(state.dropped + dropped).to(I32))
 
-    # -- the sparse-frontier round ------------------------------------------
+    # -- the round (CompressedSim._step and _step_sparse call these) -------
+
+    def _round_gossip_announce(self, state, src, keep, round_idx: int,
+                               now: int, ann=None):
+        """The shard body, dense (see :meth:`_shard_round`)."""
+        return self._shard_round(state, src, keep,
+                                 self._gather_rows(state.node_alive),
+                                 round_idx, now, ann)
+
+    def _round_gossip_announce_sparse(self, st, src, keep, now: int,
+                                      sender, recv, announcer, ann):
+        """The shard body on the compacted frontiers (the caller checked
+        that no shard's frontier overflows its cap)."""
+        return self._shard_round(st, src, keep,
+                                 self._gather_rows(st.node_alive), None,
+                                 now, ann, (sender, recv, announcer))
+
+    def _sparse_frontiers(self, state, src, round_idx: int, now: int):
+        """The three frontiers over this rank's rows (a receiver's
+        senders may lie on any rank: the sender mask is gathered) and
+        the announce's own/floor half (each rank refreshes its slice of
+        the floor replica; the replicas are max-merged)."""
+        rows = self._rows()
+        sender = kernel_ops.eligible_lines(
+            state.cache_slot, state.cache_sent, self._knobs.limit).any(dim=1)
+        sender_all = self.group.gather_rows(sender)
+        recv = state.node_alive & \
+            sender_all[src[rows].to(I64)].any(dim=1)
+        own, floor, offer_val, base_slot = self._announce_offers(
+            state.own, state.floor, state.node_alive, round_idx, now,
+            row_offset=rows.start)
+        announcer = (offer_val > 0).any(dim=1)
+        return sender, recv, announcer, (
+            own, self.group.all_reduce_max(floor), offer_val, base_slot)
 
     def _sparse_overflow(self, sender, recv, announcer):
         """ONE overflow decision for every shard: whether any shard's
-        frontier exceeds its per-shard cap, from the ``3 × d`` sizes read
-        on the host; and the largest global frontier size."""
-        d, nl = self.d, self.p.n // self.d
-        sizes = torch.stack([m.reshape(d, nl).sum(dim=1)
-                             for m in (sender, recv, announcer)]).tolist()
+        frontier exceeds its per-shard cap, from the ``3 × d`` sizes
+        (every rank's, gathered) read on the host; and the largest
+        global frontier size."""
+        g, nl = self.group, self.p.n // self.d
+        sizes = g.gather_rows(torch.stack([
+            m.reshape(g.dl, nl).sum(dim=1)
+            for m in (sender, recv, announcer)]).T).T.tolist()
         return (any(c > cap for row, cap in
                     zip(sizes, self._sparse_caps_shard) for c in row),
                 max(sum(row) for row in sizes))

@@ -1178,3 +1178,23 @@ def test_exact_on_card_equals_oracle(card):
         np.testing.assert_array_equal(
             state.sent.cpu().numpy().astype(np.int32), orc.sent,
             err_msg=f"round {r}")
+
+
+def test_nccl_group_of_one_rank_equals_local_group(card, monkeypatch):
+    """A NCCL group of one rank holding d = 4 shards (real NCCL
+    collectives on CUDA tensors) against ``LocalShardGroup`` at d = 4 on
+    the card: the exact and compressed twins, ``all_gather`` and
+    ``ring``, equal state and curve.  The rank imports the worker as a
+    top-level module from this directory (the spawned process inherits
+    the path)."""
+    import importlib
+    import pathlib
+
+    from sidecar_tpu_torch.parallel import spawn_group
+
+    monkeypatch.syspath_prepend(str(pathlib.Path(__file__).parent))
+    worker = importlib.import_module("torch_dist_worker")
+    (got,) = spawn_group(worker.group_against_local, 1, "nccl",
+                         timeout_s=600.0)
+    assert got and all(not r["fields_differ"] and r["curve_equal"]
+                       for r in got.values()), got
