@@ -223,20 +223,28 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    ``torch.distributed`` group on the one card (``parallel/dist.py``,
    started by ``parallel/launch.spawn_group``): NCCL with one rank
    holding d = 4 shards — the exact twin at the ``value`` shape in
-   every mode (200 rounds) and the compressed twin at the north star's
-   shape in every mode (100 rounds, from the 0.1 % burst) — then gloo
+   every mode (50 rounds) and the compressed twin at the north star's
+   shape in every mode (25 rounds, from the 0.1 % burst) — then gloo
    with two ranks of two shards sharing the card, every exchanged
    tensor copied through the host — the exact twin in ``all_gather``
    and ``ring`` (50 rounds), the compressed twin at n = 16,384 in
-   ``all_gather`` and ``all_to_all`` (50 rounds) and the 64-point grid
-   at n = 1,024 over the two ranks (100 rounds).  Each job's final state
-   (SHA-256 of each rank's part) and curve, or every row of the grid's
-   table, must equal the same run through ``LocalShardGroup`` in this
-   process, and each rank must launch its kernels once a local shard a
-   round; per rank its wall, rounds/s, a 5-round profile (busy ms and
-   idle share a round), peak memory, the bytes it sent and gloo's host
-   staging bytes.  On one card this measures launches and host
-   staging, not a link between cards.
+   ``all_gather`` and ``all_to_all`` (25 rounds) and the 64-point grid
+   at n = 1,024 over the two ranks (100 rounds).  Then, on each group,
+   the twins' other paths (50 rounds each): the exact twin's trace,
+   digest and provenance in one run beside the untraced run, the
+   compressed twin's trace (the north star on NCCL, 16,384 on gloo) and
+   deltas (4,096), both pipelined rounds, and config5 at its declared
+   1M × 64 (NCCL, against the ``chaos`` phase's single-device run) or
+   config4 at 16,384 × 10 (gloo, 100 rounds).  Each job's final state
+   (SHA-256 of each rank's part) and curve, every stream field, each
+   rank's part of a pipelined carry, or every row of the grid's table,
+   must equal the same run through ``LocalShardGroup`` in this process,
+   and each rank must launch its kernels as ``dist_expected`` says; per
+   rank its wall, rounds/s (a traced job: ms a round traced and
+   untraced), a 5-round profile (busy ms and idle share a round), peak
+   memory, the bytes it sent and gloo's host staging bytes.  On one
+   card this measures launches and host staging, not a link between
+   cards.
 
 Each phase prints one JSON line; then the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -2678,6 +2686,9 @@ def phase_exact_modes(n=4096, rounds=60, reps=3, eps=1e-3, horizon=800):
 
 TELEMETRY_PLANES = ("trace", "digest", "deltas", "provenance")
 TELEMETRY_EXACT_ROUNDS = 20
+# The compressed digest and deltas' card-against-CPU rounds (20 until
+# the script's time limit asked for a cut; about 1 s a round on the CPU).
+TELEMETRY_CPU_ROUNDS = 10
 TELEMETRY_BUCKETS = 64
 
 
@@ -3156,7 +3167,8 @@ def phase_telemetry(topo, fused, exact_n=4096):
     checks.update(rec)
     counts += c
     for n, rounds, names in ((4096, 30, ("trace", "provenance")),
-                             (1024, 20, ("digest", "deltas"))):
+                             (1024, TELEMETRY_CPU_ROUNDS,
+                              ("digest", "deltas"))):
         p = bench_params(n)
         ctopo = erdos_renyi(n, avg_degree=8.0, seed=3)
         slots = burst(p.m, 0.01)
@@ -3922,7 +3934,10 @@ def phase_chaos(n=4096, cpu_n=1024):
         if line["part"] == "value":
             scatter_err = line["checks"][
                 "scatter_max_apply_on_chaos_triples"]["max_abs_err"]
-    return all_counts, {"scatter_max_apply": scatter_err}
+        if line["part"] == "config5":
+            config5 = {"curve": line["convergence_every_5"],
+                       "eps_round": line["eps_round"], "n": line["n"]}
+    return all_counts, {"scatter_max_apply": scatter_err}, config5
 
 
 # -- phase 14: the scenario fleet ------------------------------------------------
@@ -5532,11 +5547,26 @@ def phase_oracle(n=64, rounds=40):
 
 # -- phase 19: the shard groups over torch.distributed -------------------------
 
-DIST_EXACT_ROUNDS = {"nccl": 200, "gloo": 50}
-DIST_COMPRESSED_ROUNDS = {"nccl": 100, "gloo": 50}
+DIST_EXACT_ROUNDS = {"nccl": 50, "gloo": 50}
+DIST_COMPRESSED_ROUNDS = {"nccl": 25, "gloo": 25}
 DIST_CONV_EVERY = 25
 DIST_GRID_ROUNDS = 100
 DIST_GLOO_N = 16_384
+# The twins' other paths over the group: the telemetry planes, the
+# pipelined round and configs 4 and 5.
+DIST_PATH_ROUNDS = 50
+DIST_EXACT_PLANES = ("trace", "digest", "provenance")
+DIST_TRACKED = 4
+# The compressed deltas diff an [N, M] belief view: 10^11 cells at the
+# north star, so they run at the lockstep size.
+DIST_DELTA_N = 4096
+DIST_DELTA_CAP = 1 << 16
+DIST_CONFIG4_SCALE = 0.25           # 16,384 × 10
+DIST_CONFIG4_ROUNDS = 100           # of its 400: ε falls at round 75
+DIST_CONFIG5_SCALE = 1.0            # the declared 1M × 64
+DIST_PATHS = ("exact_planes", "compressed_trace", "compressed_deltas",
+              "exact_pipelined", "compressed_pipelined", "config4",
+              "config5")
 
 
 def dist_jobs(north_star_n):
@@ -5545,12 +5575,31 @@ def dist_jobs(north_star_n):
     nccl = [("exact", mode, 4, 4096, DIST_EXACT_ROUNDS["nccl"])
             for mode in ("all_gather", "ring", "zoned")] + \
         [("compressed", mode, 4, north_star_n, DIST_COMPRESSED_ROUNDS["nccl"])
-         for mode in ("all_gather", "all_to_all", "ring", "zoned")]
+         for mode in ("all_gather", "all_to_all", "ring", "zoned")] + \
+        [("exact_planes", "ring", 4, 4096, DIST_PATH_ROUNDS),
+         ("compressed_trace", "ring", 4, north_star_n, DIST_PATH_ROUNDS),
+         ("compressed_deltas", "ring", 4, DIST_DELTA_N, DIST_PATH_ROUNDS),
+         ("exact_pipelined", "ring", 4, 4096, DIST_PATH_ROUNDS),
+         ("compressed_pipelined", "ring", 4, north_star_n,
+          DIST_PATH_ROUNDS),
+         ("config5", None, 4,
+          int(1000 * DIST_CONFIG5_SCALE ** 0.5) ** 2,
+          CONFIG5_RUN["split_rounds"] + CONFIG5_RUN["heal_rounds"])]
     gloo = [("exact", mode, 4, 4096, DIST_EXACT_ROUNDS["gloo"])
             for mode in ("all_gather", "ring")] + \
         [("compressed", mode, 4, DIST_GLOO_N, DIST_COMPRESSED_ROUNDS["gloo"])
          for mode in ("all_gather", "all_to_all")] + \
-        [("grid", None, 2, 1024, DIST_GRID_ROUNDS)]
+        [("grid", None, 2, 1024, DIST_GRID_ROUNDS),
+         ("exact_planes", "ring", 4, 4096, DIST_PATH_ROUNDS),
+         ("compressed_trace", "all_gather", 4, DIST_GLOO_N,
+          DIST_PATH_ROUNDS),
+         ("compressed_deltas", "all_gather", 4, DIST_DELTA_N,
+          DIST_PATH_ROUNDS),
+         ("exact_pipelined", "ring", 4, 4096, DIST_PATH_ROUNDS),
+         ("compressed_pipelined", "all_gather", 4, DIST_GLOO_N,
+          DIST_PATH_ROUNDS),
+         ("config4", None, 4, int(65_536 * DIST_CONFIG4_SCALE),
+          DIST_CONFIG4_ROUNDS)]
     return [("nccl", 1, nccl), ("gloo", 2, gloo)]
 
 
@@ -5579,17 +5628,19 @@ def dist_topology(n, graphs):
     return graphs[n]
 
 
-def dist_sim(kind, mode, d, n, topo, group, device=None):
+def dist_sim(kind, mode, d, n, topo, group, device=None, timecfg=None):
     """The job's twin: the exact model at the ``value`` shape, or the
     compressed model at ``bench_params``; ``group`` None is the
     one-process ``LocalShardGroup``."""
     from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
     from sidecar_tpu_torch.parallel import ShardedCompressedSim, ShardedSim
 
     device = DEVICE if device is None else device
     if kind == "exact":
         return ShardedSim(SimParams(n=n, services_per_node=10, fanout=3,
-                                    budget=15), topo, d=d,
+                                    budget=15), topo,
+                          timecfg or TimeConfig(), d=d,
                           board_exchange=mode, group=group, device=device)
     return ShardedCompressedSim(bench_params(n), topo, bench_time(), d=d,
                                 board_exchange=mode, group=group,
@@ -5626,10 +5677,167 @@ def dist_grid(device, n, rounds, group=None):
     return run, run.table(t.round_ticks, t.ticks_per_second)
 
 
+def dist_timed(fn):
+    """``(fn(), seconds)``, the card synchronized around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def dist_path(kind, mode, d, n, rounds, group, device, graphs):
+    """One of the twins' other paths through ``group`` (None: the
+    one-process ``LocalShardGroup``) on ``device``: the exact twin's
+    trace, digest and provenance in one run beside the untraced run; the
+    compressed twin's trace (or deltas) beside ``run_fast``; either
+    twin's pipelined run; config4 or config5 through ``group=``.
+    Returns ``(record, sim, final state, profile drive)``: the record
+    holds the timed run's wall (and the untraced one's), its curve,
+    every stream's fields on the host, the carry and whether the traced
+    run ended where the untraced one did."""
+    import math
+
+    import torch
+
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+    from sidecar_tpu_torch.ops import provenance as prov_ops
+    from sidecar_tpu_torch.ops import trace as trace_ops
+    from sidecar_tpu_torch.parallel import (
+        LocalShardGroup,
+        ShardedCompressedSim,
+    )
+    from sidecar_tpu_torch.sim import scenarios
+
+    rec = {}
+    if kind in ("config4", "config5"):
+        g = LocalShardGroup(d) if group is None else group
+        if kind == "config4":
+            res, rec["wall_s"] = dist_timed(
+                lambda: scenarios.config4_ba_antientropy(
+                    rounds=rounds, scale=DIST_CONFIG4_SCALE, device=device,
+                    group=g))
+            sim = scenarios.config4_sim(DIST_CONFIG4_SCALE, device=device,
+                                        group=g)
+        else:
+            res, rec["wall_s"] = dist_timed(
+                lambda: scenarios.config5_split_heal(
+                    scale=DIST_CONFIG5_SCALE,
+                    split_rounds=CONFIG5_RUN["split_rounds"],
+                    heal_rounds=CONFIG5_RUN["heal_rounds"], device=device,
+                    group=g))
+            sim = ShardedCompressedSim(
+                scenarios.config5_params(res.n),
+                scenarios.split_mesh(math.isqrt(res.n))[0],
+                scenarios.CONFIG5_TIME, d=d, device=device, group=g)
+        rec.update(n=res.n, curve=[float(c) for c in res.convergence],
+                   eps_round=res.eps_round)
+        final = sim.mint(sim.init_state(), burst(sim.p.m, 0.001), 10)
+        return rec, sim, final, None
+    topo = dist_topology(n, graphs)
+    timecfg = None
+    if kind == "exact_pipelined":
+        # Push-pull every 25 rounds: the uniform partner's rows travel.
+        timecfg = TimeConfig(push_pull_interval_s=5.0)
+    sim = dist_sim("exact" if kind.startswith("exact") else "compressed",
+                   mode, d, n, topo, group, device, timecfg)
+    gen = sim.default_generator(0)
+    drive = None
+    if kind == "exact_planes":
+        draws = [sim.draw(gen, r) for r in range(1, rounds + 1)]
+        (plain, plain_conv), rec["untraced_wall_s"] = dist_timed(
+            lambda: sim.run(sim.init_state(), rounds, draws=draws))
+        state = sim.init_state()
+        obs = AllPlanes(sim, state, rounds, DIST_EXACT_PLANES, 0,
+                        prov_ops.default_tracked(sim.p.m, DIST_TRACKED))
+        (final, conv), rec["wall_s"] = dist_timed(
+            lambda: sim._run(state, rounds, True, None, draws, False,
+                             plane=obs))
+        rec.update(streams=obs.streams(), curve=curve_list(conv),
+                   traced_equals_untraced=(not states_equal(plain, final)
+                                           and bool(torch.equal(
+                                               plain_conv, conv))))
+        del plain
+
+        def drive(st, draws):
+            return sim._run(st, len(draws), True, None, draws, False,
+                            plane=AllPlanes(sim, st, len(draws),
+                                            DIST_EXACT_PLANES, 0,
+                                            (0,)))[0]
+    elif kind in ("compressed_trace", "compressed_deltas"):
+        draws = [sim.draw(gen, r) for r in range(1, rounds + 1)]
+        state = sim.mint(sim.init_state(), burst(sim.p.m, 0.001), 10)
+        plain, rec["untraced_wall_s"] = dist_timed(
+            lambda: sim.run_fast(state, rounds, draws=draws))
+        if kind == "compressed_trace":
+            plane = "trace"
+            (final, stream), rec["wall_s"] = dist_timed(
+                lambda: sim.run_with_trace(state, rounds, draws=draws))
+            rec["curve"] = stream.rec[:, trace_ops.TRACE_BEHIND].tolist()
+        else:
+            plane = "deltas"
+            (final, stream), rec["wall_s"] = dist_timed(
+                lambda: sim.run_with_deltas(state, rounds, DIST_DELTA_CAP,
+                                            draws=draws))
+            rec["curve"] = stream.count.tolist()
+        rec.update(streams={plane: stream_host(stream)},
+                   traced_equals_untraced=not states_equal(plain, final))
+        del plain
+
+        def drive(st, draws):
+            if plane == "trace":
+                return sim.run_with_trace(st, len(draws), draws=draws)[0]
+            return sim.run_with_deltas(st, len(draws), DIST_DELTA_CAP,
+                                       draws=draws)[0]
+    else:
+        if kind == "exact_pipelined":
+            (final, conv, inflight), rec["wall_s"] = dist_timed(
+                lambda: sim.run_pipelined(sim.init_state(), rounds,
+                                          generator=gen))
+        else:
+            state = sim.mint(sim.init_state(), burst(sim.p.m, 0.001), 10)
+            (final, conv, inflight), rec["wall_s"] = dist_timed(
+                lambda: sim.run_pipelined(state, rounds, DIST_CONV_EVERY,
+                                          generator=gen))
+        rec.update(curve=curve_list(conv),
+                   carry=[t.cpu().numpy() for t in inflight.publish])
+
+        def drive(st, draws):
+            return sim.run_fast_pipelined(
+                st, len(draws) - 1, generator=sim.default_generator(7))[0]
+    return rec, sim, final, drive
+
+
+def dist_path_expected(kind, d, world, rounds):
+    """A rank's launches of a path job: K4a a local shard a round on the
+    exact twin's lockstep and rank-local pipelined rounds (the traced and
+    untraced runs of the planes job both), once a round on one rank's
+    delegated pipelined round; K2 and K3 a local shard a round on the
+    compressed twin's lockstep rounds; on its pipelined round K2 once a
+    tick and at the prime (a rank's rows, or every row on one rank) and
+    K3 a local shard a tick over ranks (one rank folds with a plain
+    gather)."""
+    dl = d // world
+    if kind == "exact_planes":
+        return expected(scatter_max_apply=2 * dl * rounds)
+    if kind in ("compressed_trace", "compressed_deltas"):
+        return expected(publish_board=2 * dl * rounds,
+                        board_row_gather=2 * dl * rounds)
+    if kind == "exact_pipelined":
+        return expected(scatter_max_apply=(dl if world > 1 else 1) * rounds)
+    if kind == "compressed_pipelined":
+        return expected(publish_board=rounds + 1,
+                        board_row_gather=dl * rounds if world > 1 else 0)
+    return expected(publish_board=dl * rounds, board_row_gather=dl * rounds)
+
+
 def dist_rank(ctx, jobs, topo_data):
     """A rank of the ``dist`` phase: each job through a group over the
-    ranks; returns per job the rank's digests, curve or table, wall,
-    launches, peak memory, exchange accounting and a 5-round profile."""
+    ranks; returns per job the rank's digests, curve or table (and a path
+    job's streams and carry), wall, launches, peak memory, exchange
+    accounting and a 5-round profile."""
     import torch
 
     from sidecar_tpu_torch import convert
@@ -5640,7 +5848,7 @@ def dist_rank(ctx, jobs, topo_data):
     for kind, mode, d, n, rounds in jobs:
         t_setup = time.perf_counter()
         g = ctx.group(d)
-        if kind != "grid":
+        if kind in ("exact", "compressed"):
             sim = dist_sim(kind, mode, d, n, dist_topology(n, graphs), g,
                            ctx.device)
         torch.cuda.synchronize()
@@ -5648,12 +5856,16 @@ def dist_rank(ctx, jobs, topo_data):
         reset_launches()
         t0 = time.perf_counter()
         setup_s = t0 - t_setup
+        path = None
         if kind == "grid":
             run, table = dist_grid(ctx.device, n, rounds, g)
+        elif kind in DIST_PATHS:
+            path, sim, final, drive = dist_path(kind, mode, d, n, rounds, g,
+                                                ctx.device, graphs)
         else:
             final, curve = dist_drive(sim, kind, rounds)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 if path is None else path["wall_s"]
         rec = {"rank": ctx.rank, "wall_s": wall, "setup_s": setup_s,
                "launches": launches(),
                "max_memory_allocated":
@@ -5663,11 +5875,19 @@ def dist_rank(ctx, jobs, topo_data):
         if kind == "grid":
             rec.update(table=table, fleet_wall_s=run.wall_seconds)
         else:
-            rec.update(digests=field_digests(convert.state_to_numpy(final)),
-                       curve=curve_list(curve))
+            if path is None:
+                rec.update(
+                    digests=field_digests(convert.state_to_numpy(final)),
+                    curve=curve_list(curve))
+            else:
+                rec.update(dist_path_digests(path))
+                if kind not in ("config4", "config5"):
+                    rec["digests"] = field_digests(
+                        convert.state_to_numpy(final))
             rec["digest_s"] = time.perf_counter() - t_check
             t_check = time.perf_counter()
-            rec["profile"] = profile_rounds(sim, final)
+            rec["profile"] = profile_rounds(
+                sim, final, drive=None if path is None else drive)
             rec["profile_s"] = time.perf_counter() - t_check
             del sim, final
         out.append(rec)
@@ -5675,13 +5895,36 @@ def dist_rank(ctx, jobs, topo_data):
     return out
 
 
-def dist_reference(kind, mode, d, n, rounds, world, graphs):
+def dist_path_digests(path) -> dict:
+    """What a path job's record is held to: its walls, curve, ε round,
+    the traced run against the untraced one, and the SHA-256 of every
+    stream field and of the carry."""
+    out = {k: path[k] for k in ("untraced_wall_s", "curve", "eps_round",
+                                "n", "traced_equals_untraced")
+           if k in path}
+    if "streams" in path:
+        out["stream_digests"] = {
+            plane: field_digests({k: v for k, v in fields.items()})
+            for plane, fields in path["streams"].items()}
+    if "carry" in path:
+        out["carry_digests"] = field_digests(
+            {str(i): a for i, a in enumerate(path["carry"])})
+    return out
+
+
+def dist_reference(kind, mode, d, n, rounds, world, graphs, config5=None,
+                   worlds=()):
     """The job through ``LocalShardGroup`` in this process: the digests of
     each rank's part of the final state (``convert.shard_state``), the
-    curve (or the grid's table), the wall and the launches."""
+    curve (or the grid's table; a path job's streams and each rank's
+    part of its carry), the wall and the launches.  A path job's digests
+    are kept for each world size of ``worlds`` (by world), so one run
+    serves both groups.  config5's reference is the single-device run of
+    the ``chaos`` phase when it ran."""
     import torch
 
     from sidecar_tpu_torch import convert
+    from sidecar_tpu_torch.sim import scenarios
 
     torch.cuda.synchronize()
     reset_launches()
@@ -5691,6 +5934,42 @@ def dist_reference(kind, mode, d, n, rounds, world, graphs):
         torch.cuda.synchronize()
         return {"table": table, "wall_s": time.perf_counter() - t0,
                 "fleet_wall_s": run.wall_seconds, "launches": launches()}
+    if kind == "config5":
+        # The single-device config5 (the chaos phase's, or run here); its
+        # ε round as the config computes it, from the float32 curve.
+        import numpy as np
+
+        if config5 is None:
+            res = scenarios.config5_split_heal(
+                scale=DIST_CONFIG5_SCALE,
+                split_rounds=CONFIG5_RUN["split_rounds"],
+                heal_rounds=CONFIG5_RUN["heal_rounds"], device=DEVICE)
+            config5 = {"curve": [float(c) for c in res.convergence],
+                       "n": res.n}
+        eps_round = scenarios._eps_round(
+            np.asarray(config5["curve"], np.float32), CONFIG5_RUN["eps"],
+            rounds // len(config5["curve"]))
+        return {**config5, "eps_round": eps_round,
+                "wall_s": time.perf_counter() - t0,
+                "launches": launches(), "single_device": True}
+    if kind in DIST_PATHS:
+        path, sim, final, _ = dist_path(kind, mode, d, n, rounds, None,
+                                        DEVICE, graphs)
+        counts = launches()
+        ref = {**dist_path_digests(path), "wall_s": path["wall_s"],
+               "launches": counts}
+        if kind not in ("config4", "config5"):
+            arrays = convert.state_to_numpy(final)
+            ref["digests"] = {w: [field_digests(convert.shard_state(
+                arrays, r, w, d)) for r in range(w)] for w in worlds}
+        if "carry" in path:
+            ref["carry_digests"] = {w: [field_digests(
+                {str(i): a for i, a in enumerate(convert.shard_inflight(
+                    path["carry"], r, w))}) for r in range(w)]
+                for w in worlds}
+        del sim, final
+        torch.cuda.empty_cache()
+        return ref
     sim = dist_sim(kind, mode, d, n, dist_topology(n, graphs), None)
     final, curve = dist_drive(sim, kind, rounds)
     torch.cuda.synchronize()
@@ -5708,8 +5987,11 @@ def dist_reference(kind, mode, d, n, rounds, world, graphs):
 def dist_expected(kind, d, world, rounds):
     """A rank's launches of a job: K4a once a local shard a round (exact),
     K2 and K3 once a local shard a round (compressed), K4a once a round
-    for the rank's batch (grid)."""
+    for the rank's batch (grid); a path job's as
+    :func:`dist_path_expected` says."""
     dl = d // world
+    if kind in DIST_PATHS:
+        return dist_path_expected(kind, d, world, rounds)
     if kind == "exact":
         return expected(scatter_max_apply=dl * rounds)
     if kind == "compressed":
@@ -5718,16 +6000,42 @@ def dist_expected(kind, d, world, rounds):
     return expected(scatter_max_apply=rounds)
 
 
-def phase_dist(smi, topo=None, north_star_n=100_000):
+def dist_equal(kind, recs, ref) -> bool:
+    """Whether every rank's record equals the reference's: the grid's
+    table; a config's curve and ε round; else the state digests rank by
+    rank and the curve, and a path job's streams (whole on every rank)
+    and carry (rank by rank), its traced run ending where its untraced
+    one did."""
+    if kind == "grid":
+        return all(r["table"] == ref["table"] for r in recs)
+    if kind in ("config4", "config5"):
+        return all(r["curve"] == ref["curve"]
+                   and r["eps_round"] == ref["eps_round"]
+                   and r["n"] == ref["n"] for r in recs)
+    ok = all(r["digests"] == ref["digests"][r["rank"]]
+             and r["curve"] == ref["curve"] for r in recs)
+    if "stream_digests" in ref:
+        ok = ok and all(r["stream_digests"] == ref["stream_digests"]
+                        and r["traced_equals_untraced"] for r in recs)
+        ok = ok and ref["traced_equals_untraced"]
+    if "carry_digests" in ref:
+        ok = ok and all(r["carry_digests"] == ref["carry_digests"][r["rank"]]
+                        for r in recs)
+    return ok
+
+
+def phase_dist(smi, topo=None, north_star_n=100_000, config5=None):
     """The twins and the fleet's scenario axis over a ``torch.distributed``
     group (``parallel/dist.py``, ``parallel/launch.py``) on this one card:
     NCCL with one rank holding d = 4 shards (real NCCL collectives on the
     card's tensors), then gloo with two ranks of two shards each sharing
     the card (every exchanged tensor copied through the host), each job
     held against the same run through ``LocalShardGroup`` in this
-    process — the final state's digests rank by rank and the curve, or
-    every row of the grid's table.  Returns the launch counts of every
-    run, the ranks' summed."""
+    process — the final state's digests rank by rank and the curve,
+    every row of the grid's table, every stream field of a traced run and
+    each rank's part of a pipelined carry — and config5 against the
+    single-device run of the ``chaos`` phase (``config5``, or run here).
+    Returns the launch counts of every run, the ranks' summed."""
     import math
 
     from sidecar_tpu_torch.parallel import spawn_group
@@ -5737,21 +6045,28 @@ def phase_dist(smi, topo=None, north_star_n=100_000):
     topo_data = (topo.n, topo.nbrs, topo.deg, topo.name)
     all_counts, failed, cache = [], [], {}
     t_phase = time.perf_counter()
-    for backend, world, jobs in dist_jobs(north_star_n):
+    groups = dist_jobs(north_star_n)
+    worlds = sorted({world for _, world, _ in groups})
+    for backend, world, jobs in groups:
         refs = []
         for kind, mode, d, n, rounds in jobs:
             # The exact twin's trajectory is the same in every mode (the
-            # port's generator), so one reference serves them all.
-            key = (kind, n, rounds, world,
+            # port's generator), so one reference serves them all; a
+            # path job's serves every world size.
+            key = (kind, n, rounds, None if kind in DIST_PATHS else world,
                    None if kind == "exact" else mode)
             if key not in cache:
                 cache[key] = dist_reference(kind, mode, d, n, rounds, world,
-                                            graphs)
+                                            graphs, config5, worlds)
                 all_counts.append(cache[key]["launches"])
-            refs.append(cache[key])
+            ref = dict(cache[key])
+            for k in ("digests", "carry_digests"):
+                if kind in DIST_PATHS and k in ref:
+                    ref[k] = ref[k][world]
+            refs.append(ref)
         t0 = time.perf_counter()
         ranks = spawn_group(dist_rank, world, backend, (jobs, topo_data),
-                            device=DEVICE, timeout_s=600.0)
+                            device=DEVICE, timeout_s=900.0)
         spawn_wall = time.perf_counter() - t0
         for j, (kind, mode, d, n, rounds) in enumerate(jobs):
             recs = [r[j] for r in ranks]
@@ -5760,13 +6075,11 @@ def phase_dist(smi, topo=None, north_star_n=100_000):
                       for k in recs[0]["launches"]}
             all_counts.append(counts)
             want = dist_expected(kind, d, world, rounds)
+            equal = dist_equal(kind, recs, ref)
             if kind == "grid":
-                equal = all(r["table"] == ref["table"] for r in recs)
                 finite = all(math.isfinite(row["final_convergence"])
                              for row in recs[0]["table"])
             else:
-                equal = all(r["digests"] == ref["digests"][r["rank"]]
-                            and r["curve"] == ref["curve"] for r in recs)
                 finite = all(math.isfinite(c) for c in ref["curve"])
             ok = (equal and finite
                   and all(r["launches"] == want for r in recs))
@@ -5779,11 +6092,26 @@ def phase_dist(smi, topo=None, north_star_n=100_000):
                     "local_group_rounds_per_s": rounds / ref["wall_s"],
                     "equal_to_local_group": equal, "launches": counts,
                     "ranks": [{k: r[k] for k in (
-                        "rank", "wall_s", "fleet_wall_s", "setup_s",
-                        "digest_s", "profile_s",
+                        "rank", "wall_s", "untraced_wall_s", "fleet_wall_s",
+                        "setup_s", "digest_s", "profile_s",
                         "launches", "max_memory_allocated", "exchange",
                         "profile") if k in r} for r in recs],
                     "ok": ok}
+            if "untraced_wall_s" in recs[0]:
+                traced = max(r["wall_s"] for r in recs)
+                plain = max(r["untraced_wall_s"] for r in recs)
+                line.update(ms_per_round_traced=1e3 * traced / rounds,
+                            ms_per_round_untraced=1e3 * plain / rounds,
+                            local_group_ms_per_round_traced=1e3
+                            * ref["wall_s"] / rounds,
+                            local_group_ms_per_round_untraced=1e3
+                            * ref["untraced_wall_s"] / rounds)
+            if kind == "config5" and ref.get("single_device"):
+                line["reference"] = "single device (the chaos phase)"
+                line.pop("local_group_wall_s")
+                line.pop("local_group_rounds_per_s")
+            if kind in ("config4", "config5"):
+                line["eps_round"] = ref["eps_round"]
             if kind == "grid":
                 # The walls above include each side's table (its host
                 # digest of every final belief); the runs alone:
@@ -5846,7 +6174,7 @@ def main(argv=None) -> int:
                                 "fused_publish_gather_kernel")},
               "ptxas": {k: [l.strip() for l in build.build_log(k).splitlines()
                             if "ptxas" in l or "spill" in l] for k in libs}})
-    topo = fused = None
+    topo = fused = config5 = None
     if phases & {"north_star", "sharded", "telemetry", "fleet"}:
         from sidecar_tpu_torch.ops.topology import erdos_renyi
 
@@ -5890,7 +6218,8 @@ def main(argv=None) -> int:
         runs += phase_sharded_exact(args.exact_n,
                                     cpu_n=min(1024, args.exact_n))
     if "chaos" in phases:
-        counts, errs = phase_chaos(args.exact_n, cpu_n=min(1024, args.exact_n))
+        counts, errs, config5 = phase_chaos(args.exact_n,
+                                            cpu_n=min(1024, args.exact_n))
         runs += counts
         # The kernels' worst differences include the chaos path's own.
         for name, err in errs.items():
@@ -5916,7 +6245,7 @@ def main(argv=None) -> int:
         runs += phase_oracle()
     if "dist" in phases:
         # Last: it reuses the north star's graph.
-        runs += phase_dist(smi, topo, args.n)
+        runs += phase_dist(smi, topo, args.n, config5)
     del topo
     if records:
         emit({"kernels": [

@@ -273,3 +273,31 @@ def join_state(parts: list) -> dict:
                                  "differs from rank 0's")
         out[k] = vs[0]
     return out
+
+
+def shard_inflight(publish, rank: int, world: int) -> tuple:
+    """Rank ``rank``'s part of a pipelined carry's publish (an
+    :class:`~sidecar_tpu_torch.ops.pipeline.Inflight`'s ``publish``:
+    node-major ``[N, ...]`` arrays) over ``world`` ranks: its rows."""
+    return tuple(_split(a, rank, world) for a in publish)
+
+
+def join_inflight(parts: list) -> tuple:
+    """The inverse of :func:`shard_inflight`: the ranks' publishes, in
+    rank order, as the global one."""
+    return tuple(np.concatenate([np.asarray(p[i]) for p in parts])
+                 for i in range(len(parts[0])))
+
+
+def join_stream(parts: list) -> dict:
+    """A telemetry plane's result as the ranks of a shard group return
+    it (``{field: array or host value}``, every rank the whole stream):
+    rank 0's, after checking that every rank's is equal."""
+    first = parts[0]
+    for r, part in enumerate(parts[1:], 1):
+        for k in first:
+            if not np.array_equal(np.asarray(part[k]),
+                                  np.asarray(first[k])):
+                raise ValueError(f"stream field {k!r} of rank {r} differs "
+                                 "from rank 0's")
+    return first

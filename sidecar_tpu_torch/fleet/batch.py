@@ -322,6 +322,12 @@ def restart_churn_perturb(params, prob: Optional[float] = None, *,
     when given, else ``rand(M) < prob`` from a generator of its own,
     seeded with ``seed`` on the state's device.
 
+    The static hook is ``row_local`` (``models/common.apply_perturb``):
+    given ``rows``, the global node rows a sharded state holds, it
+    restarts only the slots those rows own, from the mask over all
+    ``M`` — so a rank of a shard group applies its part of the same
+    churn.
+
     With ``prob=None`` it is the fleet's knob-aware hook (``wants_knobs``)
     ``perturb(state, now, kn)`` on a batched state (``known``/``sent``
     ``[S, N, M]``) with the scenarios' :class:`BatchedKnobs`: scenario
@@ -340,27 +346,30 @@ def restart_churn_perturb(params, prob: Optional[float] = None, *,
             g = gens[key] = torch.Generator(device=dev).manual_seed(int(sd))
         return torch.rand(m, generator=g, device=dev) < p
 
-    def flip_rows(known, sent, alive, churn, now):
-        # known/sent [B, N·M] views, alive [B, N], churn bool [B, M].
+    def flip_rows(known, sent, alive, churn, now, rows=None):
+        # known/sent [B, R·M] views, alive [B, R], churn bool [B, M]: R
+        # rows from global node ``lo`` on.
         dev = known.device
-        cols = torch.arange(m, dtype=torch.int64, device=dev)
-        owner = torch.div(cols, spn, rounding_mode="floor")
+        lo, hi = (0, n) if rows is None else (rows.start, rows.stop)
+        cols = torch.arange(lo * spn, hi * spn, dtype=torch.int64,
+                            device=dev)
+        owner = torch.div(cols, spn, rounding_mode="floor") - lo
         own_flat = owner * m + cols
         own = known[:, own_flat]
-        flip = churn & (unpack_ts(own) > 0) & alive[:, owner]
+        flip = churn[:, cols] & (unpack_ts(own) > 0) & alive[:, owner]
         new_status = torch.where(unpack_status(own) == ALIVE, TOMBSTONE,
                                  ALIVE)
         known[:, own_flat] = torch.where(flip, pack(now, new_status), own)
         sent[:, own_flat] = torch.where(flip, 0, sent[:, own_flat])
 
-    def static_hook(state, now):
+    def static_hook(state, now, rows=None):
         round_idx = state_round(state) + 1
         if masks is not None and round_idx not in masks:
             return state
         churn = draw(None, prob, seed, masks, round_idx,
                      state.known.device)
         flip_rows(state.known.view(1, -1), state.sent.view(1, -1),
-                  state.node_alive[None], churn[None], now)
+                  state.node_alive[None], churn[None], now, rows)
         return state
 
     def fleet_hook(state, now, kn):
@@ -383,6 +392,7 @@ def restart_churn_perturb(params, prob: Optional[float] = None, *,
 
     hook = static_hook if prob is not None else fleet_hook
     hook.wants_knobs = prob is None
+    hook.row_local = prob is not None
     return hook
 
 

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 
-def apply_perturb(perturb, state, now: int, kn):
+def apply_perturb(perturb, state, now: int, kn, rows=None):
     """Run the scenario hook ``perturb`` on ``state`` before the round's
     sample, as the reference does: ``perturb(state, now)``, or
     ``perturb(state, now, kn)`` when the hook sets ``wants_knobs``.
@@ -21,12 +21,19 @@ def apply_perturb(perturb, state, now: int, kn):
     port hook takes its randomness from a generator of its own (or from
     masks it was given).  It returns the state; on the exact model it
     may write ``known`` and ``sent`` in place.  None returns ``state``
-    untouched."""
+    untouched.
+
+    A hook that sets ``row_local`` may run on a rank's rows of a
+    sharded state: it is called with ``rows=``, the global node rows
+    the node-major leaves of ``state`` hold (a ``slice``; None where
+    the caller names no range: every node), and touches only those
+    rows."""
     if perturb is None:
         return state
+    kw = {"rows": rows} if getattr(perturb, "row_local", False) else {}
     if getattr(perturb, "wants_knobs", False):
-        return perturb(state, now, kn)
-    return perturb(state, now)
+        return perturb(state, now, kn, **kw)
+    return perturb(state, now, **kw)
 
 
 def cut_tensor(cut_mask, topo, device):

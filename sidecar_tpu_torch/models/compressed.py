@@ -224,6 +224,9 @@ class CompressedSim:
     # Whether this sim runs the sparse-frontier and pipelined rounds.
     supports_sparse = True
     supports_pipeline = True
+    # The shard group whose ranks hold the other node rows, or None
+    # (this sim holds every row): the telemetry planes reduce through it.
+    _row_group = None
 
     def __init__(self, params: CompressedParams, topo: Topology,
                  timecfg: TimeConfig = TimeConfig(), *,
@@ -781,7 +784,8 @@ class CompressedSim:
         """One dense lockstep round from this round's draws."""
         round_idx = state.round_idx + 1
         now = round_idx * self.t.round_ticks
-        state = common.apply_perturb(self.perturb, state, now, self._knobs)
+        state = common.apply_perturb(self.perturb, state, now, self._knobs,
+                                     rows=self._rows())
         src = self._sample(state, draws, round_idx)
         state = self._round_gossip_announce(state, src, self._keep(draws),
                                             round_idx, now)
@@ -892,7 +896,8 @@ class CompressedSim:
         round's one host sync."""
         round_idx = state.round_idx + 1
         now = round_idx * self.t.round_ticks
-        state = common.apply_perturb(self.perturb, state, now, self._knobs)
+        state = common.apply_perturb(self.perturb, state, now, self._knobs,
+                                     rows=self._rows())
         src = self._sample(state, draws, round_idx)
         keep = self._keep(draws)
         sender, recv, announcer, ann = self._sparse_frontiers(
@@ -941,7 +946,8 @@ class CompressedSim:
                 f"the carried publish is round {inflight.round_idx}'s, "
                 f"the state's next round is {round_idx}")
         now = round_idx * self.t.round_ticks
-        state = common.apply_perturb(self.perturb, state, now, self._knobs)
+        state = common.apply_perturb(self.perturb, state, now, self._knobs,
+                                     rows=self._rows())
         src, bval, bslot = inflight.publish
         draws = inflight.draws
         nxt, sent = self._select_inflight(state, draws_next, round_idx + 1)
@@ -1228,19 +1234,34 @@ class CompressedSim:
             prev, nxt, self.behind(nxt),
             budget=min(p.budget, p.cache_lines), fanout=p.fanout,
             limit=p.resolved_retransmit_limit(), stats=stats,
-            tick_period=kn.tick_period, tick_phase=kn.tick_phase)
+            tick_period=kn.tick_period, tick_phase=kn.tick_phase,
+            group=self._row_group)
 
     def _delta_belief(self, state: CompressedState):
         """The ``[N, M]`` belief view ``max(floor, cache hit, own)``."""
         return delta_ops.compressed_belief(
             state.own, state.cache_slot, state.cache_val, state.floor,
-            self.p.services_per_node)
+            self.p.services_per_node, row_offset=self._rows().start)
+
+    def _delta_batch(self, prev, nxt, cap: int):
+        """One round's :class:`~sidecar_tpu_torch.ops.delta.DeltaBatch`
+        between two belief views; over a row group, every rank's batch
+        (rows made global) gathered and merged in node order."""
+        batch = delta_ops.extract_delta(prev, nxt, cap)
+        g = self._row_group
+        if g is None:
+            return batch
+        node = torch.where(batch.node >= 0,
+                           batch.node + self._rows().start, -1)
+        got = g.gather_rows(torch.stack([node, batch.slot, batch.val])[None])
+        return delta_ops.merge_deltas(g.gather_rows(batch.count.reshape(1)),
+                                      got[:, 0], got[:, 1], got[:, 2], cap)
 
     def _digest_record(self, nxt: CompressedState, idents, buckets: int):
         """One round's coherence record over the belief view."""
         return digest_ops.state_digest_record(
             nxt.round_idx, self._delta_belief(nxt), nxt.node_alive, idents,
-            buckets)
+            buckets, group=self._row_group)
 
     def _resolve_digest_idents(self, idents):
         """The caller's identity table, or the sim-slot default."""
@@ -1248,20 +1269,22 @@ class CompressedSim:
 
     def _prov_belief(self, state: CompressedState, tracked):
         """Packed ``[N, T]`` belief of the tracked slots: the belief
-        view's columns, ``max(floor, cache hit, own row)``."""
+        view's columns, ``max(floor, cache hit, own row)``, every
+        holder's rows gathered."""
         p = self.p
         s = p.services_per_node
+        rows = self._rows()
         tr = tracked.to(I64)
         lines = hash_line(tr, p.cache_lines, s).to(I64)
         hit = state.cache_slot[:, lines] == tracked[None, :]
         cached = torch.where(hit, state.cache_val[:, lines], 0)
         owner = torch.div(tr, s, rounding_mode="floor")
         own_b = torch.where(
-            owner[None, :] == torch.arange(p.n, dtype=I64,
+            owner[None, :] == torch.arange(rows.start, rows.stop, dtype=I64,
                                            device=tr.device)[:, None],
             state.own[:, tr - owner * s], 0)
-        return torch.maximum(torch.maximum(state.floor[tr][None, :],
-                                           cached), own_b)
+        return self._gather_rows(torch.maximum(
+            torch.maximum(state.floor[tr][None, :], cached), own_b))
 
     def _prov_channels(self, state: CompressedState, draws: RoundDraws):
         """The round's channels, from its draws as the step resolves
@@ -1276,7 +1299,7 @@ class CompressedSim:
         pulls = [(self._sample(state, draws, round_idx), None)]
         if round_idx % self._knobs.push_pull_rounds == 0:
             stride = int(draws.stride)
-            alive = state.node_alive
+            alive = self._gather_rows(state.node_alive)
             idx = torch.arange(p.n, dtype=I32, device=alive.device)
             for roll_amt, partner in ((-stride, (idx + stride) % p.n),
                                       (stride, (idx - stride) % p.n)):

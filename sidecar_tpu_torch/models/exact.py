@@ -74,6 +74,7 @@ import torch
 from sidecar_tpu_torch.models import common
 from sidecar_tpu_torch.models import planes
 from sidecar_tpu_torch.models.timecfg import TimeConfig
+from sidecar_tpu_torch.ops import delta as delta_ops
 from sidecar_tpu_torch.ops import digest as digest_ops
 from sidecar_tpu_torch.ops import gossip as gossip_ops
 from sidecar_tpu_torch.ops import knobs as knob_ops
@@ -152,6 +153,9 @@ class ExactSim:
 
     supports_sparse = True
     supports_pipeline = True
+    # The shard group whose ranks hold the other node rows, or None
+    # (this sim holds every row): the telemetry planes reduce through it.
+    _row_group = None
 
     def __init__(self, params: SimParams, topo: Topology,
                  timecfg: TimeConfig = TimeConfig(), *, device="cuda",
@@ -619,12 +623,13 @@ class ExactSim:
             prev, nxt, budget=min(p.budget, p.m), fanout=p.fanout,
             limit=p.resolved_retransmit_limit(), stats=stats,
             tick_period=kn.tick_period, tick_phase=kn.tick_phase,
-            census=census)
+            census=census, group=self._row_group)
 
     def _digest_record(self, nxt: SimState, idents, buckets: int):
         """One round's coherence record over the post-round belief."""
         return digest_ops.state_digest_record(
-            nxt.round_idx, nxt.known, nxt.node_alive, idents, buckets)
+            nxt.round_idx, nxt.known, nxt.node_alive, idents, buckets,
+            group=self._row_group)
 
     def _resolve_digest_idents(self, idents):
         """The caller's identity table, or the sim-slot default."""
@@ -633,6 +638,12 @@ class ExactSim:
     def _delta_belief(self, state: SimState):
         """The belief a delta batch diffs: a copy of ``known``."""
         return state.known.clone()
+
+    @staticmethod
+    def _delta_batch(prev, nxt, cap: int):
+        """One round's :class:`~sidecar_tpu_torch.ops.delta.DeltaBatch`
+        between two beliefs."""
+        return delta_ops.extract_delta(prev, nxt, cap)
 
     def _prov_belief(self, state: SimState, tracked):
         """Packed ``[N, T]`` belief of the tracked slots."""

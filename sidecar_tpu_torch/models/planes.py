@@ -10,7 +10,8 @@ the post-round state and the sparse step's stats (None on a dense
 round).  Everything a plane needs of the pre-round state is taken in
 ``before``, because the exact round rewrites ``known`` and ``sent`` in
 place; the model decides what that is (``_trace_before``,
-``_delta_belief``, ``_prov_belief``; ``_prov_channels`` reads the
+``_delta_belief``, ``_delta_batch``, ``_prov_belief``;
+``_prov_channels`` reads the
 post-round state, whose liveness is the one the round sampled with,
 after a scenario hook ran).  A plane
 never writes the round's tensors and draws nothing, so a traced run
@@ -77,8 +78,8 @@ class DeltaPlane:
 
     def after(self, _, nxt, stats):
         bel = self.sim._delta_belief(nxt)
-        self.batches.append(delta_ops.extract_delta(self.belief, bel,
-                                                    self.cap))
+        self.batches.append(self.sim._delta_batch(self.belief, bel,
+                                                  self.cap))
         self.belief = bel
 
     @property

@@ -69,11 +69,12 @@ def extract_delta(prev, nxt, cap: int) -> DeltaBatch:
 
 
 def compressed_belief(own, cache_slot, cache_val, floor,
-                      services_per_node: int):
+                      services_per_node: int, row_offset: int = 0):
     """The compressed model's per-node belief view ``[N, M]``:
     ``max(floor[m], cache line hit, own[i] where i owns m)`` — a slot
     can sit only at line ``hash_line(m)`` on every node, so the cache
-    part is one column gather; liveness is not applied."""
+    part is one column gather; liveness is not applied.  The rows may be
+    a rank's: row 0 is then global node ``row_offset``."""
     # Imported here: the compressed model imports this module.
     from sidecar_tpu_torch.models.compressed import hash_line
 
@@ -85,10 +86,39 @@ def compressed_belief(own, cache_slot, cache_val, floor,
     hit = cache_slot[:, lines] == slots[None, :]
     cached = torch.where(hit, cache_val[:, lines], 0)
     owner = torch.div(slots, s, rounding_mode="floor")
-    own_b = torch.where(
-        owner[None, :] == torch.arange(n, dtype=I32, device=dev)[:, None],
-        own.reshape(-1)[None, :], 0)
+    own_row = torch.zeros(m, dtype=own.dtype, device=dev)
+    own_row[row_offset * s:(row_offset + n) * s] = own.reshape(-1)
+    node = row_offset + torch.arange(n, dtype=I32, device=dev)
+    own_b = torch.where(owner[None, :] == node[:, None], own_row[None, :], 0)
     return torch.maximum(torch.maximum(floor[None, :], cached), own_b)
+
+
+def merge_deltas(count, node, slot, val, cap: int) -> DeltaBatch:
+    """One batch from the ranks' batches of a shard group, gathered
+    (``count`` ``[W]``; ``node`` — global rows —, ``slot`` and ``val``
+    ``[W, cap]``, rank order): the ranks' changed cells in that order,
+    which is the one-process row-major order, the first ``cap`` kept,
+    ``count`` their total.  No host read."""
+    w = count.shape[0]
+    dev = count.device
+    held = torch.arange(cap, device=dev)[None, :] < \
+        torch.clamp(count.to(I64), max=cap)[:, None]
+    flat = held.reshape(-1)
+    place = torch.cumsum(flat, 0, dtype=I64)
+    at = torch.where(flat & (place <= cap), place - 1, cap)
+    buf = torch.full((cap + 1,), w * cap, dtype=I64, device=dev)
+    buf.scatter_(0, at, torch.arange(w * cap, dtype=I64, device=dev))
+    idx = buf[:cap]
+    valid = idx < w * cap
+    safe = torch.clamp(idx, max=w * cap - 1)
+    total = count.to(I64).sum()
+
+    def pick(x, pad):
+        return torch.where(valid, x.reshape(-1)[safe], pad).to(I32)
+
+    return DeltaBatch(count=total.to(I32), node=pick(node, -1),
+                      slot=pick(slot, -1), val=pick(val, 0),
+                      overflow=total > cap)
 
 
 def oracle_diff(prev, nxt) -> dict:

@@ -166,24 +166,36 @@ DIGEST_FIELDS = ("round", "alive", "agree", "diff_total", "diff_max")
 
 
 def state_digest_record(round_idx: int, packed, node_alive, idents,
-                        buckets: int):
+                        buckets: int, group=None):
     """One round's coherence record: live members (``alive``), alive
     nodes whose digest equals the truth's (``agree``; the truth is the
     alive-max catalog), differing buckets summed over alive nodes
-    (``diff_total``) and the worst node's (``diff_max``)."""
+    (``diff_total``) and the worst node's (``diff_max``).
+
+    ``group`` (a shard group's row collectives, ``parallel/mesh.py``):
+    ``packed`` and ``node_alive`` are then a rank's node rows; the truth
+    is max-reduced over the ranks before its digest is taken, the
+    three counts are integer sums over the ranks (int64, narrowed once)
+    and ``diff_max`` a max — every rank returns the one-process
+    record."""
     dig = node_digests(packed, idents, buckets)
     truth = torch.where(node_alive[:, None], packed, 0).amax(dim=0)
+    if group is not None:
+        truth = group.all_reduce_max(truth)
     ref = node_digests(truth[None, :], idents, buckets)[0]
     diffs = diff_counts(dig, ref)
     alive_i = node_alive.to(I32)
     masked = torch.where(node_alive, diffs, 0)
-    return torch.stack([
-        torch.full((), int(round_idx), dtype=I32, device=packed.device),
-        alive_i.sum(dtype=I64).to(I32),
-        (alive_i * (diffs == 0).to(I32)).sum(dtype=I64).to(I32),
-        masked.sum(dtype=I64).to(I32),
-        masked.amax().to(I32),
-    ])
+    counts = torch.stack([alive_i.sum(dtype=I64),
+                          (alive_i * (diffs == 0).to(I32)).sum(dtype=I64),
+                          masked.sum(dtype=I64)])
+    worst = masked.amax().reshape(1)
+    if group is not None:
+        counts = group.all_reduce_sum(counts)
+        worst = group.all_reduce_max(worst)
+    return torch.cat([
+        torch.full((1,), int(round_idx), dtype=I32, device=packed.device),
+        counts.to(I32), worst.to(I32)])
 
 
 @dataclasses.dataclass

@@ -24,6 +24,13 @@ in place: no host read.
 
 Every reduction is computed in int64 and narrowed to int32 at the end,
 which wraps as the reference's int32 sums do.
+
+On a rank of a shard group (``group=``, ``parallel/mesh.py``) the
+states hold the rank's node rows: each count over rows is the rank's
+share, the shares are summed over the ranks (narrowing to int32 is a
+ring map, so the sum of the wrapped shares is the wrapped total), the
+freshest belief is max-reduced and the liveness gathered first — every
+rank returns the one-process record.
 """
 
 from __future__ import annotations
@@ -173,13 +180,22 @@ def build_record(round_idx, frontier, behind, admitted, exchange_bytes,
         ticked_nodes)])
 
 
+def _group_sum(group, counts):
+    """The int32 counts summed over ``group``'s ranks (None: this
+    process holds every row), in int64 and narrowed once."""
+    if group is None:
+        return counts
+    total = group.all_reduce_sum(torch.stack(counts).to(I64)).to(I32)
+    return list(total.unbind())
+
+
 def exact_record(prev, nxt, *, budget: int, fanout: int, limit: int,
                  stats=None, rejected_future=0, tick_period=None,
-                 tick_phase=None, census=None) -> torch.Tensor:
+                 tick_phase=None, census=None, group=None) -> torch.Tensor:
     """One round's record for the exact model.  ``census``, when given,
     is :func:`offer_census` of the pre-round state, computed before the
     round rewrote it in place; then ``prev`` needs only ``known`` (a
-    copy of the pre-round one)."""
+    copy of the pre-round one).  ``group``: see the module note."""
     if census is None:
         census = offer_census(
             gossip_ops.eligible_records(prev.known, prev.sent, limit),
@@ -187,17 +203,23 @@ def exact_record(prev, nxt, *, budget: int, fanout: int, limit: int,
     frontier, xbytes = census
     alive = nxt.node_alive
     known = nxt.known
+    alive_all = alive if group is None else group.gather_rows(alive)
     truth = torch.where(alive[:, None], known, 0).amax(dim=0)
+    if group is not None:
+        truth = group.all_reduce_max(truth)
     behind = _sum(alive[:, None] & (known < truth[None, :]))
     admitted = _sum(known != prev.known)
-    n, m = known.shape
+    n, m = alive_all.shape[0], known.shape[1]
     owner = torch.div(torch.arange(m, dtype=I64, device=known.device),
                       m // n, rounding_mode="floor")
-    fp = fp_tombstone_entries(prev.known, known, alive[owner][None, :])
+    fp = fp_tombstone_entries(prev.known, known, alive_all[owner][None, :])
+    frontier, behind, admitted, xbytes, tombs, suspects, fp = _group_sum(
+        group, [frontier, behind, admitted, xbytes, count_tombstones(known),
+                count_suspects(known), fp])
     return build_record(nxt.round_idx, frontier, behind, admitted, xbytes,
-                        count_tombstones(known), count_suspects(known), fp,
-                        stats, rejected_future=rejected_future,
-                        ticked_nodes=ticked_census(nxt.round_idx, alive,
+                        tombs, suspects, fp, stats,
+                        rejected_future=rejected_future,
+                        ticked_nodes=ticked_census(nxt.round_idx, alive_all,
                                                    tick_period, tick_phase))
 
 
@@ -212,27 +234,34 @@ def _behind_i32(behind) -> torch.Tensor:
 
 def compressed_record(prev, nxt, behind, *, budget: int, fanout: int,
                       limit: int, stats=None, tick_period=None,
-                      tick_phase=None) -> torch.Tensor:
+                      tick_phase=None, group=None) -> torch.Tensor:
     """One round's record for the compressed model; ``behind`` is the
-    model's own census (``CompressedSim.behind(nxt)``)."""
+    model's own census (``CompressedSim.behind(nxt)``, over every
+    rank).  ``group``: see the module note; the shared ``floor``, whole
+    on every rank, is counted once, after the sum."""
     elig = eligible_lines(prev.cache_slot, prev.cache_sent, limit)
     frontier, xbytes = offer_census(elig, budget, fanout)
-    admitted = (_sum(nxt.own != prev.own)
-                + _sum(nxt.cache_val != prev.cache_val)
-                + _sum(nxt.cache_slot != prev.cache_slot)
-                + _sum(nxt.floor != prev.floor))
-    tombs = count_tombstones(nxt.own, nxt.floor, nxt.cache_val)
-    suspects = count_suspects(nxt.own, nxt.floor, nxt.cache_val)
     alive = nxt.node_alive
-    n, s = nxt.own.shape
+    alive_all = alive if group is None else group.gather_rows(alive)
+    frontier, xbytes, admitted, tombs, suspects, fp = _group_sum(group, [
+        frontier, xbytes,
+        (_sum(nxt.own != prev.own) + _sum(nxt.cache_val != prev.cache_val)
+         + _sum(nxt.cache_slot != prev.cache_slot)),
+        count_tombstones(nxt.own, nxt.cache_val),
+        count_suspects(nxt.own, nxt.cache_val),
+        fp_tombstone_entries(prev.own, nxt.own, alive[:, None])])
+    n, s = alive_all.shape[0], nxt.own.shape[1]
     floor_owner = torch.div(torch.arange(n * s, dtype=I64,
                                          device=alive.device),
                             s, rounding_mode="floor")
-    fp = fp_tombstone_entries(prev.own, nxt.own, alive[:, None]) + \
-        fp_tombstone_entries(prev.floor, nxt.floor, alive[floor_owner])
+    admitted = admitted + _sum(nxt.floor != prev.floor)
+    tombs = tombs + count_tombstones(nxt.floor)
+    suspects = suspects + count_suspects(nxt.floor)
+    fp = fp + fp_tombstone_entries(prev.floor, nxt.floor,
+                                   alive_all[floor_owner])
     return build_record(nxt.round_idx, frontier, _behind_i32(behind),
                         admitted, xbytes, tombs, suspects, fp, stats,
-                        ticked_nodes=ticked_census(nxt.round_idx, alive,
+                        ticked_nodes=ticked_census(nxt.round_idx, alive_all,
                                                    tick_period, tick_phase))
 
 

@@ -9,7 +9,12 @@ global shards, ``world`` ranks, each rank holding the contiguous shard
 range ``local = [rank·dl, (rank+1)·dl)`` and the node rows of those
 shards.  Its collectives take and return one tensor per local shard, and
 its row collectives serve the global phases of the sharded twins (the
-stride push-pull, the census, the convergence metric).
+stride push-pull, the census, the convergence metric, the telemetry
+planes' reductions) — among them ``fetch_rows`` and
+``scatter_max_rows``, which route rows named by global id to and from
+their owner ranks (one exchange of the per-rank counts, read on the
+host, then uneven ``all_to_all_single`` calls; the pipelined exact
+round's uniform push-pull).
 
 Construction is explicit: the caller names the backend (``"nccl"`` or
 ``"gloo"``; there is no automatic choice), the rank, the world size and
@@ -36,6 +41,8 @@ analytic ``exchange_bytes_per_round`` of the twins stands beside it.
 from __future__ import annotations
 
 import datetime
+import math
+
 import torch
 import torch.distributed as dist
 
@@ -263,6 +270,55 @@ class DistShardGroup:
                 out[(owner == p).to(x.device)] = \
                     got[p].reshape(counts[p], *x.shape[1:])
         return out
+
+    def _route(self, dest, payloads):
+        """Send item ``i`` of each tensor of ``payloads`` (items along
+        dim 0) to rank ``dest[i]``: one exchange of the per-rank counts
+        (read on the host), then one uneven ``all_to_all_single`` a
+        payload.  Returns ``(order, sent, recv, received)``: the stable
+        order the items left in, the host counts sent to and received
+        from each rank, and per payload the items received, rank 0's
+        first, each rank's in its send order."""
+        order = torch.argsort(dest, stable=True)
+        counts = torch.bincount(dest, minlength=self.world).to(torch.int64)
+        got = self._exchange([counts[q:q + 1] for q in range(self.world)],
+                             [1] * self.world, counts)
+        recv = torch.cat(got).tolist()
+        sent = counts.tolist()
+        out = []
+        for x in payloads:
+            row = math.prod(x.shape[1:])
+            parts = torch.split(x[order], sent)
+            flat = self._exchange([t if t.shape[0] else None for t in parts],
+                                  [c * row for c in recv], x)
+            out.append(torch.cat(flat).reshape(sum(recv), *x.shape[1:]))
+        return order, sent, recv, out
+
+    def fetch_rows(self, x, idx):
+        """Rows ``idx`` (int64 global row ids, any rank's) of the global
+        tensor whose rows ``x`` this rank holds, in ``idx``'s order: the
+        requests travel to the owner ranks, the rows come back."""
+        rows = x.shape[0]
+        owner = torch.div(idx, rows, rounding_mode="floor")
+        order, sent, recv, (req,) = self._route(owner, [idx - owner * rows])
+        served = x[req]
+        parts = list(torch.split(served, recv))
+        back = self._exchange([t if t.shape[0] else None for t in parts],
+                              [c * x[0].numel() for c in sent], x)
+        out = torch.empty((idx.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        out[order] = torch.cat(back).reshape(-1, *x.shape[1:])
+        return out
+
+    def scatter_max_rows(self, x, idx, vals):
+        """Fold row ``vals[i]`` into global row ``idx[i]`` by an
+        elementwise max, in place on the rows ``x`` this rank holds (any
+        rank's rows may name it): the rows travel to their owner ranks.
+        Returns ``x``."""
+        rows = x.shape[0]
+        owner = torch.div(idx, rows, rounding_mode="floor")
+        _, _, _, (at, got) = self._route(owner, [idx - owner * rows, vals])
+        return x.scatter_reduce_(0, at[:, None].expand_as(got), got, "amax")
 
     def all_reduce_max(self, x):
         """The elementwise max of ``x`` over the ranks."""

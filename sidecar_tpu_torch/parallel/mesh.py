@@ -15,8 +15,10 @@ the phases.  Every group has one contract:
   ``pmax``, ``psum``) take one tensor per LOCAL shard and return one
   tensor per local shard;
 * the row collectives of the global phases, on a rank's node rows
-  (``gather_rows``, ``shift_rows``) or on a tensor every rank holds
-  whole (``all_reduce_max``, ``all_reduce_sum``).
+  (``gather_rows``, ``shift_rows``; ``fetch_rows`` and
+  ``scatter_max_rows``, which read or max-fold rows named by global id,
+  whatever rank holds them) or on a tensor every rank holds whole
+  (``all_reduce_max``, ``all_reduce_sum``).
 
 :class:`LocalShardGroup` is the one-rank case: all ``d`` shards on one
 device, every collective a tensor operation on that device and every row
@@ -131,6 +133,19 @@ class LocalShardGroup:
         return torch.roll(x, -k, 0)
 
     @staticmethod
+    def fetch_rows(x, idx):
+        """Rows ``idx`` (int64 global row ids) of the global tensor:
+        ``x[idx]``."""
+        return x[idx]
+
+    @staticmethod
+    def scatter_max_rows(x, idx, vals):
+        """Fold row ``vals[i]`` into row ``idx[i]`` of ``x`` by an
+        elementwise max, in place; returns ``x``."""
+        return x.scatter_reduce_(0, idx[:, None].expand_as(vals), vals,
+                                 "amax")
+
+    @staticmethod
     def all_reduce_max(x):
         """The elementwise max of ``x`` over the ranks: ``x``."""
         return x
@@ -151,12 +166,3 @@ def resolve_group(group, d: int):
                          f"sim was given d={d}")
     return group
 
-
-def refuse_ranks(group, what: str) -> None:
-    """Raise when ``group`` spans more than one rank: ``what`` runs on
-    global tensors."""
-    if group.world > 1:
-        raise ValueError(
-            f"{what} runs on global tensors and is not ported to a group "
-            f"of {group.world} ranks (ROADMAP Queue 1 item 10); run it "
-            "with a LocalShardGroup")

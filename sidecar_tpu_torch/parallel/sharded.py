@@ -56,9 +56,20 @@ shard_state`` splits a given one).  Then:
   value bit for bit), and every host decision: the sparse round's
   per-shard sender counts and the digest gate's skip are gathered
   before they are read, so every rank takes the same branch;
-* raising at ``world > 1`` (ROADMAP Queue 1 item 10) — the pipelined
-  round (a delegation to the single-device model on global tensors),
-  the telemetry planes and the host replica ``gate_predicates``.
+* the telemetry planes — trace, digest and provenance — ride the run
+  loop on the rank's rows: the record's counts are each rank's share,
+  summed over the group (the freshest belief max-reduced, the liveness
+  gathered); provenance gathers its ``[N, T]`` tracked columns and
+  folds the whole trace on every rank.  Every rank returns the
+  one-process stream;
+* the host replica ``gate_predicates`` digests the rank's rows and
+  gathers only each shard's first-row digest and uniformity flag;
+* the pipelined round is the single-device model's round on the rank's
+  rows (:class:`_RankPipeline`): the carry is rank-local, the carried
+  offers reach their receivers through the exchange mode's blocks, and
+  the uniform push-pull partner's rows are fetched from, and the pushed
+  rows max-folded into, whichever rank holds them (``fetch_rows``,
+  ``scatter_max_rows``).
 
 Every rank draws the round's global :class:`RoundDraws` (its cost: one
 ``[N, F, B]`` loss mask a rank) and uses the rows it needs, so the
@@ -79,10 +90,11 @@ loss mask decides the messages that target its rows); the tests
 rebuild those streams into this shape.
 
 The software-pipelined round is the single-device ``ExactSim``'s, run
-on the global tensors by delegation (:meth:`ShardedSim._pipeline_twin`),
-with that model's draws, as in the reference.  The telemetry planes
-(trace, digest, provenance) ride the inherited run loop; the reference
-twin streams no delta batches, and neither does this one.
+by delegation (:meth:`ShardedSim._pipeline_twin`) with that model's
+draws, as in the reference: on the global tensors on one rank, on the
+rank's rows over several.  The telemetry planes (trace, digest,
+provenance) ride the inherited run loop; the reference twin streams no
+delta batches, and neither does this one.
 
 ``known`` and ``sent`` are updated in place, as by ``ExactSim``.
 """
@@ -90,6 +102,7 @@ twin streams no delta batches, and neither does this one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -110,6 +123,7 @@ from sidecar_tpu_torch.ops import gossip as gossip_ops
 from sidecar_tpu_torch.ops import sparse as sparse_ops
 from sidecar_tpu_torch.ops import suspicion as suspicion_ops
 from sidecar_tpu_torch.ops.gossip import RoundDraws
+from sidecar_tpu_torch.ops.pipeline import Inflight
 from sidecar_tpu_torch.ops.merge import admit_gate, merge_packed, sticky_adjust
 from sidecar_tpu_torch.ops.status import (
     TOMBSTONE,
@@ -120,7 +134,6 @@ from sidecar_tpu_torch.ops.status import (
 from sidecar_tpu_torch.ops.topology import Topology, zoned_exchange_plan
 from sidecar_tpu_torch.parallel.mesh import (
     local_rows,
-    refuse_ranks,
     resolve_board_exchange,
     resolve_group,
 )
@@ -195,6 +208,8 @@ class ShardedSim(ExactSim):
             raise ValueError(f"n={params.n} must divide into d={d} shards")
         self.d = d
         self.group = resolve_group(group, d)
+        if self.group.world > 1:
+            self._row_group = self.group
         nl = params.n // d
         # The per-shard sparse sender cap: the global cap split over the
         # shards with 2x slack for imbalance.
@@ -259,17 +274,24 @@ class ShardedSim(ExactSim):
         """Host replica of the digest gate's skip predicate, in numpy:
         bool ``[d - 1]``, entry ``h - 1`` True iff zoned hop ``h`` would
         be skipped on the next round (every shard internally uniform and
-        every receiver/sender pair digest-equal)."""
+        every receiver/sender pair digest-equal).  Each rank digests its
+        own rows; only each shard's first-row digest and whether it is
+        internally uniform are gathered, so every rank returns the same
+        vector."""
         if not self.digest_gate:
             raise ValueError("gate_predicates requires digest_gate=True")
-        refuse_ranks(self.group, "the host replica gate_predicates")
+        g = self.group
         known = state.known.cpu().numpy()
         dig = digest_ops.node_digests_np(
             known, digest_ops.default_idents(self.p.m), self._gate_buckets)
-        nl = known.shape[0] // self.d
-        blocks = [dig[i * nl:(i + 1) * nl] for i in range(self.d)]
-        uniform = all(bool((b == b[:1]).all()) for b in blocks)
-        first = np.stack([b[0] for b in blocks])
+        nl = self.p.n // self.d
+        blocks = [dig[j * nl:(j + 1) * nl] for j in range(g.dl)]
+        uniform = g.gather_rows(torch.tensor(
+            [bool((b == b[:1]).all()) for b in blocks], device=self.device))
+        first = g.gather_rows(torch.as_tensor(
+            np.stack([b[0] for b in blocks]).astype(np.int64),
+            device=self.device)).cpu().numpy()
+        uniform = bool(uniform.all())
         return np.array([uniform and bool(
             (first == np.roll(first, -h, axis=0)).all())
             for h in range(1, self.d)], dtype=bool)
@@ -380,9 +402,11 @@ class ShardedSim(ExactSim):
         x.groups.append((torch.where(due, lr, nl), cols,
                          torch.where(due, pack(now, st), 0), due))
 
-    def _remote_blocks(self, shards, alive, keep, now: int):
+    def _remote_blocks(self, shards, alive, keep, now: int,
+                       gate: bool = True):
         """Phase 4: the remote sender blocks of every shard, through the
-        shard group in the mode's order."""
+        shard group in the mode's order (``gate=False``: no hop is
+        skipped, the digest gate notwithstanding)."""
         p, d, g = self.p, self.d, self.group
         nl = p.n // d
         mode = self.board_exchange
@@ -407,8 +431,8 @@ class ShardedSim(ExactSim):
         elif mode == "zoned":
             live = [h for h in range(1, d)
                     if self._zoned_tabs[h - 1] is not None]
-            skip = self._gate_skips(shards, live) if self.digest_gate \
-                else set()
+            skip = self._gate_skips(shards, live) \
+                if self.digest_gate and gate else set()
             for h in live:
                 if h in skip:
                     continue
@@ -439,6 +463,19 @@ class ShardedSim(ExactSim):
                     self._block_candidates(x, bd, bs, bm, snd, alive, now,
                                            keep_rows(snd))
 
+    def _open_shards(self, known, sent, dst) -> list:
+        """This rank's shards over its rows of ``known``, ``sent`` and
+        the sampled peers ``dst``."""
+        nl = self.p.n // self.d
+        dev = known.device
+        return [_Shard(index=s, r0=s * nl,
+                       known=known[j * nl:(j + 1) * nl],
+                       sent=sent[j * nl:(j + 1) * nl],
+                       dst=dst[j * nl:(j + 1) * nl],
+                       senders=s * nl + torch.arange(nl, dtype=I32,
+                                                     device=dev))
+                for j, s in enumerate(self.group.local)]
+
     def _gossip_shards(self, known, sent, alive, dst, keep, round_idx: int,
                        now: int, sparse: bool):
         """Phases 1-6 of the round over the loop of this rank's shards,
@@ -448,14 +485,7 @@ class ShardedSim(ExactSim):
         None."""
         p, kn, d, g = self.p, self._knobs, self.d, self.group
         nl = p.n // d
-        dev = known.device
-        shards = [_Shard(index=s, r0=s * nl,
-                         known=known[j * nl:(j + 1) * nl],
-                         sent=sent[j * nl:(j + 1) * nl],
-                         dst=dst[s * nl:(s + 1) * nl],
-                         senders=s * nl + torch.arange(nl, dtype=I32,
-                                                       device=dev))
-                  for j, s in enumerate(g.local)]
+        shards = self._open_shards(known, sent, dst[local_rows(g, p.n)])
 
         # 1. Select and charge; on the sparse round each shard compacts
         # its eligible senders unless they overflow its cap, reading the
@@ -577,10 +607,6 @@ class ShardedSim(ExactSim):
         return common.alive_mean(g.gather_rows(agree), self.p.m,
                                  g.gather_rows(alive))
 
-    def _run_plane(self, *args, **kwargs):
-        refuse_ranks(self.group, "the telemetry planes")
-        return super()._run_plane(*args, **kwargs)
-
     def _step(self, state: SimState, draws: RoundDraws) -> SimState:
         """One dense round from this round's draws, in place: the shard
         loop (with the sweep), then the stride push-pull."""
@@ -596,14 +622,20 @@ class ShardedSim(ExactSim):
 
     # -- telemetry ------------------------------------------------------------
 
+    def _prov_belief(self, state: SimState, tracked):
+        """Packed ``[N, T]`` belief of the tracked slots, every rank's
+        rows gathered."""
+        return self.group.gather_rows(super()._prov_belief(state, tracked))
+
     def _prov_channels(self, state: SimState, draws: RoundDraws):
         """The round's channels, given the post-round ``state``: the
         pushes to the sampled peers, and the two stride partners ``(i ±
         stride) mod N`` as pulls, each where both ends are alive (and on
-        one side) on a push-pull round."""
+        one side) on a push-pull round — over every node, on every
+        rank."""
         p = self.p
         round_idx = state.round_idx
-        alive = state.node_alive
+        alive = self.group.gather_rows(state.node_alive)
         dst = self._sample(alive, draws, round_idx)
         stride = int(draws.stride)
         idx = torch.arange(p.n, dtype=I32, device=alive.device)
@@ -639,19 +671,22 @@ class ShardedSim(ExactSim):
 
     def _pipeline_twin(self) -> ExactSim:
         """The single-device ``ExactSim`` whose pipelined round this twin
-        runs on the global tensors, built once: same params, graph, time
-        config, cut and cadence, ``pipeline="1"``.  It draws its own
-        draws (``ExactSim.draw``)."""
+        runs, built once: same params, graph, time config, cut and
+        cadence, ``pipeline="1"``.  It draws its own draws
+        (``ExactSim.draw``).  On one rank it runs on the global tensors;
+        over ranks it is :class:`_RankPipeline`, the same round on the
+        rank's rows."""
         if self._pipe_twin is None:
             tp, tph = self._cadence_args
-            self._pipe_twin = ExactSim(
+            make = ExactSim if self.group.world == 1 else \
+                functools.partial(_RankPipeline, self)
+            self._pipe_twin = make(
                 self.p, self.topo, self.t, device=self.device,
                 cut_mask=None if self._cut is None else self._cut.cpu(),
                 pipeline="1", tick_period=tp, tick_phase=tph)
         return self._pipe_twin
 
     def _delegate(self):
-        refuse_ranks(self.group, "the pipelined round")
         self._resolve_pipeline_request(True)
         self._pipeline_dispatch(False)
         self.last_sparse_stats = None
@@ -689,3 +724,102 @@ class ShardedSim(ExactSim):
             state, num_rounds, inflight=inflight, generator=generator,
             draws=draws, donate=donate, start_round=start_round)
 
+
+class _RankPipeline(ExactSim):
+    """The single-device model's pipelined round on one rank's rows of a
+    :class:`ShardedSim` over several ranks: the run methods, draws and
+    carry order of :class:`ExactSim`, with the phases that read other
+    nodes' rows going through the twin's shard group.
+
+    * select — this rank's senders' peers (sampled from the gathered
+      liveness) and top-``budget`` records (the global tie rotation),
+      charged to its ``sent`` rows; the carry holds them rank-local;
+    * deliver — the carried offers become update triples through the
+      twin's shard body: each local shard's own offers, the announce,
+      and the remote blocks in the twin's exchange mode (no hop gated),
+      resolved against the pre-apply rows; one scatter kernel a local
+      shard, after the next selection's charge;
+    * push-pull with the single-device uniform partner: the partner
+      rows are fetched from their ranks (``fetch_rows``) and the pushed
+      rows max-folded into theirs (``scatter_max_rows``); the sweep on
+      the rank's rows.
+
+    Each phase reads only the pre-round rows its single-device form
+    reads, and the scatter-max commutes, so every round ends in the
+    single-device model's state."""
+
+    def __init__(self, twin: ShardedSim, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._twin = twin
+
+    def convergence(self, state: SimState) -> torch.Tensor:
+        return self._twin.convergence(state)
+
+    def _select_inflight(self, known, sent, node_alive, draws: RoundDraws,
+                         round_sel: int):
+        p, g = self.p, self._twin.group
+        rows = local_rows(g, p.n)
+        dst = self._sample(g.gather_rows(node_alive), draws, round_sel)
+        svc_idx, msg = gossip_ops.select_messages(
+            known, sent, p.budget, self._knobs.limit, row_offset=rows.start)
+        gossip_ops.record_transmissions(sent, svc_idx, msg, p.fanout)
+        return Inflight(round_sel, (dst[rows], svc_idx, msg), draws)
+
+    def _step_pipelined(self, state: SimState, inflight: Inflight,
+                        draws_next: RoundDraws):
+        round_idx = state.round_idx + 1
+        if inflight.round_idx != round_idx:
+            raise ValueError(
+                f"the carried publish is round {inflight.round_idx}'s, "
+                f"the state's next round is {round_idx}")
+        now = round_idx * self.t.round_ticks
+        tw, nl = self._twin, self.p.n // self._twin.d
+        known, sent = state.known, state.sent
+        alive = tw.group.gather_rows(state.node_alive)
+        dst, svc_idx, msg = inflight.publish
+        keep = self._keep(inflight.draws)
+        shards = tw._open_shards(known, sent, dst)
+        for j, x in enumerate(shards):
+            x.svc = svc_idx[j * nl:(j + 1) * nl]
+            x.msg = msg[j * nl:(j + 1) * nl]
+            tw._block_candidates(
+                x, x.dst, x.svc, x.msg, x.senders, alive, now,
+                None if keep is None else keep[x.r0:x.r0 + nl])
+            tw._shard_announce(x, alive, round_idx, now)
+        if tw.d > 1 and not tw._exchange_stub:
+            tw._remote_blocks(shards, alive, keep, now, gate=False)
+        nxt = self._select_inflight(known, sent, state.node_alive,
+                                    draws_next, round_idx + 1)
+        for x in shards:
+            rows, cols, vals, adv = (torch.cat(c) for c in zip(*x.groups))
+            gossip_ops.apply_updates(x.known, x.sent, rows, cols, vals, adv)
+        return self._tail(state, inflight.draws, round_idx, now), nxt
+
+    @cost.phased("exchange", tag="push_pull")
+    def _push_pull(self, known, sent, node_alive, pp_slot, now: int):
+        """:func:`~sidecar_tpu_torch.ops.gossip.push_pull` with the
+        round's sampled partner, on this rank's rows."""
+        p, kn, g = self.p, self._knobs, self._twin.group
+        rows = local_rows(g, p.n)
+        alive = g.gather_rows(node_alive)
+        partner = gossip_ops.sample_peers(
+            pp_slot.to(known.device, I32), p.n, nbrs=self._nbrs,
+            node_alive=alive, cut_mask=self._cut)[:, 0]
+        ids = torch.arange(p.n, dtype=I32, device=known.device)
+        partner = torch.where(alive & alive[partner.to(I64)], partner,
+                              ids)[rows]
+        pidx = partner.to(I64)
+        tb, ft = kn.budget_arg(), kn.future_arg()
+        own_pull = own_push = None
+        if tb is not None:
+            own_pull = self.owner[None, :] == partner[:, None]
+            own_push = self.owner[None, :] == ids[rows][:, None]
+        pre_tgt = g.fetch_rows(known, pidx)
+        pulled = merge_packed(known, pre_tgt, now, kn.stale_ticks, ft, tb,
+                              own_pull)
+        offered = admit_gate(known, now, kn.stale_ticks, ft, tb, own_push)
+        offered = sticky_adjust(offered, pre_tgt, offered > pre_tgt)
+        del pre_tgt
+        merged = g.scatter_max_rows(pulled, pidx, offered)
+        sent.masked_fill_(merged != known, 0)
+        known.copy_(merged)

@@ -62,12 +62,25 @@ every rank (``init_state`` builds the rank's state from the global one;
   advance then the same on every rank), ``mint`` (on the owners' rank),
   the ``behind`` census and ``convergence`` (integer counts reduced
   before the float is taken once), and the counters (``psum``);
-* raising at ``world > 1`` (ROADMAP Queue 1 item 10) — the pipelined
-  round, the telemetry planes and a scenario hook (``perturb``), which
-  work on global tensors.  With the same peers, the same loss
-mask and no dropped pull, every mode at every ``d`` ends each round in
-the single-device model's state: the line fold is a max, so the order
-in which groups of pulled rows fold does not matter.
+* the telemetry planes on the rank's rows: the trace record's counts
+  summed over the group (the shared floor counted once), the digest's
+  truth max-reduced and its counts summed, the delta batches' changed
+  cells gathered with global rows in node order, the provenance
+  columns gathered and folded on every rank — every rank returns the
+  one-process stream;
+* the pipelined round: the publish kernel on the rank's rows selects
+  round r+1's carry (rank-local), and the carried boards fold through
+  the shard body above — gated at the tick, pulled through the
+  exchange mode, the board row gather kernel a local shard;
+* a scenario hook (``perturb``) that is ``row_local``: it is called
+  with the rank's global row range (``models/common.apply_perturb``)
+  and applies its whole-cluster masks to those rows; any other hook
+  raises at construction.
+
+With the same peers, the same loss mask and no dropped pull, every mode
+at every ``d`` ends each round in the single-device model's state: the
+line fold is a max, so the order in which groups of pulled rows fold
+does not matter.
 
 The sparse-frontier round (the inherited ``_step_sparse``) takes the
 frontiers and the announce's own/floor half over all rows, then one
@@ -79,8 +92,9 @@ senders with explicit global ids, scattered back to its ``[nl, K]``
 block so every exchange mode runs unchanged, and the pulls (the board
 row gather kernel), the fold, the finalize and the announce insert on
 the compacted receiver and announcer rows.  The software-pipelined round
-is the single-device model's, inherited and run on the global tensors,
-as in the reference.
+is the single-device model's, inherited and run on the global tensors
+on one rank, as in the reference; over several ranks its fold runs
+through the shard body (above), which ends each tick in the same state.
 
 Randomness comes through the ``RoundDraws`` seam as one ``[N, F]``
 ``peer_slot`` (and ``[N, F, K]`` ``keep``) per round, so with the
@@ -88,8 +102,7 @@ port's generator this twin draws exactly what the single-device model
 draws, on every rank alike (each uses the rows it needs).  The
 reference draws per shard (``fold_in(k_peers, shard)``);
 the tests rebuild those streams and feed them in through ``draws=``.
-Its pipelined round is the single-device program and draws the
-single-device stream.
+Its pipelined round draws the single-device stream at any world size.
 """
 
 from __future__ import annotations
@@ -100,6 +113,7 @@ from typing import Optional
 import torch
 
 from sidecar_tpu_torch import metrics
+from sidecar_tpu_torch.models import common
 from sidecar_tpu_torch.models.compressed import (
     I32,
     I64,
@@ -109,12 +123,13 @@ from sidecar_tpu_torch.models.compressed import (
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops import kernels as kernel_ops
 from sidecar_tpu_torch.ops import sparse as sparse_ops
+from sidecar_tpu_torch.ops.gossip import RoundDraws
 from sidecar_tpu_torch.ops.merge import admit_gate
+from sidecar_tpu_torch.ops.pipeline import Inflight
 from sidecar_tpu_torch.ops.topology import Topology, zoned_exchange_plan
 from sidecar_tpu_torch.telemetry import cost
 from sidecar_tpu_torch.parallel.mesh import (
     local_rows,
-    refuse_ranks,
     resolve_board_exchange,
     resolve_group,
 )
@@ -212,8 +227,15 @@ class ShardedCompressedSim(CompressedSim):
             raise ValueError(f"n={params.n} must divide into d={d} shards")
         self.d = d
         self.group = resolve_group(group, d)
-        if perturb is not None:
-            refuse_ranks(self.group, "a scenario hook (perturb)")
+        if self.group.world > 1:
+            self._row_group = self.group
+            if perturb is not None and not getattr(perturb, "row_local",
+                                                   False):
+                raise ValueError(
+                    "a scenario hook on a group of "
+                    f"{self.group.world} ranks sees a rank's rows: it "
+                    "must set row_local and take rows= "
+                    "(models/common.apply_perturb)")
         nl = params.n // d
         self._a2a_cap = max(16, -(-nl * params.fanout // d) * a2a_slack)
         # Per-shard sparse frontier caps (senders, receivers,
@@ -300,13 +322,45 @@ class ShardedCompressedSim(CompressedSim):
                 "own", "cache_slot", "cache_val", "cache_sent",
                 "node_alive")})
 
-    def _run_plane(self, *args, **kwargs):
-        refuse_ranks(self.group, "the telemetry planes")
-        return super()._run_plane(*args, **kwargs)
+    # -- the pipelined round at more than one rank --------------------------
 
     def _select_inflight(self, state, draws, round_sel: int):
-        refuse_ranks(self.group, "the pipelined round")
-        return super()._select_inflight(state, draws, round_sel)
+        """:meth:`CompressedSim._select_inflight`; over ranks, on this
+        rank's rows: their peers and their raw board (one publish
+        kernel at ``row_offset`` = the rank's first row), the carry
+        rank-local."""
+        if self.group.world == 1:
+            return super()._select_inflight(state, draws, round_sel)
+        rows = self._rows()
+        src = self._sample(state, draws, round_sel)[rows]
+        bval, bslot, sent = self._publish(state, self._knobs.limit,
+                                          row_offset=rows.start)
+        return Inflight(round_sel, (src, bval, bslot), draws), sent
+
+    def _step_pipelined(self, state, inflight: Inflight,
+                        draws_next: RoundDraws):
+        """:meth:`CompressedSim._step_pipelined`; over ranks, the carried
+        boards fold through the shard body (gated at this tick, pulled
+        through the exchange mode, the board row gather kernel a local
+        shard), after round r+1's publish was selected from the
+        pre-fold cache."""
+        if self.group.world == 1:
+            return super()._step_pipelined(state, inflight, draws_next)
+        round_idx = state.round_idx + 1
+        if inflight.round_idx != round_idx:
+            raise ValueError(
+                f"the carried publish is round {inflight.round_idx}'s, "
+                f"the state's next round is {round_idx}")
+        now = round_idx * self.t.round_ticks
+        state = common.apply_perturb(self.perturb, state, now, self._knobs,
+                                     rows=self._rows())
+        draws = inflight.draws
+        nxt, sent = self._select_inflight(state, draws_next, round_idx + 1)
+        state = self._shard_round(state, None, self._keep(draws),
+                                  self._gather_rows(state.node_alive),
+                                  round_idx, now, None,
+                                  carried=(*inflight.publish, sent))
+        return self._tail(state, draws, round_idx, now), nxt
 
     # -- the all_to_all request routing -----------------------------------
 
@@ -342,13 +396,12 @@ class ShardedCompressedSim(CompressedSim):
 
     # -- the shard body -----------------------------------------------------
 
-    def _open_shard(self, state, src, keep, alive, s: int, j: int,
+    def _open_shard(self, state, dst, keep, alive, s: int, j: int,
                     nl: int) -> _Shard:
-        """Global shard ``s``, the ``j``-th this rank holds; ``src``,
-        ``keep`` and ``alive`` are global."""
+        """Global shard ``s``, the ``j``-th this rank holds, whose nodes
+        sampled ``dst``; ``keep`` and ``alive`` are global."""
         rows = slice(j * nl, (j + 1) * nl)
         grows = slice(s * nl, (s + 1) * nl)
-        dst = src[grows]
         src_shard = torch.div(dst, nl, rounding_mode="floor")
         return _Shard(
             index=s, r0=s * nl, rows=rows, grows=grows, dst=dst,
@@ -548,18 +601,24 @@ class ShardedCompressedSim(CompressedSim):
                 torch.where(ac, se2[pa], se), ev_merge + ev_ann.to(I32))
 
     def _shard_round(self, state, src, keep, alive, round_idx, now: int,
-                     ann, frontiers=None):
+                     ann, frontiers=None, carried=None):
         """Publish, exchange, pull and merge, then announce — shard by
         shard, phase by phase (see the module docstring).  ``src``,
         ``keep`` and ``alive`` are global; ``ann`` is the announce's
         own/floor half when the sparse round has computed it already,
         and ``frontiers`` its ``(sender, recv, announcer)`` masks over
-        this rank's rows when the compacted body runs."""
+        this rank's rows when the compacted body runs.  ``carried`` is
+        the pipelined round's ``(src, bval, bslot, sent)`` over this
+        rank's rows: the peers and raw boards selected a tick before,
+        which replace the sample and the publish, and the transmit
+        counts the next selection charged."""
         p, g, d = self.p, self.group, self.d
         nl = p.n // d
         mode = self.board_exchange
         stub = self._exchange_stub
-        shards = [self._open_shard(state, src, keep, alive, s, j, nl)
+        dsts = src[self._rows()] if carried is None else carried[0]
+        shards = [self._open_shard(state, dsts[j * nl:(j + 1) * nl], keep,
+                                   alive, s, j, nl)
                   for j, s in enumerate(g.local)]
 
         # 1. The all_to_all request leg: index math over the peers only
@@ -577,7 +636,10 @@ class ShardedCompressedSim(CompressedSim):
         # sparse round from the compacted senders, and the pulls narrow
         # to the compacted receivers.
         for x in shards:
-            if frontiers is None:
+            if carried is not None:
+                _src, bval, x.bslot, x.sent = (t[x.rows] for t in carried)
+                x.bval = self._gate_board(bval, x.bslot, now, x.r0)
+            elif frontiers is None:
                 self._publish_block(state, x, now)
             else:
                 self._publish_compacted(state, x, frontiers[0][x.rows], now)

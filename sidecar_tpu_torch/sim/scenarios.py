@@ -257,40 +257,62 @@ def _device_count(device) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
-def _compressed_sim(params, topo, cfg, sharded: bool, device, **kw):
-    """CompressedSim, or its node-sharded twin over the devices when
-    ``sharded``."""
-    if sharded:
+def _shard_count(sharded: bool, group, device) -> int:
+    """The node shards of a config: the group's ``d`` when a shard group
+    is given, one a device when ``sharded``, else 1."""
+    if group is not None:
+        return group.d
+    return _device_count(device) if sharded else 1
+
+
+def _compressed_sim(params, topo, cfg, sharded: bool, device, group=None,
+                    **kw):
+    """CompressedSim, or its node-sharded twin when ``sharded`` or given a
+    shard ``group`` (over the devices, or the group's ``d`` shards on
+    its ranks)."""
+    if sharded or group is not None:
         from sidecar_tpu_torch.parallel import ShardedCompressedSim
-        return ShardedCompressedSim(params, topo, cfg,
-                                    d=_device_count(device), device=device,
-                                    **kw)
+        return ShardedCompressedSim(
+            params, topo, cfg, d=_shard_count(sharded, group, device),
+            device=device, group=group, **kw)
     from sidecar_tpu_torch.models.compressed import CompressedSim
     return CompressedSim(params, topo, cfg, device=device, **kw)
+
+
+def config4_sim(scale: float = 1.0, sharded: bool = False, device="cuda",
+                group=None):
+    """config4's sim: BA(3, seed 4) at ``max(128, 65,536·scale)`` nodes
+    (rounded up to a multiple of the shards when sharded) × 10 services,
+    K = 256 lines, anti-entropy every 4 s."""
+    from sidecar_tpu_torch.models.compressed import CompressedParams
+
+    n = max(128, int(65_536 * scale))
+    if sharded or group is not None:  # the node axis must divide the shards
+        d = _shard_count(sharded, group, device)
+        n = -(-n // d) * d
+    cfg = dataclasses.replace(_STUDY_CFG, push_pull_interval_s=4.0)
+    params = CompressedParams(n=n, services_per_node=10, fanout=3,
+                              budget=15, cache_lines=256,
+                              deep_sweep_every=5)
+    return _compressed_sim(params, topo_mod.barabasi_albert(n, m=3, seed=4),
+                           cfg, sharded, device, group)
 
 
 def config4_ba_antientropy(eps: float = 2e-4, rounds: int = 400,
                            scale: float = 1.0,
                            churn_frac: float = 0.002,
                            sharded: bool = False,
-                           device="cuda") -> ScenarioResult:
+                           device="cuda", group=None) -> ScenarioResult:
     """65,536-node Barabási–Albert with periodic anti-entropy, at the
     declared scale on the compressed model: the cluster boots converged,
     ``churn_frac`` of all services churn at once (0.2 %, about 1,310
     records), and the scenario measures the drain back to ε through
-    gossip and the 4 s anti-entropy cadence."""
-    from sidecar_tpu_torch.models.compressed import CompressedParams
-
-    n = max(128, int(65_536 * scale))
-    if sharded:  # the node axis must divide the devices
-        d = _device_count(device)
-        n = -(-n // d) * d
-    cfg = dataclasses.replace(_STUDY_CFG, push_pull_interval_s=4.0)
-    params = CompressedParams(n=n, services_per_node=10, fanout=3,
-                              budget=15, cache_lines=256,
-                              deep_sweep_every=5)
-    sim = _compressed_sim(params, topo_mod.barabasi_albert(n, m=3, seed=4),
-                          cfg, sharded, device)
+    gossip and the 4 s anti-entropy cadence.  ``group`` (a shard group,
+    ``parallel/``) runs the node-sharded twin over its ranks, as
+    ``sharded`` runs it over the devices: the same curve and ε round on
+    every rank."""
+    sim = config4_sim(scale, sharded, device, group)
+    n = sim.p.n
     conv_every = 5 if n >= 16_384 else 1
     rounds = -(-rounds // conv_every) * conv_every
     state = _mint_churn(sim, sim.init_state(), churn_frac, tick=10, seed=4)
@@ -300,7 +322,8 @@ def config4_ba_antientropy(eps: float = 2e-4, rounds: int = 400,
                 scaled_from=65_536 if n != 65_536 else None,
                 notes=f"compressed model; {churn_frac:.2%} service churn "
                       "burst; anti-entropy every 4 s simulated"
-                      + ("; node-axis sharded" if sharded else ""))
+                      + ("; node-axis sharded"
+                         if sharded or group is not None else ""))
 
 
 # config5's protocol: frequent anti-entropy (healing a partition is seeded
@@ -330,16 +353,17 @@ def config5_split_heal(eps: float = 1e-5, split_rounds: int = 150,
                        scale: float = 1.0,
                        churn_frac: float = 1e-4,
                        sharded: bool = False,
-                       device="cuda") -> ScenarioResult:
+                       device="cuda", group=None) -> ScenarioResult:
     """Partitioned 2-D mesh at the declared 1M nodes (compressed model):
     churn is injected on ONE side of the split, convergence stalls while
     the partition holds (cross-side gossip and stride anti-entropy are
     severed), then the cut is removed and the backlog drains to ε.  The
     default 0.01 % burst (about 400 records) is what a 450-round heal
-    completes at K = 64 lines a node."""
+    completes at K = 64 lines a node.  ``group``: as in
+    :func:`config4_ba_antientropy`."""
     side = max(8, int(1000 * math.sqrt(scale)))
-    if sharded:  # the node axis must divide the devices
-        d = _device_count(device)
+    if sharded or group is not None:  # the node axis must divide the shards
+        d = _shard_count(sharded, group, device)
         while (side * side) % d:
             side += 1
     topo, halves, cut = split_mesh(side)
@@ -350,7 +374,7 @@ def config5_split_heal(eps: float = 1e-5, split_rounds: int = 150,
     conv_every = 5 if n >= 16_384 else 1
     split_rounds = -(-split_rounds // conv_every) * conv_every
     heal_rounds = -(-heal_rounds // conv_every) * conv_every
-    split_sim = _compressed_sim(params, topo, cfg, sharded, device,
+    split_sim = _compressed_sim(params, topo, cfg, sharded, device, group,
                                 cut_mask=cut, node_side=halves)
     generator = split_sim.default_generator(5)
     t0 = time.perf_counter()
@@ -359,8 +383,8 @@ def config5_split_heal(eps: float = 1e-5, split_rounds: int = 150,
     state, conv_split = _run_chunked(split_sim, state, generator,
                                      split_rounds, conv_every)
 
-    heal_sim = _compressed_sim(params, topo, cfg, sharded,
-                               device)  # cut removed
+    heal_sim = _compressed_sim(params, topo, cfg, sharded, device,
+                               group)  # cut removed
     state, conv_heal = _run_chunked(heal_sim, state, generator,
                                     heal_rounds, conv_every)
     wall = time.perf_counter() - t0

@@ -1198,3 +1198,21 @@ def test_nccl_group_of_one_rank_equals_local_group(card, monkeypatch):
                          timeout_s=600.0)
     assert got and all(not r["fields_differ"] and r["curve_equal"]
                        for r in got.values()), got
+
+
+def test_nccl_group_paths_equal_local_group(card, monkeypatch):
+    """The planes and the pipelined round of the twins over a NCCL group
+    of one rank holding d = 4 shards, against ``LocalShardGroup`` at d = 4 on the card: the
+    exact twin's trace (state, record buffer and curve) and the
+    compressed twin's pipelined ticks (state, curve and carry)."""
+    import importlib
+    import pathlib
+
+    from sidecar_tpu_torch.parallel import spawn_group
+
+    monkeypatch.syspath_prepend(str(pathlib.Path(__file__).parent))
+    worker = importlib.import_module("torch_dist_worker")
+    (got,) = spawn_group(worker.paths_against_local, 1, "nccl",
+                         timeout_s=600.0)
+    assert got and all(not r["fields_differ"] and r["equal"]
+                       for r in got.values()), got

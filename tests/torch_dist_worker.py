@@ -1,12 +1,18 @@
-"""The rank bodies of ``tests/test_torch_dist.py``: each rank of a gloo
-group runs every case in turn and returns its rank-local results.
+"""The rank bodies of ``tests/test_torch_dist.py`` and
+``tests/test_torch_dist_paths.py``: each rank of a gloo group runs every
+case in turn and returns its rank-local results.
 
 This module imports only torch, numpy and the port, so a spawned rank
 never imports JAX; the cases arrive as plain data (numpy arrays, dicts
-and tuples) that the test built from the reference's draws.
+and tuples) that the test built from the reference's draws.  The same
+bodies run in the test process with :class:`LocalContext`, whose groups
+are the one-process :class:`LocalShardGroup`: that is the one-process
+run each case is held against.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -17,7 +23,19 @@ from sidecar_tpu_torch.models.compressed import CompressedParams
 from sidecar_tpu_torch.models.exact import SimParams
 from sidecar_tpu_torch.models.timecfg import TimeConfig
 from sidecar_tpu_torch.ops.gossip import RoundDraws
-from sidecar_tpu_torch.parallel import ShardedCompressedSim, ShardedSim
+from sidecar_tpu_torch.ops.status import (
+    ALIVE,
+    TOMBSTONE,
+    pack,
+    unpack_status,
+    unpack_ts,
+)
+from sidecar_tpu_torch.parallel import (
+    LocalShardGroup,
+    ShardedCompressedSim,
+    ShardedSim,
+)
+from sidecar_tpu_torch.sim import scenarios
 
 # The dtypes the collective cases exchange.
 COLLECTIVE_DTYPES = {"int32": torch.int32, "int8": torch.int8}
@@ -147,8 +165,260 @@ def run_fleet(ctx, *, specs, params, time, rounds, draws, stop,
             "host_reads": run.host_reads}
 
 
+# -- the paths of tests/test_torch_dist_paths.py ------------------------------
+
+
+class LocalContext:
+    """A rank context of one process: its groups are
+    :class:`LocalShardGroup`, every shard here."""
+
+    rank, world = 0, 1
+    device = torch.device("cpu")
+
+    @staticmethod
+    def group(d: int):
+        return LocalShardGroup(d)
+
+
+def stats_of(g) -> dict:
+    """A group's exchange accounting (none for the one-process group)."""
+    return dict(getattr(g, "stats", {}))
+
+
+def stream_data(stream) -> dict:
+    """A telemetry stream's fields (a dataclass of tensors and host
+    values) as a dict."""
+    return {f.name: getattr(stream, f.name)
+            for f in dataclasses.fields(stream)}
+
+
+def run_plane(sim, state, plane, draws, tracked=(), delta_cap=0):
+    """``sim.run_with_<plane>`` from ``state`` on ``draws``: ``(final,
+    stream dict, curve or None)``."""
+    if plane == "provenance":
+        out = sim.run_with_provenance(state, len(draws), tracked,
+                                      draws=draws)
+    elif plane == "deltas":
+        out = sim.run_with_deltas(state, len(draws), delta_cap, draws=draws)
+    else:
+        out = getattr(sim, f"run_with_{plane}")(state, len(draws),
+                                                draws=draws)
+    return out[0], stream_data(out[1]), out[2] if len(out) > 2 else None
+
+
+def exact_twin(ctx, d, params, topo, time, sim_kw):
+    g = ctx.group(d)
+    return g, ShardedSim(SimParams(**params), topology(topo),
+                         TimeConfig(**time), d=d, device=ctx.device,
+                         group=g, **sim_kw)
+
+
+def compressed_twin(ctx, d, params, topo, time, sim_kw, hook=None):
+    g = ctx.group(d)
+    return g, ShardedCompressedSim(CompressedParams(**params), topology(topo),
+                                   TimeConfig(**time), d=d,
+                                   device=ctx.device, group=g, perturb=hook,
+                                   **sim_kw)
+
+
+def rank_state(g, d, state, device):
+    """The rank's part of a global exact state in numpy form, on fresh
+    buffers (the exact model's runs write their state in place)."""
+    part = convert.shard_state(state, g.rank, g.world, d)
+    return convert.exact_state_from_numpy(
+        {k: np.array(v) for k, v in part.items()}, device)
+
+
+def run_exact_planes(ctx, *, d, params, topo, time, draws, state, sim_kw,
+                     planes, tracked) -> dict:
+    """Each plane of the exact twin from the global start ``state``."""
+    g, sim = exact_twin(ctx, d, params, topo, time, sim_kw)
+    out = {}
+    for plane in planes:
+        start = rank_state(g, d, state, ctx.device)
+        final, stream, conv = run_plane(sim, start, plane,
+                                        draws_from_data(draws), tracked)
+        out[plane] = {"state": convert.state_to_numpy(final),
+                      "stream": stream, "conv": conv}
+    out["exchange"] = stats_of(g)
+    return out
+
+
+def run_compressed_planes(ctx, *, d, params, topo, time, draws, sim_kw,
+                          planes, tracked, mint, delta_cap) -> dict:
+    """Each plane of the compressed twin from the boot state and a
+    rank-local ``mint``."""
+    g, sim = compressed_twin(ctx, d, params, topo, time, sim_kw)
+    out = {}
+    for plane in planes:
+        st = sim.mint(sim.init_state(), *mint)
+        final, stream, _ = run_plane(sim, st, plane, draws_from_data(draws),
+                                     tracked, delta_cap)
+        out[plane] = {"state": convert.state_to_numpy(final),
+                      "stream": stream}
+    out["dropped"] = sim.sync_exchange_metrics(final)
+    out["exchange"] = stats_of(g)
+    return out
+
+
+def pipelined_chunks(sim, st, draws, conv, *, split):
+    """Prime, then ``run_pipelined`` for ``split`` ticks, two
+    ``step_pipelined`` ticks and ``run_pipelined`` for the rest; the
+    curve of every tick.  Then ``run_fast_pipelined`` from a second
+    prime over every tick.  Returns ``(final, curve, publish,
+    fast final)``."""
+    st0 = st
+    st, inf = sim.prime_pipeline(st, draws=draws[0])
+    st, c1, inf = sim.run_pipelined(st, split, inflight=inf,
+                                    draws=draws[1:split + 1])
+    curve = [c1]
+    for i in (split + 1, split + 2):
+        st, inf = sim.step_pipelined(st, inf, draws=draws[i])
+        curve.append(conv(st).reshape(1))
+    rest = len(draws) - split - 3
+    st, c2, inf = sim.run_pipelined(st, rest, inflight=inf,
+                                    draws=draws[split + 3:])
+    curve.append(c2)
+    fast, _ = sim.run_fast_pipelined(st0, len(draws) - 1, draws=draws)
+    return st, torch.cat(curve), inf.publish, fast
+
+
+def run_exact_pipelined(ctx, *, d, params, topo, time, draws, state, sim_kw,
+                        split) -> dict:
+    """The exact twin's pipelined round from the global ``state``."""
+    g, sim = exact_twin(ctx, d, params, topo, time, sim_kw)
+    final, curve, publish, fast = pipelined_chunks(
+        sim, rank_state(g, d, state, ctx.device), draws_from_data(draws),
+        sim.convergence, split=split)
+    return {"state": convert.state_to_numpy(final), "conv": curve,
+            "publish": publish, "fast": convert.state_to_numpy(fast),
+            "exchange": stats_of(g)}
+
+
+def run_compressed_pipelined(ctx, *, d, params, topo, time, draws, sim_kw,
+                             mint, split) -> dict:
+    """The compressed twin's pipelined round from the boot state and a
+    rank-local ``mint``."""
+    g, sim = compressed_twin(ctx, d, params, topo, time, sim_kw)
+    st = sim.mint(sim.init_state(), *mint)
+    final, curve, publish, fast = pipelined_chunks(
+        sim, st, draws_from_data(draws), sim.convergence, split=split)
+    return {"state": convert.state_to_numpy(final), "conv": curve,
+            "publish": publish, "fast": convert.state_to_numpy(fast),
+            "dropped": sim.sync_exchange_metrics(final),
+            "exchange": stats_of(g)}
+
+
+def own_churn_hook(churn, flip_alive, services_per_node, round_ticks):
+    """A compressed-state scenario hook: each round the slots of
+    ``churn[r]`` (bool ``[M]``) restart — an owner's ALIVE record is
+    tombstoned at ``now``, any other re-announced ALIVE — and the nodes
+    of ``flip_alive[r]`` (bool ``[N]``) toggle their liveness; ``r`` is
+    the round the hook runs before.  Row-local: on a rank it touches
+    only its ``rows``."""
+    def hook(state, now, rows=None):
+        r = now // round_ticks
+        if r not in churn:
+            return state
+        rows = slice(None) if rows is None else rows
+        own = state.own
+        pick = torch.as_tensor(churn[r], device=own.device).reshape(
+            -1, services_per_node)[rows]
+        flip = pick & (unpack_ts(own) > 0) & state.node_alive[:, None]
+        new_status = torch.where(unpack_status(own) == ALIVE, TOMBSTONE,
+                                 ALIVE)
+        own = torch.where(flip, pack(now, new_status), own)
+        alive = state.node_alive ^ torch.as_tensor(
+            flip_alive[r], device=own.device)[rows]
+        return dataclasses.replace(state, own=own, node_alive=alive)
+
+    hook.row_local = True
+    return hook
+
+
+def run_compressed_perturb(ctx, *, d, params, topo, time, draws, sim_kw,
+                           mint, churn, flip_alive) -> dict:
+    """The compressed twin with :func:`own_churn_hook`: its behind curve
+    and final state."""
+    p = CompressedParams(**params)
+    hook = own_churn_hook(churn, flip_alive, p.services_per_node,
+                          TimeConfig(**time).round_ticks)
+    g, sim = compressed_twin(ctx, d, params, topo, time, sim_kw, hook)
+    st = sim.mint(sim.init_state(), *mint)
+    final, behind = sim.run_behind(st, len(draws), 1,
+                                   draws=draws_from_data(draws))
+    return {"state": convert.state_to_numpy(final), "behind": behind,
+            "convergence": sim.convergence(final),
+            "exchange": stats_of(g)}
+
+
+def run_gate(ctx, *, d, params, topo, time, states) -> dict:
+    """``gate_predicates`` of the digest-gated zoned twin on each global
+    ``known`` of ``states``."""
+    g, sim = exact_twin(ctx, d, params, topo, time,
+                        dict(board_exchange="zoned", digest_gate=True))
+    out = []
+    for known in states:
+        n = known.shape[0]
+        st = rank_state(g, d, {"known": known,
+                               "sent": np.zeros(known.shape, np.int8),
+                               "node_alive": np.ones(n, bool),
+                               "round_idx": np.int32(0)}, ctx.device)
+        out.append(sim.gate_predicates(st))
+    return {"predicates": out, "exchange": stats_of(g)}
+
+
+def run_scenario(ctx, *, name, d, kwargs) -> dict:
+    """Config 4 or 5 over a group of ``d`` shards: the result's curve
+    and ε round."""
+    fn = {"config4": scenarios.config4_ba_antientropy,
+          "config5": scenarios.config5_split_heal}[name]
+    g = ctx.group(d)
+    res = fn(device=ctx.device, group=g, **kwargs)
+    return {"n": res.n, "convergence": res.convergence,
+            "eps_round": res.eps_round, "rounds_run": res.rounds_run,
+            "exchange": stats_of(g)}
+
+
+def routed_inputs(world: int, rows: int = 8, seed: int = 2):
+    """The routed row collectives' case: a global ``[world·rows, 3]``
+    int32 tensor, and per rank the global ids it names (any rank's rows,
+    repeats included; rank 0 names none of rank 1's rows) and the rows it
+    folds onto them."""
+    rng = np.random.default_rng(seed)
+    n = world * rows
+    x = torch.as_tensor(rng.integers(-50, 50, (n, 3)), dtype=torch.int32)
+    idx, vals = [], []
+    for r in range(world):
+        k = 5 + 3 * r
+        ids = rng.integers(0, rows if r == 0 else n, k)
+        idx.append(torch.as_tensor(ids, dtype=torch.int64))
+        vals.append(torch.as_tensor(rng.integers(-50, 100, (k, 3)),
+                                    dtype=torch.int32))
+    return x, idx, vals
+
+
+def run_routed(ctx, *, world) -> dict:
+    """``fetch_rows`` and ``scatter_max_rows`` of the group on this
+    rank's rows of :func:`routed_inputs`."""
+    g = ctx.group(ctx.world)
+    x, idx, vals = routed_inputs(world)
+    rows = slice(g.rank * x.shape[0] // g.world,
+                 (g.rank + 1) * x.shape[0] // g.world)
+    held = x[rows].clone()
+    return {"fetched": g.fetch_rows(held, idx[g.rank]),
+            "folded": g.scatter_max_rows(held, idx[g.rank], vals[g.rank]),
+            "exchange": stats_of(g)}
+
+
 CASES = {"collectives": run_collectives, "exact": run_exact,
-         "compressed": run_compressed, "fleet": run_fleet}
+         "compressed": run_compressed, "fleet": run_fleet,
+         "exact_planes": run_exact_planes,
+         "compressed_planes": run_compressed_planes,
+         "exact_pipelined": run_exact_pipelined,
+         "compressed_pipelined": run_compressed_pipelined,
+         "compressed_perturb": run_compressed_perturb,
+         "gate": run_gate, "scenario": run_scenario, "routed": run_routed}
 
 
 def run_cases(ctx, cases) -> dict:
@@ -196,4 +466,56 @@ def group_against_local(ctx, d: int = 4, rounds: int = 12) -> dict:
                 "fields_differ": [f for f in x
                                   if not np.array_equal(x[f], y[f])],
                 "curve_equal": bool(torch.equal(ca, cb))}
+    return out
+
+
+def paths_against_local(ctx, d: int = 4, rounds: int = 12) -> dict:
+    """On this rank's device, in a group of one rank (its state is
+    whole): the exact twin's trace and the compressed twin's pipelined
+    ticks (prime, then one ``step_pipelined`` a round) through a group
+    of ``d`` shards and through ``LocalShardGroup``, from one set of CPU
+    draws; which fields differ and whether the streams, curves and
+    carries are equal."""
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+
+    topo = erdos_renyi(64, avg_degree=6.0, seed=3)
+    time = TimeConfig(refresh_interval_s=2.0, push_pull_interval_s=1.0,
+                      sweep_interval_s=0.4)
+    out = {}
+    sims = [ShardedSim(SimParams(n=64, services_per_node=4, fanout=3,
+                                 budget=6, drop_prob=0.1), topo, time, d=d,
+                       board_exchange="ring", device=ctx.device, group=g)
+            for g in (ctx.group(d), None)]
+    gen = torch.Generator().manual_seed(5)
+    draws = [sims[0].draw(gen, r) for r in range(1, rounds + 1)]
+    (a, ta, ca), (b, tb, cb) = [sim.run_with_trace(sim.init_state(), rounds,
+                                                   draws=draws)
+                                for sim in sims]
+    x, y = convert.state_to_numpy(a), convert.state_to_numpy(b)
+    out["exact-trace"] = {
+        "fields_differ": [f for f in x if not np.array_equal(x[f], y[f])],
+        "equal": (bool(torch.equal(ta.rec, tb.rec)) and ta.count == tb.count
+                  and bool(torch.equal(ca, cb)))}
+    sims = [ShardedCompressedSim(
+        CompressedParams(n=64, services_per_node=4, cache_lines=16,
+                         drop_prob=0.1), topo, time, d=d,
+        board_exchange="ring", device=ctx.device, group=g)
+        for g in (ctx.group(d), None)]
+    gen = torch.Generator().manual_seed(6)
+    draws = [sims[0].draw(gen, r) for r in range(1, rounds + 2)]
+    ends = []
+    for sim in sims:
+        st = sim.mint(sim.init_state(), np.arange(0, 256, 9), 7)
+        st, inf = sim.prime_pipeline(st, draws=draws[0])
+        curve = []
+        for i in range(1, rounds + 1):
+            st, inf = sim.step_pipelined(st, inf, draws=draws[i])
+            curve.append(sim.convergence(st))
+        ends.append((convert.state_to_numpy(st), torch.stack(curve),
+                     inf.publish))
+    (x, cx, px), (y, cy, py) = ends
+    out["compressed-pipelined"] = {
+        "fields_differ": [f for f in x if not np.array_equal(x[f], y[f])],
+        "equal": (bool(torch.equal(cx, cy))
+                  and all(torch.equal(u, v) for u, v in zip(px, py)))}
     return out
