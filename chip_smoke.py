@@ -219,7 +219,7 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    chaos plan and an adversary with the defences on, every round; the
    pipelined oracle against ``step_pipelined`` and the provenance
    oracle against ``run_with_provenance``;
-19. dist — the twins and the fleet's scenario axis over a
+19. dist — the twins and the fleet's scenario and node axes over a
    ``torch.distributed`` group on the one card (``parallel/dist.py``,
    started by ``parallel/launch.spawn_group``): NCCL with one rank
    holding d = 4 shards — the exact twin at the ``value`` shape in
@@ -228,8 +228,11 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    with two ranks of two shards sharing the card, every exchanged
    tensor copied through the host — the exact twin in ``all_gather``
    and ``ring`` (50 rounds), the compressed twin at n = 16,384 in
-   ``all_gather`` and ``all_to_all`` (25 rounds) and the 64-point grid
-   at n = 1,024 over the two ranks (100 rounds).  Then, on each group,
+   ``all_gather`` and ``all_to_all`` (25 rounds), the 64-point grid
+   at n = 1,024 over the two ranks (100 rounds), and the fleet's node
+   axis: that grid and the ``fleet`` phase's chaos batch at 4,096 × 10
+   (50 rounds) with each scenario's nodes split over the two ranks.
+   Then, on each group,
    the twins' other paths (50 rounds each): the exact twin's trace,
    digest and provenance in one run beside the untraced run, the
    compressed twin's trace (the north star on NCCL, 16,384 on gloo) and
@@ -238,7 +241,9 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    config4 at 16,384 × 10 (gloo, 100 rounds).  Each job's final state
    (SHA-256 of each rank's part) and curve, every stream field, each
    rank's part of a pipelined carry, or every row of the grid's table,
-   must equal the same run through ``LocalShardGroup`` in this process,
+   must equal the same run through ``LocalShardGroup`` in this process
+   (a node-axis job: the one-process fleet, the chaos batch's counters
+   summed over the ranks),
    and each rank must launch its kernels as ``dist_expected`` says; per
    rank its wall, rounds/s (a traced job: ms a round traced and
    untraced), a 5-round profile (busy ms and idle share a round), peak
@@ -4202,23 +4207,11 @@ def fleet_exact_grid(n=1024, rounds=FLEET_ROUNDS):
         scatter["max_abs_err"]
 
 
-def fleet_chaos(n=4096, rounds=FLEET_ROUNDS):
-    """Four scenarios under the config6-shaped plan of the ``chaos``
-    phase (its FaultPlan; the fleet has no adversary) at the ``value``
-    size, the defences on, fault seeds 7–10 (one lossy, one churny):
-    the batched run, and each row equal to its unbatched
-    ``ChaosExactSim`` run, rings and counters included."""
-    import torch
-
-    from sidecar_tpu_torch.chaos import ChaosExactSim
-    from sidecar_tpu_torch.fleet import (
-        FleetSim,
-        ScenarioBatch,
-        ScenarioSpec,
-        churn_seed,
-        restart_churn_perturb,
-    )
-    from sidecar_tpu_torch.fleet.engine import scenario_state
+def fleet_chaos_batch(n, device=None):
+    """The chaos fleet's batch and graph: four scenarios under the
+    ``chaos`` phase's plan at n × 10 services, the defences on, fault
+    seeds 7–10 (one lossy, one churny); ER(8, seed 3)."""
+    from sidecar_tpu_torch.fleet import ScenarioBatch, ScenarioSpec
     from sidecar_tpu_torch.models.exact import SimParams
     from sidecar_tpu_torch.ops.topology import erdos_renyi
 
@@ -4230,8 +4223,29 @@ def fleet_chaos(n=4096, rounds=FLEET_ROUNDS):
              ScenarioSpec(name="fs10-churny", seed=4, fault_seed=10,
                           churn_prob=0.002)]
     p = SimParams(n=n, services_per_node=10, fanout=3, budget=15)
-    topo = erdos_renyi(n, avg_degree=8.0, seed=3)
-    batch = ScenarioBatch.build(specs, p, chaos_time(), plan=plan)
+    batch = ScenarioBatch.build(specs, p, chaos_time(), plan=plan,
+                                device=DEVICE if device is None else device)
+    return batch, erdos_renyi(n, avg_degree=8.0, seed=3)
+
+
+def fleet_chaos(n=4096, rounds=FLEET_ROUNDS):
+    """Four scenarios under the config6-shaped plan of the ``chaos``
+    phase (its FaultPlan; the fleet has no adversary) at the ``value``
+    size, the defences on, fault seeds 7–10 (one lossy, one churny):
+    the batched run, and each row equal to its unbatched
+    ``ChaosExactSim`` run, rings and counters included."""
+    import torch
+
+    from sidecar_tpu_torch.chaos import ChaosExactSim
+    from sidecar_tpu_torch.fleet import (
+        FleetSim,
+        churn_seed,
+        restart_churn_perturb,
+    )
+    from sidecar_tpu_torch.fleet.engine import scenario_state
+
+    batch, topo = fleet_chaos_batch(n)
+    specs, p = batch.specs, batch.params
     fleet = FleetSim(batch, topo)
     all_counts, checks = [], {}
     run, counts, peak = timed_fleet_run(fleet, rounds)
@@ -5567,6 +5581,13 @@ DIST_CONFIG5_SCALE = 1.0            # the declared 1M × 64
 DIST_PATHS = ("exact_planes", "compressed_trace", "compressed_deltas",
               "exact_pipelined", "compressed_pipelined", "config4",
               "config5")
+# The fleet's node axis: each scenario's nodes over the gloo group's two
+# ranks, the layout (sd, nd) = (1, 2) — the grid job's batch, and the
+# `fleet` phase's 4-scenario chaos batch at the `value` size.  The grid
+# shares the scenario-axis grid job's reference; only the chaos job is
+# profiled.
+DIST_NODE_JOBS = ("grid_nodes", "chaos_nodes")
+DIST_CHAOS_NODES_ROUNDS = 50
 
 
 def dist_jobs(north_star_n):
@@ -5590,6 +5611,8 @@ def dist_jobs(north_star_n):
         [("compressed", mode, 4, DIST_GLOO_N, DIST_COMPRESSED_ROUNDS["gloo"])
          for mode in ("all_gather", "all_to_all")] + \
         [("grid", None, 2, 1024, DIST_GRID_ROUNDS),
+         ("grid_nodes", None, 2, 1024, DIST_GRID_ROUNDS),
+         ("chaos_nodes", None, 2, 4096, DIST_CHAOS_NODES_ROUNDS),
          ("exact_planes", "ring", 4, 4096, DIST_PATH_ROUNDS),
          ("compressed_trace", "all_gather", 4, DIST_GLOO_N,
           DIST_PATH_ROUNDS),
@@ -5659,9 +5682,10 @@ def dist_drive(sim, kind, rounds):
     return sim.run(state, rounds, DIST_CONV_EVERY, generator=gen)
 
 
-def dist_grid(device, n, rounds, group=None):
+def dist_grid(device, n, rounds, group=None, node_devices=1):
     """The 64-point grid at n × 10 services (``fleet_exact_grid``'s
-    batch), its scenarios over ``group``'s ranks; returns the run and its
+    batch), its scenarios (and with ``node_devices`` > 1 each one's
+    nodes) over ``group``'s ranks; returns the fleet, the run and its
     table."""
     from sidecar_tpu_torch.fleet import FleetSim, ScenarioBatch, expand_grid
     from sidecar_tpu_torch.models.exact import SimParams
@@ -5672,9 +5696,40 @@ def dist_grid(device, n, rounds, group=None):
         expand_grid(sweep_grid_axes(), base={"seed": 0}),
         SimParams(n=n, services_per_node=10, fanout=3, budget=15), t,
         device=device)
-    fleet = FleetSim(batch, group=group)
+    fleet = FleetSim(batch, group=group, node_devices=node_devices)
     run = fleet.run(fleet.init_states(), rounds, eps=0.01)
-    return run, run.table(t.round_ticks, t.ticks_per_second)
+    return fleet, run, run.table(t.round_ticks, t.ticks_per_second)
+
+
+def dist_chaos_fleet(device, n, rounds, group=None, node_devices=1):
+    """The ``fleet`` phase's chaos batch (``fleet_chaos_batch``) with its
+    nodes over ``group``'s ranks; returns the fleet and the run."""
+    from sidecar_tpu_torch.fleet import FleetSim
+
+    batch, topo = fleet_chaos_batch(n, device)
+    fleet = FleetSim(batch, topo, group=group, node_devices=node_devices)
+    return fleet, fleet.run(fleet.init_states(), rounds)
+
+
+def fleet_run_stats(run) -> dict:
+    """A fleet run's per-scenario rows on the host: rounds, ε rounds,
+    offer bytes, frontier high-water marks and the curve."""
+    return {"rounds": run.rounds.tolist(), "eps_round": run.eps_round,
+            "exchange_bytes": run.exchange_bytes.tolist(),
+            "frontier_max": run.frontier_max.tolist(),
+            "curve": run.convergence.tolist()}
+
+
+def fleet_state_digests(state) -> tuple:
+    """A fleet state's numpy form split for comparison: the SHA-256 of
+    every leaf but the chaos counters, and the counters themselves (a
+    node block's are its senders' counts: the ranks' sum is compared)."""
+    from sidecar_tpu_torch import convert
+
+    flat = convert.fleet_leaves(state)
+    counters = {k: flat.pop(k).tolist() for k in convert.FLEET_COUNTERS
+                if k in flat}
+    return field_digests(flat), counters
 
 
 def dist_timed(fn):
@@ -5856,9 +5911,13 @@ def dist_rank(ctx, jobs, topo_data):
         reset_launches()
         t0 = time.perf_counter()
         setup_s = t0 - t_setup
-        path = None
+        path = fleet = run = None
         if kind == "grid":
-            run, table = dist_grid(ctx.device, n, rounds, g)
+            _, run, table = dist_grid(ctx.device, n, rounds, g)
+        elif kind == "grid_nodes":
+            fleet, run, table = dist_grid(ctx.device, n, rounds, g, d)
+        elif kind == "chaos_nodes":
+            fleet, run = dist_chaos_fleet(ctx.device, n, rounds, g, d)
         elif kind in DIST_PATHS:
             path, sim, final, drive = dist_path(kind, mode, d, n, rounds, g,
                                                 ctx.device, graphs)
@@ -5872,8 +5931,20 @@ def dist_rank(ctx, jobs, topo_data):
                    torch.cuda.max_memory_allocated(ctx.device),
                "exchange": dict(g.stats)}
         t_check = time.perf_counter()
-        if kind == "grid":
+        if fleet is not None:
+            rec["node_exchange"] = dict(fleet.nodes.group.stats)
+        if kind in ("grid", "grid_nodes"):
             rec.update(table=table, fleet_wall_s=run.wall_seconds)
+        elif kind == "chaos_nodes":
+            from sidecar_tpu_torch import convert as cv
+
+            rec["digests"], rec["counters"] = fleet_state_digests(
+                cv.fleet_state_to_numpy(run.final_states))
+            rec.update(fleet_run_stats(run), fleet_wall_s=run.wall_seconds,
+                       digest_s=time.perf_counter() - t_check)
+            t_check = time.perf_counter()
+            rec["profile"] = fleet_profile(fleet, run.final_states)
+            rec["profile_s"] = time.perf_counter() - t_check
         else:
             if path is None:
                 rec.update(
@@ -5891,6 +5962,7 @@ def dist_rank(ctx, jobs, topo_data):
             rec["profile_s"] = time.perf_counter() - t_check
             del sim, final
         out.append(rec)
+        fleet = run = None
         torch.cuda.empty_cache()
     return out
 
@@ -5929,11 +6001,26 @@ def dist_reference(kind, mode, d, n, rounds, world, graphs, config5=None,
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    if kind == "grid":
-        run, table = dist_grid(DEVICE, n, rounds)
+    if kind in ("grid", "grid_nodes"):
+        _, run, table = dist_grid(DEVICE, n, rounds)
         torch.cuda.synchronize()
         return {"table": table, "wall_s": time.perf_counter() - t0,
                 "fleet_wall_s": run.wall_seconds, "launches": launches()}
+    if kind == "chaos_nodes":
+        _, run = dist_chaos_fleet(DEVICE, n, rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        arrays = convert.fleet_state_to_numpy(run.final_states)
+        parts = [fleet_state_digests(convert.shard_state(
+            arrays, r, world, node_devices=d)) for r in range(world)]
+        _, counters = fleet_state_digests(arrays)
+        ref = {**fleet_run_stats(run), "wall_s": wall,
+               "fleet_wall_s": run.wall_seconds, "launches": counts,
+               "digests": [dg for dg, _ in parts], "counters": counters}
+        del run, arrays
+        torch.cuda.empty_cache()
+        return ref
     if kind == "config5":
         # The single-device config5 (the chaos phase's, or run here); its
         # ε round as the config computes it, from the float32 curve.
@@ -5997,17 +6084,31 @@ def dist_expected(kind, d, world, rounds):
     if kind == "compressed":
         return expected(publish_board=dl * rounds,
                         board_row_gather=dl * rounds)
+    # The grid and the node-axis jobs: once a round on the rank's rows of
+    # its scenarios.
     return expected(scatter_max_apply=rounds)
 
 
 def dist_equal(kind, recs, ref) -> bool:
     """Whether every rank's record equals the reference's: the grid's
-    table; a config's curve and ε round; else the state digests rank by
-    rank and the curve, and a path job's streams (whole on every rank)
-    and carry (rank by rank), its traced run ending where its untraced
-    one did."""
-    if kind == "grid":
+    table (either axis); the node-axis chaos fleet's state digests rank
+    by rank, its counters summed over the ranks, its per-scenario rows
+    and curve; a config's curve and ε round; else the state digests rank
+    by rank and the curve, and a path job's streams (whole on every
+    rank) and carry (rank by rank), its traced run ending where its
+    untraced one did."""
+    if kind in ("grid", "grid_nodes"):
         return all(r["table"] == ref["table"] for r in recs)
+    if kind == "chaos_nodes":
+        import numpy as np
+
+        summed = {k: np.sum([r["counters"][k] for r in recs], axis=0).tolist()
+                  for k in ref["counters"]}
+        return summed == ref["counters"] and all(
+            r["digests"] == ref["digests"][r["rank"]]
+            and all(r[k] == ref[k] for k in (
+                "rounds", "eps_round", "exchange_bytes", "frontier_max",
+                "curve")) for r in recs)
     if kind in ("config4", "config5"):
         return all(r["curve"] == ref["curve"]
                    and r["eps_round"] == ref["eps_round"]
@@ -6024,9 +6125,39 @@ def dist_equal(kind, recs, ref) -> bool:
     return ok
 
 
+def dist_node_summary(recs, ref, rounds) -> dict:
+    """A node-axis job's figures, a rank a round where so named: the
+    fleet's rounds/s beside the one-process run's, the bytes each rank
+    sent to the other and staged through the host (its node group's
+    row collectives and the world's gathers), the idle share (profiled
+    jobs only), peak memory and K4a launches."""
+    fleet_wall = max(r["fleet_wall_s"] for r in recs)
+    out = {"layout": {"scenario_blocks": 1, "node_blocks": len(recs)},
+           "fleet_rounds_per_s": rounds / fleet_wall,
+           "one_process_fleet_rounds_per_s": rounds / ref["fleet_wall_s"],
+           "ranks_detail": []}
+    for r in recs:
+        sent = r["exchange"]["bytes_sent"] + r["node_exchange"]["bytes_sent"]
+        staged = r["exchange"]["staging_bytes"] + \
+            r["node_exchange"]["staging_bytes"]
+        prof = r.get("profile", {})
+        out["ranks_detail"].append({
+            "rank": r["rank"], "bytes_sent_per_round": sent / rounds,
+            "staging_bytes_per_round": staged / rounds,
+            "node_group_collectives": r["node_exchange"]["collectives"],
+            "device_idle_share": prof.get(
+                "device_idle_share", "not measured: one node-axis job is "
+                "profiled"),
+            "max_memory_allocated": r["max_memory_allocated"],
+            "scatter_max_apply_launches":
+                r["launches"]["scatter_max_apply"]})
+    return out
+
+
 def phase_dist(smi, topo=None, north_star_n=100_000, config5=None):
-    """The twins and the fleet's scenario axis over a ``torch.distributed``
-    group (``parallel/dist.py``, ``parallel/launch.py``) on this one card:
+    """The twins and the fleet's scenario and node axes over a
+    ``torch.distributed`` group (``parallel/dist.py``,
+    ``parallel/launch.py``) on this one card:
     NCCL with one rank holding d = 4 shards (real NCCL collectives on the
     card's tensors), then gloo with two ranks of two shards each sharing
     the card (every exchanged tensor copied through the host), each job
@@ -6035,7 +6166,10 @@ def phase_dist(smi, topo=None, north_star_n=100_000, config5=None):
     every row of the grid's table, every stream field of a traced run and
     each rank's part of a pipelined carry — and config5 against the
     single-device run of the ``chaos`` phase (``config5``, or run here).
-    Returns the launch counts of every run, the ranks' summed."""
+    On gloo the fleet's node axis runs too: the grid and the chaos batch
+    with each scenario's nodes split over the two ranks, held against
+    the one-process fleet (the grid's table shared with the scenario-axis
+    job).  Returns the launch counts of every run, the ranks' summed."""
     import math
 
     from sidecar_tpu_torch.parallel import spawn_group
@@ -6053,7 +6187,8 @@ def phase_dist(smi, topo=None, north_star_n=100_000, config5=None):
             # The exact twin's trajectory is the same in every mode (the
             # port's generator), so one reference serves them all; a
             # path job's serves every world size.
-            key = (kind, n, rounds, None if kind in DIST_PATHS else world,
+            key = ("grid" if kind == "grid_nodes" else kind, n, rounds,
+                   None if kind in DIST_PATHS else world,
                    None if kind == "exact" else mode)
             if key not in cache:
                 cache[key] = dist_reference(kind, mode, d, n, rounds, world,
@@ -6076,9 +6211,12 @@ def phase_dist(smi, topo=None, north_star_n=100_000, config5=None):
             all_counts.append(counts)
             want = dist_expected(kind, d, world, rounds)
             equal = dist_equal(kind, recs, ref)
-            if kind == "grid":
+            if kind in ("grid", "grid_nodes"):
                 finite = all(math.isfinite(row["final_convergence"])
                              for row in recs[0]["table"])
+            elif kind == "chaos_nodes":
+                finite = all(math.isfinite(c) for row in ref["curve"]
+                             for c in row)
             else:
                 finite = all(math.isfinite(c) for c in ref["curve"])
             ok = (equal and finite
@@ -6095,8 +6233,11 @@ def phase_dist(smi, topo=None, north_star_n=100_000, config5=None):
                         "rank", "wall_s", "untraced_wall_s", "fleet_wall_s",
                         "setup_s", "digest_s", "profile_s",
                         "launches", "max_memory_allocated", "exchange",
-                        "profile") if k in r} for r in recs],
+                        "node_exchange", "profile") if k in r}
+                        for r in recs],
                     "ok": ok}
+            if kind in DIST_NODE_JOBS:
+                line.update(dist_node_summary(recs, ref, rounds))
             if "untraced_wall_s" in recs[0]:
                 traced = max(r["wall_s"] for r in recs)
                 plain = max(r["untraced_wall_s"] for r in recs)
@@ -6112,7 +6253,7 @@ def phase_dist(smi, topo=None, north_star_n=100_000, config5=None):
                 line.pop("local_group_rounds_per_s")
             if kind in ("config4", "config5"):
                 line["eps_round"] = ref["eps_round"]
-            if kind == "grid":
+            if kind in ("grid", "grid_nodes"):
                 # The walls above include each side's table (its host
                 # digest of every final belief); the runs alone:
                 line["scenarios"] = len(ref["table"])

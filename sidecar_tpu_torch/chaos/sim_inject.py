@@ -258,16 +258,19 @@ class CompiledFaultPlan:
 
     # -- per-round evaluation -------------------------------------------------
 
-    def edge_masks(self, dst, round_idx: int, fd: FaultDraws):
-        """Hold this round's targets ``dst`` [N, F] against the edge
-        entries.  Returns ``(keep, diverts)``: ``keep`` bool [N, F]
-        (False: the packet is dropped), or None when no entry drops;
-        ``diverts`` a list of ``(ring_idx, delay_sel, dup_sel)``, bool
-        [N, F] or None each.  A dropped packet is never diverted."""
+    def edge_masks(self, dst, round_idx: int, fd: FaultDraws,
+                   rows=slice(None)):
+        """Hold this round's targets ``dst`` [N, F] (of the senders
+        ``rows``, every node by default) against the edge entries.
+        Returns ``(keep, diverts)``: ``keep`` bool [N, F] (False: the
+        packet is dropped), or None when no entry drops; ``diverts`` a
+        list of ``(ring_idx, delay_sel, dup_sel)``, bool [N, F] or None
+        each.  A dropped packet is never diverted."""
         dst = dst.to(I64)
 
         def match(src_m, dst_m, e):
-            return src_m[:, None] & dst_m[dst] & self._active(e, round_idx)
+            return src_m[rows][:, None] & dst_m[dst] & \
+                self._active(e, round_idx)
 
         drop_p = None
         for src_m, dst_m, e, _ in self.edge_entries:
@@ -297,18 +300,19 @@ class CompiledFaultPlan:
             diverts.append((ring_idx, delay_sel, dup_sel))
         return keep, diverts
 
-    def pp_severed(self, partner, round_idx: int):
-        """bool [N]: the push-pull with ``partner`` is severed (a full
-        directional cut in either direction), or None when the plan has
-        no full cut."""
+    def pp_severed(self, partner, round_idx: int, rows=slice(None)):
+        """bool [N]: the push-pull of the initiators ``rows`` (every node
+        by default) with ``partner`` is severed (a full directional cut
+        in either direction), or None when the plan has no full cut."""
         if not self.has_full_cut:
             return None
         partner = partner.to(I64)
-        sev = torch.zeros(self.n, dtype=torch.bool, device=partner.device)
+        sev = torch.zeros(partner.shape[-1], dtype=torch.bool,
+                          device=partner.device)
         for src_m, dst_m, e, _ in self.edge_entries:
             if e.full_cut and self._active(e, round_idx):
-                sev = sev | (src_m & dst_m[partner]) | (src_m[partner]
-                                                        & dst_m)
+                sev = sev | (src_m[rows] & dst_m[partner]) | (
+                    src_m[partner] & dst_m[rows])
         return sev
 
     def down_mask(self, round_idx: int):

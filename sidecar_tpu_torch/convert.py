@@ -183,6 +183,24 @@ def fleet_state_to_numpy(state) -> dict:
             for f in dataclasses.fields(state)}
 
 
+def fleet_leaves(arrays: dict) -> dict:
+    """A fleet state's numpy form (:func:`fleet_state_to_numpy`) as
+    ``{name: array}``: the exact fields (``sim.``-prefixed in a chaos
+    state), each ring's ``ring<i>.rows``, ``.cols`` and ``.vals``, and
+    the counters."""
+    out = {}
+    for k, v in arrays.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{kk}": np.asarray(x) for kk, x in v.items()})
+        elif isinstance(v, (list, tuple)):
+            for i, ring in enumerate(v):
+                for name, t in zip(("rows", "cols", "vals"), ring):
+                    out[f"ring{i}.{name}"] = np.asarray(t)
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
 def batched_knobs_from_numpy(fields: dict, device="cuda"):
     """The port's :class:`BatchedKnobs` from a reference ``ScenarioBatch``'s
     stacked knobs, ``{field: [S] array}`` of its ``RoundKnobs``.  The
@@ -210,8 +228,8 @@ NODE_FIELDS = ("known", "sent", "own", "cache_slot", "cache_val",
 
 def _is_fleet(arrays: dict) -> bool:
     """A fleet state: ``round_idx`` is ``[S]`` and every leaf leads with
-    the scenario axis."""
-    return np.ndim(arrays["round_idx"]) == 1
+    the scenario axis (a chaos state's ``round_idx`` is in ``sim``)."""
+    return np.ndim(arrays.get("sim", arrays)["round_idx"]) == 1
 
 
 def _split(a, rank: int, world: int):
@@ -223,44 +241,112 @@ def _split(a, rank: int, world: int):
     return a[rank * per:(rank + 1) * per]
 
 
-def shard_state(arrays: dict, rank: int, world: int, d: int = 0) -> dict:
+# A fleet state's node-major leaves (second axis N) and per-scenario
+# counters (a node block holds its senders' counts).
+FLEET_NODE_FIELDS = ("known", "sent", "node_alive", "origin_violations")
+FLEET_COUNTERS = tuple(f for f in CHAOS_COUNTERS
+                       if f not in FLEET_NODE_FIELDS)
+
+
+def _fleet_part(arrays: dict, rank: int, world: int, nd: int) -> dict:
+    """Rank ``rank``'s scenario block (``rank // nd`` of ``world / nd``)
+    and node block (``rank % nd``) of a fleet state."""
+    sd, blk, nb = world // nd, rank // nd, rank % nd
+
+    def node(a, axis):
+        a = np.asarray(a)
+        if a.shape[axis] % nd:
+            raise ValueError(f"an axis of {a.shape[axis]} does not divide "
+                             f"over {nd} node blocks")
+        per = a.shape[axis] // nd
+        return np.take(a, range(nb * per, (nb + 1) * per), axis=axis)
+
+    def part(k, v):
+        if isinstance(v, dict):
+            return {kk: part(kk, x) for kk, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [tuple(node(_split(t, blk, sd), 2) for t in ring)
+                    for ring in v]
+        v = _split(v, blk, sd)
+        if nd == 1:
+            return v
+        if k in FLEET_NODE_FIELDS:
+            return node(v, 1)
+        if k in FLEET_COUNTERS and nb:
+            return np.zeros_like(v)
+        return v
+
+    return {k: part(k, v) for k, v in arrays.items()}
+
+
+def _fleet_join(parts: list, nd: int) -> dict:
+    """The inverse of :func:`_fleet_part` over every rank's part."""
+    def join_nodes(k, vs):
+        if isinstance(vs[0], dict):
+            return {kk: join_nodes(kk, [v[kk] for v in vs]) for kk in vs[0]}
+        if isinstance(vs[0], (list, tuple)):
+            return [tuple(np.concatenate([v[i][j] for v in vs], axis=2)
+                          for j in range(len(vs[0][i])))
+                    for i in range(len(vs[0]))]
+        vs = [np.asarray(v) for v in vs]
+        if k in FLEET_NODE_FIELDS:
+            return np.concatenate(vs, axis=1)
+        if k in FLEET_COUNTERS:
+            return np.sum(vs, axis=0, dtype=vs[0].dtype)
+        for r, v in enumerate(vs[1:], 1):
+            if not np.array_equal(v, vs[0]):
+                raise ValueError(f"field {k!r} is held whole but node "
+                                 f"block {r}'s differs from block 0's")
+        return vs[0]
+
+    def join_scen(vs):
+        if isinstance(vs[0], dict):
+            return {k: join_scen([v[k] for v in vs]) for k in vs[0]}
+        if isinstance(vs[0], (list, tuple)):
+            return [tuple(np.concatenate([v[i][j] for v in vs])
+                          for j in range(len(vs[0][i])))
+                    for i in range(len(vs[0]))]
+        return np.concatenate([np.asarray(v) for v in vs])
+
+    blocks = [parts[b:b + nd] for b in range(0, len(parts), nd)]
+    joined = [{k: join_nodes(k, [p[k] for p in blk]) for k in blk[0]}
+              for blk in blocks]
+    return {k: join_scen([b[k] for b in joined]) for k in joined[0]}
+
+
+def shard_state(arrays: dict, rank: int, world: int, d: int = 0,
+                node_devices: int = 1) -> dict:
     """Rank ``rank``'s part of a global state in numpy form (``{field:
     np.ndarray}`` of either model, a reference's or the port's): the
     rows of its ``d / world`` shards on the node-major fields, the rest
     whole.  A fleet state (``round_idx`` ``[S]``, the chaos rings and
-    counters included) splits its scenario axis instead: rank ``rank``
-    holds scenarios ``[rank·S/world, (rank+1)·S/world)`` of every leaf,
-    and ``d`` is not used."""
+    counters included) splits its scenario axis instead, over ``world /
+    node_devices`` scenario blocks (``d`` is not used): rank ``rank``
+    holds scenario block ``rank // node_devices`` of every leaf, and
+    with ``node_devices > 1`` node block ``rank % node_devices`` of it —
+    the rows of the node-major leaves (``known``, ``sent``,
+    ``node_alive``, ``origin_violations``), the senders' lanes of each
+    ring, and the counters on node block 0 (zeros on the others: a
+    block holds its senders' counts)."""
     if _is_fleet(arrays):
-        def part(v):
-            if isinstance(v, dict):
-                return {k: part(x) for k, x in v.items()}
-            if isinstance(v, (list, tuple)):
-                return [tuple(_split(t, rank, world) for t in ring)
-                        for ring in v]
-            return _split(v, rank, world)
-        return {k: part(v) for k, v in arrays.items()}
+        if node_devices < 1 or world % node_devices:
+            raise ValueError(f"node_devices={node_devices} must divide "
+                             f"{world} ranks")
+        return _fleet_part(arrays, rank, world, node_devices)
     if d < 1 or d % world:
         raise ValueError(f"d={d} shards must divide over {world} ranks")
     return {k: _split(v, rank, world) if k in NODE_FIELDS else np.asarray(v)
             for k, v in arrays.items()}
 
 
-def join_state(parts: list) -> dict:
+def join_state(parts: list, node_devices: int = 1) -> dict:
     """The inverse of :func:`shard_state`: the ranks' parts, in rank
     order, as the global numpy state.  A field held whole must be equal
-    on every rank, or this raises."""
+    on every rank (of a node group, for a fleet state), or this raises;
+    a fleet's counters are summed over each node group."""
     first = parts[0]
     if _is_fleet(first):
-        def join(vs):
-            if isinstance(vs[0], dict):
-                return {k: join([v[k] for v in vs]) for k in vs[0]}
-            if isinstance(vs[0], (list, tuple)):
-                return [tuple(np.concatenate([v[i][j] for v in vs])
-                              for j in range(len(vs[0][i])))
-                        for i in range(len(vs[0]))]
-            return np.concatenate([np.asarray(v) for v in vs])
-        return {k: join([p[k] for p in parts]) for k in first}
+        return _fleet_join(parts, node_devices)
     out = {}
     for k in first:
         vs = [np.asarray(p[k]) for p in parts]

@@ -334,7 +334,9 @@ def restart_churn_perturb(params, prob: Optional[float] = None, *,
     ``i`` (``kn.scen``) draws with its ``kn.host`` churn probability from
     ``masks[i]`` or a generator seeded with ``seeds[i]`` — so a fleet row
     equals the static hook with ``seed=seeds[i]``.  A scenario with no
-    churn draws nothing."""
+    churn draws nothing.  It is ``row_local`` too: on a rank of the
+    fleet's node axis it gets ``rows=`` and restarts only the slots its
+    rows own, from each scenario's whole mask."""
     n, spn, m = params.n, params.services_per_node, params.m
     gens: dict = {}
 
@@ -372,27 +374,27 @@ def restart_churn_perturb(params, prob: Optional[float] = None, *,
                   state.node_alive[None], churn[None], now, rows)
         return state
 
-    def fleet_hook(state, now, kn):
+    def fleet_hook(state, now, kn, rows=None):
         dev = state.known.device
         b = state.known.shape[0]
         round_idx = state_round(state) + 1
-        rows = [i for i, h in enumerate(kn.host) if h.churn_prob > 0]
-        if not rows:
+        churning = [i for i, h in enumerate(kn.host) if h.churn_prob > 0]
+        if not churning:
             return state
         churn = torch.zeros((b, m), dtype=torch.bool, device=dev)
-        for i in rows:
+        for i in churning:
             s = kn.scen[i]
             churn[i] = draw(s, kn.host[i].churn_prob,
                             0 if seeds is None else seeds[s],
                             None if masks is None else masks[s],
                             round_idx, dev)
         flip_rows(state.known.view(b, -1), state.sent.view(b, -1),
-                  state.node_alive, churn, now)
+                  state.node_alive, churn, now, rows)
         return state
 
     hook = static_hook if prob is not None else fleet_hook
     hook.wants_knobs = prob is None
-    hook.row_local = prob is not None
+    hook.row_local = True
     return hook
 
 

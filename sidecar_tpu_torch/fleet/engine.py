@@ -20,19 +20,37 @@ device; knowing which scenarios to run costs one host read of it per
 convergence sample (``FleetRun.host_reads``).  ``stop=False`` runs the
 full horizon: each row then equals its unbatched run.
 
-The scenario axis over ranks (the reference's ``fleet_mesh``
-``("scenario", "node")`` with ``node_devices = 1``): with ``group=`` (a
-shard group of ``world`` ranks, ``parallel/dist.py``) the batch's S
-scenarios split contiguously over the ranks, ``S / world`` a rank, and
-each rank runs its share through the batched round.  The ranks exchange
-nothing while they run but the live mask at each convergence sample
-(gathered, so the early exit decides from every scenario's), and at the
-end :class:`FleetRun` gathers every per-scenario row — curves, rounds,
-crossings, bytes, frontiers, ``first_seen``, the end-state digest
-agreement — so each rank's ``table(...)`` equals the one-process run's,
-row for row.  The final states stay rank-local.  The node axis
-(``node_devices > 1``) is not ported (ROADMAP Queue 1 item 10) and
-raises.
+Over ranks — the reference's ``fleet_mesh(sd, nd)``, a ``("scenario",
+"node")`` layout: with ``group=`` (a shard group of the ``world`` ranks,
+``parallel/dist.py``) and ``node_devices=nd`` the ranks form ``sd =
+world / nd`` scenario blocks of ``nd`` consecutive ranks, as the
+reference reshapes its devices ``(sd, nd)``: rank ``r`` holds scenario
+block ``r // nd`` (``S / sd`` scenarios, contiguous) and node block ``r
+% nd`` (``N / nd`` rows of each of them).  With ``nd = 1`` each rank
+runs its scenarios through the batched round and exchanges nothing
+while it runs.  With ``nd > 1`` (the exact and chaos families only, as
+in the reference) the ``nd`` ranks of a block form its node group
+(``group.split(nd)``; every rank builds every block's group, in block
+order) and run the round on their rows together (``fleet/rounds.py``
+:class:`~sidecar_tpu_torch.fleet.rounds.NodeBlock`): the liveness
+gathered, the deliveries routed to their rows' ranks, the push-pull
+partner rows fetched and folded back, the census and convergence reduced
+over the node group.  Every leaf whose second axis is ``N`` holds the
+rank's rows (``known``, ``sent``, ``node_alive``, ``origin_violations``;
+``first_seen``'s last axis); each chaos ring its senders' lanes; each
+counter its senders' counts.
+
+The whole world gathers the live mask at each convergence sample (so
+the early exit decides from every scenario's), at the end every
+per-scenario row — curves, rounds, crossings, bytes, frontiers,
+``first_seen`` — and, when the first ``table(...)`` or
+``digest_agreement`` asks (on every rank: it is collective), the
+end-state digest agreement (on the node axis each rank digests its own
+alive rows and the node group gathers the digests, never a scenario's
+``[N, M]`` belief), so each rank's ``table(...)`` equals the
+one-process run's, row for row.  The final states stay rank-local:
+``convert.join_state`` joins the ranks' parts (``fleet_state_to_numpy``
+of each, with ``node_devices=``) into the one-process state.
 """
 
 from __future__ import annotations
@@ -52,6 +70,7 @@ from sidecar_tpu_torch.fleet.batch import (
     churn_seed,
     restart_churn_perturb,
 )
+from sidecar_tpu_torch.fleet.rounds import NodeBlock
 from sidecar_tpu_torch.ops import provenance as prov_ops
 from sidecar_tpu_torch.ops.topology import Topology, complete, from_name
 
@@ -98,6 +117,10 @@ class FleetRun:
     # stop=True) and "stride" (a compressed push-pull partner a scenario
     # a push-pull round, drawn on a CUDA generator).
     belief_fn: object = None      # i -> (final [N, M] belief, alive [N])
+    # Over ranks: a collective giving every scenario's digest agreement,
+    # run by the first digest_agreement call (every rank must ask, as
+    # table() does).
+    gather_digests: object = None
     _digests: dict = dataclasses.field(default_factory=dict)
 
     def lag_summary(self, i: int):
@@ -109,25 +132,16 @@ class FleetRun:
 
     def digest_agreement(self, i: int) -> Optional[float]:
         """Scenario ``i``'s end-state coherence: the fraction of alive
-        nodes whose catalog digest (``ops/digest.node_digests_np`` over
-        the final belief) matches the modal digest — 1.0 iff every alive
-        node holds the same catalog."""
+        nodes whose catalog digest (:func:`row_digests` of the final
+        belief) matches the modal digest — 1.0 iff every alive node holds
+        the same catalog."""
+        if self.gather_digests is not None:
+            self._digests, self.gather_digests = self.gather_digests(), None
         if i in self._digests:
             return self._digests[i]
         if self.belief_fn is None:
             return None
-        from sidecar_tpu_torch.ops import digest as digest_ops
-        known, alive = self.belief_fn(i)
-        rows = known.cpu().numpy()[alive.cpu().numpy()]
-        if not len(rows):
-            return None
-        digs = digest_ops.node_digests_np(
-            rows, digest_ops.default_idents(rows.shape[1]))
-        counts: dict = {}
-        for d in digs:
-            k = d.tobytes()
-            counts[k] = counts.get(k, 0) + 1
-        self._digests[i] = max(counts.values()) / len(rows)
+        self._digests[i] = agreement(*self.belief_fn(i))
         return self._digests[i]
 
     def table(self, round_ticks: int, ticks_per_second: int) -> list:
@@ -150,6 +164,53 @@ class FleetRun:
                 "digest_agreement": self.digest_agreement(i),
             })
         return out
+
+
+# Cells of the belief a digest block hashes at once (its int64
+# temporaries are a few times this many words).
+DIGEST_BLOCK_CELLS = 1 << 24
+
+
+def row_digests(known, alive) -> np.ndarray:
+    """The catalog digests of the alive rows of ``known`` (int32 ``[N,
+    M]``), uint32 ``[A, B, 2]`` on the host: on the card
+    ``ops/digest.node_digests``, a block of rows at a time; on the CPU
+    the reference's ``node_digests_np`` over those rows, which it
+    equals (and which is the faster of the two there)."""
+    from sidecar_tpu_torch.ops import digest as digest_ops
+
+    m = known.shape[1]
+    if known.device.type != "cuda":
+        return digest_ops.node_digests_np(
+            known.cpu().numpy()[alive.cpu().numpy().astype(bool)],
+            digest_ops.default_idents(m))
+    idents = torch.as_tensor(digest_ops.default_idents(m).astype(np.int64),
+                             device=known.device)
+    rows = torch.nonzero(alive.to(known.device)).reshape(-1)
+    per = max(1, DIGEST_BLOCK_CELLS // max(1, m))
+    parts = [digest_ops.node_digests(known[rows[a:a + per]], idents,
+                                     digest_ops.DEFAULT_BUCKETS).cpu()
+             for a in range(0, rows.numel(), per)]
+    if not parts:
+        return np.zeros((0, digest_ops.DEFAULT_BUCKETS, 2), np.uint32)
+    return torch.cat(parts).numpy().astype(np.uint32)
+
+
+def agreement(known, alive) -> Optional[float]:
+    """The modal share of the alive rows' digests of ``known`` (None
+    when no row is alive)."""
+    digs = row_digests(known, alive)
+    return modal_share(digs) if len(digs) else None
+
+
+def modal_share(digs) -> float:
+    """The fraction of the rows of ``digs`` (one digest a node) equal to
+    the most common one."""
+    counts: dict = {}
+    for d in digs:
+        k = d.tobytes()
+        counts[k] = counts.get(k, 0) + 1
+    return max(counts.values()) / len(digs)
 
 
 # -- batched states ------------------------------------------------------------
@@ -271,45 +332,71 @@ class FleetSim:
     """S scenarios of one :class:`ScenarioBatch`, advanced together on the
     batch's device.  ``perturb`` overrides the knob-driven churn hook a
     batch with churn gets (``restart_churn_perturb``, its generators
-    seeded by ``churn_seed(spec.seed)``).  ``group`` lays the scenarios
-    over its ranks (see the module docstring): ``batch`` is then this
-    rank's share, ``names`` every scenario's."""
+    seeded by ``churn_seed(spec.seed)``).  ``group`` (every rank of the
+    world) and ``node_devices`` lay the scenarios and their nodes over
+    the ranks (see the module docstring): ``batch`` is then this rank's
+    scenario block, ``names`` every scenario's, ``nodes`` its node
+    block.  Over ranks a given ``perturb`` must be a knob-aware,
+    row-local hook over the whole batch (``restart_churn_perturb(p,
+    masks=…)``: each scenario finds its masks by its index in the
+    whole batch)."""
 
     def __init__(self, batch: ScenarioBatch, topo: Optional[Topology] = None,
                  *, perturb=None, group=None, node_devices: int = 1):
-        if node_devices != 1:
+        nd = int(node_devices)
+        world = 1 if group is None else group.world
+        if nd < 1 or world % nd:
+            raise ValueError(f"node_devices={nd} must divide the group's "
+                             f"{world} ranks")
+        sd = world // nd
+        if batch.size % sd:
             raise ValueError(
-                "the fleet's node axis (node_devices > 1) is not ported "
-                "(ROADMAP Queue 1 item 10): lay the scenarios over the "
-                "ranks with group= instead")
+                f"batch size {batch.size} must divide the scenario mesh "
+                f"axis ({sd})")
+        if nd > 1 and batch.family != "exact":
+            raise ValueError(
+                "the node mesh axis composes on the exact family only "
+                "(compressed state is not node-major on every leaf); use "
+                "node_devices=1")
+        if nd > 1 and batch.params.n % nd:
+            raise ValueError(
+                f"n={batch.params.n} must divide the node mesh axis ({nd})")
         self.group = group
+        self.node_devices = nd
         self.names = [sp.name for sp in batch.specs]
         self.scenarios = range(batch.size)
-        if group is not None and group.world > 1:
-            if batch.size % group.world:
+        seeds = [churn_seed(s.seed) for s in batch.specs]
+        node_group = None
+        if world > 1:
+            if perturb is not None and not (
+                    getattr(perturb, "wants_knobs", False)
+                    and getattr(perturb, "row_local", False)):
                 raise ValueError(
-                    f"a batch of {batch.size} scenarios does not divide "
-                    f"over {group.world} ranks")
-            if perturb is not None:
-                raise ValueError(
-                    "a given perturb hook spans the whole batch and is not "
-                    "ported to a group of ranks (ROADMAP Queue 1 item 10)")
-            per = batch.size // group.world
-            self.scenarios = range(group.rank * per, (group.rank + 1) * per)
+                    "over ranks a given perturb hook must be knob-aware "
+                    "and row_local (restart_churn_perturb(params, "
+                    "masks=...)): it runs on a rank's scenarios and rows")
+            per = batch.size // sd
+            blk = group.rank // nd
+            self.scenarios = range(blk * per, (blk + 1) * per)
             batch = ScenarioBatch.build(
                 batch.specs[self.scenarios.start:self.scenarios.stop],
                 batch.params, batch.timecfg, family=batch.family,
                 plan=batch.plan, device=batch.device)
+            # The hooks find a scenario by its index in the whole batch.
+            batch.knobs = dataclasses.replace(batch.knobs,
+                                              scen=tuple(self.scenarios))
+            if nd > 1:
+                node_group = group.split(nd)
         self.batch = batch
         p = batch.params
         dev = batch.device
+        self.nodes = NodeBlock(p.n, node_group)
         if topo is None:
             topo = (from_name(batch.topology, p.n) if batch.topology
                     else complete(p.n))
         self.topo = topo
         if perturb is None and batch.has_churn:
-            perturb = restart_churn_perturb(
-                p, seeds=[churn_seed(s.seed) for s in batch.specs])
+            perturb = restart_churn_perturb(p, seeds=seeds)
         self.perturb = perturb
         if batch.family == "exact":
             if batch.plan is not None:
@@ -361,8 +448,25 @@ class FleetSim:
             slots = b.mint_slots(i) if b.family == "compressed" else None
             if slots is not None:
                 st = sim.mint(st, slots, b.specs[i].mint_tick)
-            parts.append(st)
+            parts.append(self._block_rows(st))
         return stack_states(parts)
+
+    def _block_rows(self, st):
+        """This rank's node block of an unbatched state: the rows of the
+        node-major leaves, its senders' lanes of each chaos ring."""
+        ax = self.nodes
+        if ax.whole:
+            return st
+        if hasattr(st, "rings"):
+            lanes = st.rings[0][0].shape[1] // ax.n if st.rings else 0
+            return dataclasses.replace(
+                st, sim=self._block_rows(st.sim),
+                rings=tuple(tuple(t[:, ax.lo * lanes:ax.hi * lanes].clone()
+                                  for t in ring) for ring in st.rings),
+                origin_violations=st.origin_violations[ax.rows].clone())
+        return dataclasses.replace(
+            st, known=st.known[ax.rows].clone(), sent=st.sent[ax.rows].clone(),
+            node_alive=st.node_alive[ax.rows].clone())
 
     # -- one round ----------------------------------------------------------
 
@@ -387,9 +491,9 @@ class FleetSim:
         kn = self.batch.knobs.take(grp)
         if self.family == "exact":
             return fleet_rounds.exact_step(self.sim, sub, draws, kn,
-                                           self.perturb)
+                                           self.perturb, self.nodes)
         return fleet_rounds.chaos_step(self.sim, sub, draws, faults, kn,
-                                       self.perturb)
+                                       self.perturb, self.nodes)
 
     def convergence(self, state):
         """Each scenario's convergence metric, float32 ``[S]``."""
@@ -397,7 +501,8 @@ class FleetSim:
             return fleet_rounds.compressed_convergence(self.scenario_sims,
                                                        state)
         st = state.sim if self.family == "chaos" else state
-        return fleet_rounds.exact_convergence(st.known, st.node_alive)
+        return fleet_rounds.exact_convergence(st.known, st.node_alive,
+                                              self.nodes)
 
     def _census(self, state, idx):
         """The pre-round offer census of the scenarios at ``idx``."""
@@ -406,10 +511,12 @@ class FleetSim:
         if self.family == "compressed":
             return fleet_rounds.compressed_census(self.sim, sub, kn)
         st = sub.sim if self.family == "chaos" else sub
-        return fleet_rounds.exact_census(self.sim, st.known, st.sent, kn)
+        return fleet_rounds.exact_census(self.sim, st.known, st.sent, kn,
+                                         self.nodes)
 
     def _prov_belief(self, state, tracked, idx):
-        """Packed ``[len(idx), N, T]`` belief of the tracked slots."""
+        """Packed ``[len(idx), N_l, T]`` belief of the tracked slots (the
+        node block's rows)."""
         if self.family == "compressed":
             return torch.stack([
                 self.scenario_sims[i]._prov_belief(scenario_state(state, i),
@@ -440,6 +547,9 @@ class FleetSim:
         b = self.batch
         ranks = self.group is not None and self.group.world > 1
         mine = slice(self.scenarios.start, self.scenarios.stop)
+        # This rank's block of a world-gathered [world · S_l] row.
+        gathered = slice(self.group.rank * b.size,
+                         (self.group.rank + 1) * b.size) if ranks else None
         if draws is not None:
             draws = list(draws)[mine]
         if fault_draws is not None:
@@ -520,7 +630,7 @@ class FleetSim:
             if stop:
                 live = live & (conv < 1.0 - eps)
                 # Over ranks: decided from every scenario's live mask.
-                live_host = (self.group.gather_rows(live).tolist()[mine]
+                live_host = (self.group.gather_rows(live).tolist()[gathered]
                              if ranks else live.tolist())
                 live_reads += 1
             if curve:
@@ -528,10 +638,9 @@ class FleetSim:
         conv_t = torch.stack(samples) if samples else \
             torch.zeros((0, s_n), dtype=F32, device=dev)
         wall = time.perf_counter() - t0
-        digests = None
         if ranks:
-            fs, conv_t, wall, stride_reads[0], digests = self._gather_rows(
-                states, fs, conv_t, wall, stride_reads[0])
+            fs, conv_t, wall, stride_reads[0] = self._gather_rows(
+                fs, conv_t, wall, stride_reads[0])
         conv_np = conv_t.cpu().numpy()
         eps_np = fs.eps_round.cpu().numpy()
 
@@ -544,11 +653,12 @@ class FleetSim:
                      int(s_n * num_rounds - rounds.sum()))
         if self.family == "chaos":
             # The chaos fleet publishes the batch's injection totals, as
-            # the reference's does.
-            totals = torch.stack([
+            # the reference's does (a node block's summed over its node
+            # group).
+            totals = self.nodes.sum(torch.stack([
                 getattr(states, f).sum(dtype=I64) for f in
                 ("injected_drops", "injected_delays",
-                 "injected_dups")]).tolist()
+                 "injected_dups")])).tolist()
             for name, total in zip(("chaos.sim.droppedPackets",
                                     "chaos.sim.delayedPackets",
                                     "chaos.sim.duplicatedPackets"), totals):
@@ -571,46 +681,82 @@ class FleetSim:
             host_reads={"live": live_reads, "stride": stride_reads[0]},
             belief_fn=belief_fn,
         )
-        if digests is not None:
-            run._digests = digests
+        if ranks:
+            run.gather_digests = lambda: self._gather_digests(states)
         return run
 
-    def _gather_rows(self, states, fs, conv_t, wall: float,
-                     stride_reads: int):
-        """Every rank's per-scenario rows of a run, in scenario order: the
-        stats, the curve, the end-state digest agreement (computed here
-        for this rank's scenarios, from its states); the slowest rank's
-        wall and the ranks' stride reads summed."""
-        g, dev = self.group, self.device
+    def _world_rows(self, x):
+        """Every scenario block's rows ``x`` (``[S_l, …]``, equal on the
+        ranks of a node group) gathered over the world, in scenario
+        order."""
+        g, nd = self.group, self.node_devices
+        y = g.gather_rows(x)
+        if nd == 1:
+            return y
+        tail = tuple(x.shape[1:])
         s_n = self.batch.size
-        local = FleetRun(names=self.names[self.scenarios.start:
-                                          self.scenarios.stop],
-                         convergence=None, rounds=None, eps_round=None,
-                         exchange_bytes=None, frontier_max=None,
-                         conv_every=1, wall_seconds=0.0,
-                         scenarios_per_sec=0.0,
-                         belief_fn=self._belief_fn(states))
-        agree = torch.tensor(
-            [np.nan if a is None else a for a in
-             (local.digest_agreement(i) for i in range(s_n))],
-            dtype=torch.float64, device=dev)
-        agree = g.gather_rows(agree).tolist()
-        rounds = g.gather_rows(torch.as_tensor(fs.rounds, dtype=I32,
-                                               device=dev)).tolist()
+        return y.reshape((g.world // nd, nd, s_n) + tail)[:, 0].reshape(
+            (g.world // nd * s_n,) + tail)
+
+    def _gather_digests(self, states) -> dict:
+        """Every scenario's end-state digest agreement over ranks, by
+        scenario: each rank's scenarios from its states (on the node axis
+        from the node group's digests of its rows), gathered."""
+        s_n = self.batch.size
+        if self.nodes.whole:
+            belief = self._belief_fn(states)
+            agree = [agreement(*belief(i)) for i in range(s_n)]
+        else:
+            agree = [self._block_digest_agreement(states, i)
+                     for i in range(s_n)]
+        agree = self._world_rows(torch.tensor(
+            [np.nan if a is None else a for a in agree],
+            dtype=torch.float64, device=self.device)).tolist()
+        return {i: None if a != a else a for i, a in enumerate(agree)}
+
+    def _gather_rows(self, fs, conv_t, wall: float, stride_reads: int):
+        """Every rank's per-scenario rows of a run, in scenario order: the
+        stats and the curve; the slowest rank's wall and the ranks'
+        stride reads summed."""
+        g, dev, ax = self.group, self.device, self.nodes
+        rows = self._world_rows
+        # first_seen [S_l, T, N_l]: the node group's nodes, then the rows.
+        first_seen = ax.gather(fs.first_seen.transpose(1, 2)).transpose(1, 2)
+        rounds = rows(torch.as_tensor(fs.rounds, dtype=I32,
+                                      device=dev)).tolist()
         fs = dataclasses.replace(
             fs, rounds=rounds,
-            eps_round=g.gather_rows(fs.eps_round),
-            exchange_bytes=g.gather_rows(fs.exchange_bytes),
-            frontier_max=g.gather_rows(fs.frontier_max),
-            prov_ref=g.gather_rows(fs.prov_ref),
-            first_seen=g.gather_rows(fs.first_seen))
-        conv_t = g.gather_rows(conv_t.T.contiguous()).T
+            eps_round=rows(fs.eps_round),
+            exchange_bytes=rows(fs.exchange_bytes),
+            frontier_max=rows(fs.frontier_max),
+            prov_ref=rows(fs.prov_ref),
+            first_seen=rows(first_seen.contiguous()))
+        conv_t = rows(conv_t.T.contiguous()).T
         extra = g.all_reduce_max(torch.tensor(
             [wall], dtype=torch.float64, device=dev))
         reads = g.all_reduce_sum(torch.tensor(
             [stride_reads], dtype=torch.int64, device=dev))
-        digests = {i: None if a != a else a for i, a in enumerate(agree)}
-        return fs, conv_t, float(extra[0]), int(reads[0]), digests
+        return fs, conv_t, float(extra[0]), int(reads[0])
+
+    def _block_digest_agreement(self, states, i: int) -> Optional[float]:
+        """Scenario ``i``'s digest agreement on the node axis: this rank
+        digests its own alive rows (a node's digest reads only its row),
+        the node group gathers the ``[N]`` digests and the liveness, and
+        the modal share is taken over the alive nodes."""
+        from sidecar_tpu_torch.ops import digest as digest_ops
+
+        st = states.sim if self.family == "chaos" else states
+        ng = self.nodes.group
+        alive = st.node_alive[i].cpu().numpy().astype(bool)
+        digs = np.zeros((len(alive), digest_ops.DEFAULT_BUCKETS, 2),
+                        np.uint32)
+        digs[alive] = row_digests(st.known[i], st.node_alive[i])
+        lanes = torch.as_tensor(digs.view(np.int32).reshape(len(digs), -1),
+                                device=self.device)
+        every = ng.gather_rows(lanes).cpu().numpy().view(np.uint32)
+        every_alive = ng.gather_rows(st.node_alive[i]).cpu().numpy()
+        picked = every[every_alive.astype(bool)]
+        return modal_share(picked) if len(picked) else None
 
     def _belief_fn(self, states):
         """``i -> (final [N, M] belief, alive [N])`` of this sim's
@@ -630,7 +776,7 @@ class FleetSim:
         """Zero stats, with the provenance plane seeded: each scenario's
         tracked refs pinned to the freshest current keys and the origin
         holders marked at its round."""
-        s_n, n, dev = self.batch.size, self.batch.params.n, self.device
+        s_n, n, dev = self.batch.size, self.nodes.nl, self.device
         t = tr.numel()
         fs = FleetStats(rounds=[0] * s_n,
                         eps_round=torch.full((s_n,), -1, dtype=I32,
@@ -643,8 +789,8 @@ class FleetSim:
                                               device=dev))
         if not t:
             return fs
-        belief0 = self._prov_belief(states, tr, range(s_n))    # [S, N, T]
-        fs.prov_ref = belief0.amax(dim=1).to(I32)
+        belief0 = self._prov_belief(states, tr, range(s_n))  # [S, N_l, T]
+        fs.prov_ref = self.nodes.max(belief0.amax(dim=1).to(I32))
         hold0 = prov_ops.holders_batch(fs.prov_ref, belief0)
         rnd = torch.as_tensor(state_rounds(states), dtype=I32, device=dev)
         fs.first_seen = torch.where(hold0.transpose(1, 2),

@@ -21,7 +21,11 @@ Construction is explicit: the caller names the backend (``"nccl"`` or
 the rendezvous store (``torch.distributed.FileStore`` or ``TCPStore``),
 and the first group a process builds opens the default process group
 with a timeout, so a rank that never arrives fails the run.  Nothing is
-read from the environment.
+read from the environment.  A group of the whole world splits into
+groups of consecutive ranks (:meth:`DistShardGroup.split`, the fleet's
+node groups): each a ``torch.distributed`` subgroup, within which the
+split group's ``rank`` and ``world`` count and over which its every
+collective runs.
 
 On the wire: NCCL takes the CUDA tensors as they are (a CPU tensor
 raises: there is no quiet host fallback); gloo takes host tensors, so a
@@ -82,19 +86,58 @@ class DistShardGroup:
 
     def __init__(self, d: int, *, backend: str, rank: int, world: int,
                  store=None, device="cuda",
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
+                 timeout_s: float = DEFAULT_TIMEOUT_S, process_group=None,
+                 ranks=None):
+        """With ``process_group`` (a subgroup :meth:`split` built, over
+        the global ranks ``ranks``) ``rank`` and ``world`` are this
+        process's place within it; the default process group is then
+        already open."""
         if d < 1 or d % world:
             raise ValueError(f"d={d} shards must divide over {world} ranks")
         if backend == "nccl" and torch.device(device).type != "cuda":
             raise ValueError("the nccl backend needs a CUDA device")
-        open_process_group(backend=backend, rank=rank, world=world,
-                           store=store, timeout_s=timeout_s)
+        if process_group is None:
+            open_process_group(backend=backend, rank=rank, world=world,
+                               store=store, timeout_s=timeout_s)
         self.backend = backend
+        self.device = torch.device(device)
+        self.timeout_s = timeout_s
         self.rank, self.world, self.d = rank, world, d
+        self.ranks = tuple(range(world) if ranks is None else ranks)
         self.dl = d // world
         self.local = tuple(range(rank * self.dl, (rank + 1) * self.dl))
         self.stats = {"collectives": 0, "bytes_sent": 0,
                       "staging_bytes": 0}
+        self._pg = process_group
+        self._splits: dict = {}
+
+    def split(self, size: int) -> "DistShardGroup":
+        """This rank's block of ``size`` consecutive ranks (block ``rank
+        // size``) as a group of its own, one shard a rank.
+        ``torch.distributed.new_group`` is collective over the default
+        group, so every rank builds every block's subgroup, in block
+        order: every rank of the world must call ``split`` with the same
+        sizes in the same order.  Built once a size."""
+        if size in self._splits:
+            return self._splits[size]
+        if self._pg is not None:
+            raise ValueError("only a group of the whole world splits")
+        if size < 1 or self.world % size:
+            raise ValueError(f"blocks of {size} ranks do not divide a "
+                             f"world of {self.world}")
+        timeout = datetime.timedelta(seconds=self.timeout_s)
+        blocks = [list(range(b * size, (b + 1) * size))
+                  for b in range(self.world // size)]
+        subgroups = [dist.new_group(ranks, timeout=timeout)
+                     for ranks in blocks]
+        mine = self.rank // size
+        sub = DistShardGroup(size, backend=self.backend,
+                             rank=self.rank % size, world=size,
+                             device=self.device, timeout_s=self.timeout_s,
+                             process_group=subgroups[mine],
+                             ranks=blocks[mine])
+        self._splits[size] = sub
+        return sub
 
     # -- the wire -------------------------------------------------------------
 
@@ -132,7 +175,7 @@ class DistShardGroup:
         """``x`` of every rank, concatenated along dim 0 in rank order."""
         w = self._to_wire(x)
         parts = [torch.empty_like(w) for _ in range(self.world)]
-        dist.all_gather(parts, w)
+        dist.all_gather(parts, w, group=self._pg)
         self._count(w.numel() * w.element_size() * (self.world - 1))
         return self._from_wire(torch.cat(parts), x)
 
@@ -140,7 +183,7 @@ class DistShardGroup:
         w = self._to_wire(x)
         if w is x:
             w = w.clone()
-        dist.all_reduce(w, op=op)
+        dist.all_reduce(w, op=op, group=self._pg)
         self._count(w.numel() * w.element_size() * (self.world - 1))
         return self._from_wire(w, x)
 
@@ -149,7 +192,18 @@ class DistShardGroup:
         None for nothing) to rank ``q``, and receive ``recv_numel[p]``
         elements from rank ``p``: one ``all_to_all_single`` with
         uneven splits.  Returns the received elements per source rank,
-        flat, on ``like``'s device and dtype."""
+        flat, on ``like``'s device and dtype.  Under gloo the chunk a
+        rank sends itself stays where it is: only the other ranks'
+        chunks are staged through the host."""
+        recv_numel = list(recv_numel)
+        me = self.rank
+        keep = None
+        if self.backend == "gloo":
+            keep = sends[me]
+            keep = torch.empty(0, dtype=like.dtype, device=like.device) \
+                if keep is None else keep.reshape(-1).clone()
+            sends = [None if q == me else t for q, t in enumerate(sends)]
+            recv_numel[me] = 0
         flat = [None if t is None else self._to_wire(t).reshape(-1)
                 for t in sends]
         dtype = torch.uint8 if like.dtype == torch.bool else like.dtype
@@ -158,11 +212,13 @@ class DistShardGroup:
         send = torch.cat([t for t in flat if t is not None]
                          or [torch.empty(0, dtype=dtype, device=dev)])
         recv = torch.empty(sum(recv_numel), dtype=dtype, device=dev)
-        dist.all_to_all_single(recv, send, list(recv_numel), in_splits)
-        self._count((sum(in_splits) - in_splits[self.rank])
-                    * send.element_size())
-        recv = self._from_wire(recv, like)
-        return list(torch.split(recv, list(recv_numel)))
+        dist.all_to_all_single(recv, send, recv_numel, in_splits,
+                               group=self._pg)
+        self._count((sum(in_splits) - in_splits[me]) * send.element_size())
+        got = list(torch.split(self._from_wire(recv, like), recv_numel))
+        if keep is not None:
+            got[me] = keep
+        return got
 
     def _check(self, xs):
         if len(xs) != self.dl:
@@ -293,6 +349,12 @@ class DistShardGroup:
                                   [c * row for c in recv], x)
             out.append(torch.cat(flat).reshape(sum(recv), *x.shape[1:]))
         return order, sent, recv, out
+
+    def route(self, dest, x):
+        """Item ``i`` of ``x`` (items along dim 0) to rank ``dest[i]``
+        (int64): the items this rank receives, rank 0's first, each
+        rank's in its send order."""
+        return self._route(dest, [x])[3][0]
 
     def fetch_rows(self, x, idx):
         """Rows ``idx`` (int64 global row ids, any rank's) of the global

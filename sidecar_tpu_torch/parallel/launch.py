@@ -7,7 +7,8 @@ default process group through a ``FileStore`` in a temporary directory
 back through a queue as numpy arrays.  ``ctx`` (:class:`RankContext`)
 carries the rank, the world size, the backend, the rank's device and
 the store, and builds the rank's shard groups (:meth:`RankContext.
-group`).
+group`) and a fleet's scenario × node layout (:meth:`RankContext.
+fleet_groups`).
 
 The backend is the caller's choice: ``"nccl"`` needs one card a rank;
 ``"gloo"`` runs on the CPU or, on the cards, copies each exchanged
@@ -56,6 +57,15 @@ class RankContext:
         return DistShardGroup(d, backend=self.backend, rank=self.rank,
                               world=self.world, store=self.store,
                               device=self.device, timeout_s=self.timeout_s)
+
+    def fleet_groups(self, node_devices: int):
+        """The groups of a fleet laid over ``world / node_devices``
+        scenario blocks of ``node_devices`` ranks: ``(g, node group)`` —
+        ``g`` the whole world, which ``FleetSim`` takes as ``group=``
+        with ``node_devices=``, and this rank's block of consecutive
+        ranks, ``g.split(node_devices)`` (the one ``FleetSim`` uses)."""
+        g = self.group(self.world)
+        return g, g.split(node_devices)
 
 
 def to_host(obj):

@@ -1216,3 +1216,108 @@ def test_nccl_group_paths_equal_local_group(card, monkeypatch):
                          timeout_s=600.0)
     assert got and all(not r["fields_differ"] and r["equal"]
                        for r in got.values()), got
+
+
+@pytest.mark.parametrize("family", ["exact", "chaos"])
+def test_fleet_node_axis_on_card_equals_one_process(card, monkeypatch,
+                                                    family):
+    """The fleet's node axis on the card: two gloo ranks sharing it (NCCL
+    refuses two ranks on one device), each holding half the nodes of
+    every scenario at n = 256, against the one-process fleet on the card
+    from the same CPU-drawn inputs: every table row, the curve,
+    ``first_seen`` and the joined final state; K4a launches once a round
+    on each rank's rows, as in one process."""
+    import importlib
+    import pathlib
+    import types
+
+    from sidecar_tpu_torch.chaos import (
+        ClockFault,
+        EdgeFault,
+        FaultPlan,
+        NodeFault,
+    )
+    from sidecar_tpu_torch.fleet import ScenarioBatch, ScenarioSpec
+    from sidecar_tpu_torch.fleet.batch import churn_seed
+    from sidecar_tpu_torch.fleet.engine import cpu_inputs
+    from sidecar_tpu_torch.parallel import LocalShardGroup, spawn_group
+    from sidecar_tpu_torch.sim.scenarios import churn_masks
+
+    monkeypatch.syspath_prepend(str(pathlib.Path(__file__).parent))
+    worker = importlib.import_module("torch_dist_worker")
+    n, rounds = 256, 20
+    params = dict(n=n, services_per_node=4, fanout=3, budget=8)
+    time = dict(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
+    specs = [dict(name="a", seed=1),
+             dict(name="b", seed=2, drop_prob=0.1, churn_prob=0.02,
+                  retransmit_limit=8),
+             dict(name="c", seed=3, push_pull_interval_s=1.0,
+                  future_fudge_s=0.5, origin_budget=1,
+                  refresh_interval_s=1.0)]
+    plan = None
+    if family == "chaos":
+        a, b = tuple(range(n // 2)), tuple(range(n // 2, n))
+        plan = FaultPlan(
+            seed=5,
+            edges=(EdgeFault(src=a, dst=b, drop_prob=0.2),
+                   EdgeFault(src=b, dst=a, delay_rounds=2, delay_prob=0.2,
+                             duplicate_prob=0.1)),
+            nodes=(NodeFault(nodes=(3, 200), start_round=4, end_round=9,
+                             kind="crash"),),
+            clocks=(ClockFault(nodes=b, start_round=2,
+                               offset_ticks=300),)).dumps()
+        specs = [dict(s, fault_seed=5 + i, origin_quarantine=2)
+                 for i, s in enumerate(specs)]
+    cpu_b = ScenarioBatch.build(
+        [ScenarioSpec(**s) for s in specs], SimParams(**params),
+        TimeConfig(**time), plan=None if plan is None else
+        FaultPlan.loads(plan), device="cpu")
+    draws, faults, _ = cpu_inputs(cpu_b, rounds)
+    data = dict(
+        specs=specs, params=params, time=time, plan=plan, rounds=rounds,
+        draws=[worker.draws_to_data(d) for d in draws],
+        faults=None if faults is None else
+        [worker.faults_to_data(f) for f in faults],
+        masks=[{r: v.numpy() for r, v in churn_masks(
+            cpu_b.params.m, s.churn_prob, (1, rounds + 1),
+            churn_seed(s.seed)).items()} if s.churn_prob > 0 else None
+            for s in cpu_b.specs],
+        stop=False, eps=0.05, tracked=(1, 500))
+    ranks = spawn_group(worker.run_cases, 2, "gloo",
+                        ([("nodes", "fleet_nodes", dict(data, nd=2))],),
+                        device="cuda", timeout_s=600.0)
+    one = types.SimpleNamespace(rank=0, world=1, device=card,
+                                group=LocalShardGroup)
+    want = worker.run_fleet_nodes(one, nd=1, **data)
+    parts = [r["nodes"] for r in ranks]
+    for p in parts:
+        assert p["table"] == want["table"]
+        for k in ("convergence", "rounds", "first_seen", "exchange_bytes"):
+            np.testing.assert_array_equal(p[k], want[k], err_msg=k)
+        # One K4a a round on each rank's rows, as in one process.
+        assert p["k4a"] == want["k4a"] == rounds
+        assert p["node_exchange"]["staging_bytes"] > 0
+    got = convert.fleet_leaves(
+        convert.join_state([p["state"] for p in parts], 2))
+    for name, value in convert.fleet_leaves(want["state"]).items():
+        np.testing.assert_array_equal(got[name], value, err_msg=name)
+
+
+@pytest.mark.parametrize("n,m", [(5, 40), (300, 2000), (1024, 10240)])
+def test_fleet_row_digests_on_card_equal_numpy(card, n, m):
+    """The fleet's end-state digests on the card (``fleet.engine.
+    row_digests``: ``ops/digest.node_digests`` a block of rows at a
+    time) equal the reference's NumPy digests of the alive rows."""
+    from sidecar_tpu_torch.fleet import engine
+    from sidecar_tpu_torch.ops import digest as digest_ops
+
+    rng = np.random.default_rng(n + m)
+    packed = np.where(rng.random((n, m)) < 0.8,
+                      rng.integers(1, 1 << 28, (n, m)), 0).astype(np.int32)
+    alive = rng.random(n) < 0.9
+    want = digest_ops.node_digests_np(packed[alive],
+                                      digest_ops.default_idents(m))
+    got = engine.row_digests(torch.as_tensor(packed, device=card),
+                             torch.as_tensor(alive, device=card))
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)

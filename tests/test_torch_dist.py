@@ -10,7 +10,9 @@ results:
 
 * every group collective (int32 and int8; ``ppermute`` also with a
   destination no pair names) and row collective against
-  ``LocalShardGroup``'s;
+  ``LocalShardGroup``'s — also on each node group of two ranks that a
+  4-rank world splits into (``DistShardGroup.split``, a spawn of its
+  own);
 * ``ShardedSim`` at d = 2 (a shard a rank) and d = 4 (two), in
   ``all_gather``, ``ring``, ``zoned`` and the digest-gated ``zoned``
   exchange, a sparse round whose shards decide differently, and a cut
@@ -335,13 +337,12 @@ def joined(parts):
 
 # -- the collectives ----------------------------------------------------------
 
-@pytest.mark.parametrize("cid", sorted(COLLECTIVE_CASES))
-def test_collectives_equal_local_group(results, cid):
-    parts, _, case = results[cid]
-    d, dtype = case["d"], case["dtype"]
+def assert_collectives_equal_local(parts, d, dtype, world, cid):
+    """The ranks' collective outputs (one group of ``world`` ranks, ``d``
+    shards) against ``LocalShardGroup``'s."""
     want = worker.group_outputs(LocalShardGroup(d), d, dtype)
     _, _, replicas, rows = worker.collective_inputs(d, dtype)
-    dl = d // WORLD
+    dl = d // world
     for name in ("all_gather", "all_to_all", "pmax", "psum",
                  "ppermute_ring", "ppermute_partial"):
         got = [t for p in parts for t in p[name]]
@@ -358,13 +359,52 @@ def test_collectives_equal_local_group(results, cid):
         np.testing.assert_array_equal(
             np.concatenate([p["shift_rows"][i] for p in parts]),
             np.roll(rows.numpy(), -k, 0), err_msg=f"{cid} shift {k}")
-    firsts = np.stack([replicas[r * dl].numpy() for r in range(WORLD)])
+    firsts = np.stack([replicas[r * dl].numpy() for r in range(world)])
     for p in parts:
         np.testing.assert_array_equal(p["all_reduce_max"][0],
                                       firsts.max(axis=0))
         np.testing.assert_array_equal(
             p["all_reduce_sum"][0],
             firsts.sum(axis=0).astype(firsts.dtype))
+
+
+@pytest.mark.parametrize("cid", sorted(COLLECTIVE_CASES))
+def test_collectives_equal_local_group(results, cid):
+    parts, _, case = results[cid]
+    assert_collectives_equal_local(parts, case["d"], case["dtype"], WORLD,
+                                   cid)
+
+
+SUBGROUP_WORLD = 4
+SUBGROUP_CASES = {f"subgroup-{dtype}": dict(size=2, dtype=dtype)
+                  for dtype in ("int32", "int8")}
+
+
+@pytest.fixture(scope="module")
+def subgroup_results():
+    """A 4-rank gloo world split into node groups of 2 ranks, running the
+    collective case on each: every rank's outputs by case."""
+    ranks = spawn_group(worker.run_cases, SUBGROUP_WORLD, "gloo",
+                        ([(cid, "subgroup_collectives", case)
+                          for cid, case in SUBGROUP_CASES.items()],),
+                        device="cpu", timeout_s=120.0)
+    return {cid: [r[cid] for r in ranks] for cid in SUBGROUP_CASES}
+
+
+@pytest.mark.parametrize("cid", sorted(SUBGROUP_CASES))
+def test_node_group_collectives_equal_local_group(subgroup_results, cid):
+    """Each node group of the split world gives ``LocalShardGroup``'s
+    outputs, its collectives confined to its own two ranks."""
+    parts = subgroup_results[cid]
+    case = SUBGROUP_CASES[cid]
+    size = case["size"]
+    for blk in range(SUBGROUP_WORLD // size):
+        members = parts[blk * size:(blk + 1) * size]
+        for p in members:
+            np.testing.assert_array_equal(
+                p["ranks"][0], np.arange(blk * size, (blk + 1) * size))
+        assert_collectives_equal_local(members, size, case["dtype"], size,
+                                       f"{cid} block {blk}")
 
 
 # -- the exact twin -----------------------------------------------------------

@@ -18,7 +18,14 @@ import numpy as np
 import torch
 
 from sidecar_tpu_torch import convert
-from sidecar_tpu_torch.fleet import FleetSim, ScenarioBatch, ScenarioSpec
+from sidecar_tpu_torch.chaos import FaultPlan
+from sidecar_tpu_torch.chaos.sim_inject import FaultDraws
+from sidecar_tpu_torch.fleet import (
+    FleetSim,
+    ScenarioBatch,
+    ScenarioSpec,
+    restart_churn_perturb,
+)
 from sidecar_tpu_torch.models.compressed import CompressedParams
 from sidecar_tpu_torch.models.exact import SimParams
 from sidecar_tpu_torch.models.timecfg import TimeConfig
@@ -57,6 +64,23 @@ def draws_from_data(data) -> list:
     return [RoundDraws(peer_slot=torch.as_tensor(slot), stride=stride,
                        keep=tensor(keep), pp_slot=tensor(pp))
             for slot, stride, keep, pp in data]
+
+
+def faults_to_data(faults) -> list:
+    """:class:`FaultDraws` as picklable tuples of numpy arrays."""
+    def arr(t):
+        return None if t is None else t.numpy()
+
+    return [(arr(f.drop_u), [arr(t) for t in f.delay_u],
+             [arr(t) for t in f.dup_u]) for f in faults]
+
+
+def faults_from_data(data) -> list:
+    def tensor(a):
+        return None if a is None else torch.as_tensor(a)
+
+    return [FaultDraws(tensor(drop), tuple(map(tensor, delay)),
+                       tuple(map(tensor, dup))) for drop, delay, dup in data]
 
 
 def topology(data):
@@ -111,6 +135,15 @@ def run_collectives(ctx, d: int, dtype: str) -> dict:
                          slice(g.rank * per, (g.rank + 1) * per))
 
 
+def run_subgroup_collectives(ctx, size: int, dtype: str) -> dict:
+    """The collective case on this rank's block of ``size`` consecutive
+    ranks (``DistShardGroup.split``): ``size`` shards, one a rank."""
+    g = ctx.fleet_groups(size)[1]
+    out = group_outputs(g, size, dtype, slice(2 * g.rank, 2 * g.rank + 2))
+    out["ranks"] = [np.asarray(g.ranks)]
+    return out
+
+
 def run_exact(ctx, *, d, params, topo, time, draws, state, sim_kw) -> dict:
     g = ctx.group(d)
     sim = ShardedSim(SimParams(**params), topology(topo), TimeConfig(**time),
@@ -163,6 +196,45 @@ def run_fleet(ctx, *, specs, params, time, rounds, draws, stop,
     return {"table": run.table(t.round_ticks, t.ticks_per_second),
             "convergence": run.convergence, "rounds": run.rounds,
             "host_reads": run.host_reads}
+
+
+def run_fleet_nodes(ctx, *, nd, specs, params, time, plan, rounds, draws,
+                    faults, masks, stop, eps, tracked) -> dict:
+    """A fleet over ``ctx``'s ranks laid as ``(world / nd, nd)``
+    scenario and node blocks (``nd = 1``: the scenario axis, or one
+    process), fed the given draws, fault draws and churn masks (per
+    scenario ``{round: bool [M]}`` or None): every table row, the
+    gathered curve and ``first_seen``, the rank's final state and its
+    K4a launches (none on the CPU)."""
+    from sidecar_tpu_torch.ops.kernels import scatter_max
+
+    batch = ScenarioBatch.build(
+        [ScenarioSpec(**sp) for sp in specs], SimParams(**params),
+        TimeConfig(**time), plan=None if plan is None else
+        FaultPlan.loads(plan), device=ctx.device)
+    perturb = None
+    if any(m is not None for m in masks):
+        perturb = restart_churn_perturb(batch.params, masks=[
+            None if m is None else {r: torch.as_tensor(v)
+                                    for r, v in m.items()} for m in masks])
+    g = ctx.fleet_groups(nd)[0] if nd > 1 else ctx.group(ctx.world)
+    fleet = FleetSim(batch, perturb=perturb, group=g, node_devices=nd)
+    before = scatter_max.scatter_max_apply_cuda.launches
+    run = fleet.run(fleet.init_states(), rounds, eps=eps, stop=stop,
+                    tracked=tracked,
+                    draws=[draws_from_data(d) for d in draws],
+                    fault_draws=None if faults is None else
+                    [faults_from_data(f) for f in faults])
+    t = batch.timecfg
+    return {"table": run.table(t.round_ticks, t.ticks_per_second),
+            "convergence": run.convergence, "rounds": run.rounds,
+            "eps_round": run.eps_round, "first_seen": run.first_seen,
+            "exchange_bytes": run.exchange_bytes,
+            "frontier_max": run.frontier_max, "host_reads": run.host_reads,
+            "state": convert.fleet_state_to_numpy(run.final_states),
+            "exchange": stats_of(g),
+            "node_exchange": stats_of(fleet.nodes.group),
+            "k4a": scatter_max.scatter_max_apply_cuda.launches - before}
 
 
 # -- the paths of tests/test_torch_dist_paths.py ------------------------------
@@ -411,8 +483,10 @@ def run_routed(ctx, *, world) -> dict:
             "exchange": stats_of(g)}
 
 
-CASES = {"collectives": run_collectives, "exact": run_exact,
-         "compressed": run_compressed, "fleet": run_fleet,
+CASES = {"collectives": run_collectives,
+         "subgroup_collectives": run_subgroup_collectives,
+         "fleet_nodes": run_fleet_nodes,
+         "exact": run_exact, "compressed": run_compressed, "fleet": run_fleet,
          "exact_planes": run_exact_planes,
          "compressed_planes": run_compressed_planes,
          "exact_pipelined": run_exact_pipelined,
