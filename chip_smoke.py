@@ -219,7 +219,24 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    chaos plan and an adversary with the defences on, every round; the
    pipelined oracle against ``step_pipelined`` and the provenance
    oracle against ``run_with_provenance``;
-19. dist — the twins and the fleet's scenario and node axes over a
+19. live — the live catalog (``catalog/``, ``query/``, ``transport/``):
+   ``ChaosExactSim`` at the ``value`` shape (4,096 × 10, ER(8, seed 3),
+   the refresh clock at 10,000 s) under a partition of the two halves
+   held for 60 rounds with ``run_with_digest``; node 0's and node
+   4,095's beliefs rebuilt as live catalogs through
+   ``add_service_entry`` (stamp ``packed >> 3``), one healed from the
+   other by a ``reconcile`` session over a ``LoopbackChannel`` (mode
+   ``digest``, coherent), and the healed digest equal at every ladder
+   level to ``ops/digest.ladder_digests`` on the card over the merged
+   beliefs; the writer's records/s, the session's levels, records,
+   bytes beside a full body's and its wall, K4a once a round; then the
+   ``bridge`` phase's 1,024 × 4 catalog built through ``update_service``
+   and a writer thread with a query hub and a ``UrlListener`` posting
+   to a local HTTP server, and a 60-round ``/simulate`` on it equal to
+   the same request on ``decode(state.encode())`` (K4a once a round of
+   each); the hub's versions, the listener's POSTs and the writer's
+   rate;
+20. dist — the twins and the fleet's scenario and node axes over a
    ``torch.distributed`` group on the one card (``parallel/dist.py``,
    started by ``parallel/launch.spawn_group``): NCCL with one rank
    holding d = 4 shards — the exact twin at the ``value`` shape in
@@ -268,7 +285,7 @@ import time
 PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
           "north_star", "sharded", "scatter", "exact_lockstep", "exact",
           "exact_modes", "telemetry", "sharded_exact", "chaos", "fleet",
-          "autopilot", "scenarios", "bridge", "oracle", "dist")
+          "autopilot", "scenarios", "bridge", "oracle", "live", "dist")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
@@ -5559,7 +5576,276 @@ def phase_oracle(n=64, rounds=40):
     return all_counts
 
 
-# -- phase 19: the shard groups over torch.distributed -------------------------
+# -- phase 19: the live catalog ------------------------------------------------------
+
+LIVE_N, LIVE_SPN = 4096, 10
+LIVE_ROUNDS = 60
+LIVE_SEED = 17
+LIVE_BRIDGE_ROUNDS = 60
+
+
+def live_rebuild(host, beliefs, names):
+    """A live catalog of ``host`` built from one node's belief row (a
+    host list of packed ints) through the writer: one
+    ``add_service_entry`` a known slot, stamped ``packed >> 3`` with the
+    status ``packed & 7``.  Returns ``(state, records, seconds)``."""
+    from sidecar_tpu_torch import service as svc
+    from sidecar_tpu_torch.catalog import ServicesState
+
+    st = ServicesState(hostname=host, cluster_name="live")
+    st.set_clock(lambda: 1_000_000)
+    t0 = time.perf_counter()
+    n = 0
+    for j, packed in enumerate(beliefs):
+        if packed:
+            st.add_service_entry(svc.Service(
+                id=names[j][1], name="app", image="app:1",
+                hostname=names[j][0], updated=packed >> 3,
+                status=packed & 7))
+            n += 1
+    return st, n, time.perf_counter() - t0
+
+
+def live_twin(n=LIVE_N, spn=LIVE_SPN, rounds=LIVE_ROUNDS):
+    """Part 1: the partitioned chaos run, the two rebuilt catalogs and
+    the session that heals them, held against the card's ladder of the
+    merged beliefs.  Returns ``(launch counts, the line's fields,
+    failures)``."""
+    import numpy as np
+    import torch
+
+    from sidecar_tpu_torch.chaos import ChaosExactSim, FaultPlan
+    from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+    from sidecar_tpu_torch.ops import digest as digest_ops
+    from sidecar_tpu_torch.ops.topology import erdos_renyi
+    from sidecar_tpu_torch.transport import antientropy as ae
+
+    failures = []
+    side_a, side_b = tuple(range(n // 2)), tuple(range(n // 2, n))
+    plan = FaultPlan(seed=LIVE_SEED).with_edges(
+        *FaultPlan.partition(side_a, side_b, 0, rounds))
+    p = SimParams(n=n, services_per_node=spn, fanout=3, budget=15)
+    sim = ChaosExactSim(p, erdos_renyi(n, avg_degree=8.0, seed=3),
+                        TimeConfig(refresh_interval_s=10_000.0), plan,
+                        device=DEVICE)
+    names = [(f"host-{j // spn:04d}", f"svc-{j}") for j in range(p.m)]
+    idents = digest_ops.catalog_idents(names)
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    final, dt, _ = sim.run_with_digest(
+        state, rounds, cap=rounds, idents=idents,
+        generator=sim.default_generator(LIVE_SEED))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launches()
+    if counts != expected(scatter_max_apply=rounds):
+        failures.append("twin launches")
+    rec = dt.rec[:int(dt.count)].cpu().numpy()
+    if not (rec[:, digest_ops.DIG_DIFF_TOTAL] > 0).all():
+        failures.append("partition kept no divergence")
+    k_a = final.known[0].cpu().numpy().tolist()
+    k_b = final.known[n - 1].cpu().numpy().tolist()
+    live_a, rec_a, build_a = live_rebuild("node-0000", k_a, names)
+    live_b, rec_b, build_b = live_rebuild(f"node-{n - 1:04d}", k_b, names)
+    diverged = digest_ops.diff_buckets_py(live_a.digest_snapshot[1],
+                                          live_b.digest_snapshot[1])
+    full_bytes = len(live_a.encode_annotated()) + \
+        len(live_b.encode_annotated())
+    t0 = time.perf_counter()
+    rep = ae.reconcile(live_a, ae.LoopbackChannel(
+        ae.AntiEntropyResponder(live_b)))
+    session_s = time.perf_counter() - t0
+    if rep.mode != "digest" or rep.coherent is not True:
+        failures.append(f"session {rep.mode} coherent={rep.coherent}")
+    merged = torch.maximum(final.known[0], final.known[n - 1])[None, :]
+    base, depth = live_a.ladder_geometry()
+    levels = digest_ops.ladder_digests(
+        merged, torch.as_tensor(idents.astype(np.int64), device=merged.device),
+        base, depth)
+    torch.cuda.synchronize()
+    level_equal = [live_a.digest_level(k)
+                   == live_b.digest_level(k)
+                   == digest_ops.digest_value(levels[k][0])
+                   for k in range(depth)]
+    if not all(level_equal):
+        failures.append(f"ladder levels {level_equal}")
+    return counts, {
+        "n": n, "services_per_node": spn, "rounds": rounds,
+        "run_s": run_s, "diff_total_last": int(rec[-1, digest_ops.
+                                                  DIG_DIFF_TOTAL]),
+        "records": [rec_a, rec_b], "build_s": [build_a, build_b],
+        "writer_records_per_s": (rec_a + rec_b) / (build_a + build_b),
+        "diverged_buckets": diverged,
+        "session": {"mode": rep.mode, "coherent": rep.coherent,
+                    "levels_walked": rep.levels_walked,
+                    "records_sent": rep.records_sent,
+                    "records_received": rep.records_received,
+                    "bytes": rep.total_bytes,
+                    "digest_bytes": rep.digest_bytes,
+                    "record_bytes": rep.record_bytes,
+                    "full_body_bytes": full_bytes, "wall_s": session_s,
+                    "states": rep.states},
+        "ladder_levels_equal": level_equal,
+        "k4a_launches": counts["scatter_max_apply"]}, failures
+
+
+class _PostSink:
+    """A local HTTP server that counts the POSTs it is sent, their bytes
+    and the highest ``Version`` among them."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        sink = self
+        self.lock = threading.Lock()
+        self.posts = self.bytes = self.version = 0
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                version = json.loads(body)["Version"]
+                with sink.lock:
+                    sink.posts += 1
+                    sink.bytes += len(body)
+                    sink.version = max(sink.version, version)
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/live"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def live_bridge(hosts=BRIDGE_HOSTS, spn=BRIDGE_SPN,
+                rounds=LIVE_BRIDGE_ROUNDS):
+    """Part 2: the bridge phase's catalog built through the writer
+    thread, with a hub and a ``UrlListener``, then one ``/simulate`` on
+    it and on its decoded wire form.  Returns ``(launch counts, the
+    line's fields, failures)``."""
+    import threading
+
+    import torch
+
+    from sidecar_tpu_torch import service as svc
+    from sidecar_tpu_torch.bridge import SimBridge, serve_bridge
+    from sidecar_tpu_torch.catalog import ServicesState, decode
+    from sidecar_tpu_torch.catalog.url_listener import UrlListener
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+    from sidecar_tpu_torch.runtime import TimedLooper
+
+    failures = []
+    source = decode(synthetic_catalog(hosts, spn, BRIDGE_SEED))
+    state = ServicesState(hostname=source.hostname,
+                          cluster_name=source.cluster_name)
+    t_end = 1_700_000_000 * svc.NS_PER_SECOND + 10 * svc.NS_PER_SECOND
+    state.set_clock(lambda: t_end)
+    hub = state.query_hub()
+    sink = _PostSink()
+    listener = UrlListener(sink.url, retries=0)
+    listener.watch(state)
+    servers = []
+    try:
+        writer = threading.Thread(target=state.process_service_msgs,
+                                  args=(TimedLooper(0.0),), name="writer")
+        records = [s.copy() for _, _, s in source.each_service()]
+        t0 = time.perf_counter()
+        writer.start()
+        for s in records:
+            state.update_service(s)
+        state.stop_processing()
+        writer.join(timeout=300)
+        write_s = time.perf_counter() - t0
+        if writer.is_alive():
+            raise SystemExit("live: the writer thread did not stop")
+        head = hub.current().version
+        t0 = time.perf_counter()
+        while sink.version < head and time.perf_counter() - t0 < 120:
+            time.sleep(0.01)
+        drain_s = time.perf_counter() - t0
+        if sink.version != head:
+            failures.append(f"listener reached v{sink.version} of v{head}")
+        have = json.loads(state.encode())["Servers"]
+        want = json.loads(source.encode())["Servers"]
+        if {h: v["Services"] for h, v in have.items()} != \
+                {h: v["Services"] for h, v in want.items()}:
+            failures.append("writer records")
+        if hub.current().to_json()["Servers"] != have:
+            failures.append("hub snapshot")
+        bridges = (SimBridge(state, TimeConfig()),
+                   SimBridge(decode(state.encode()), TimeConfig()))
+        servers = [serve_bridge(b, port=0) for b in bridges]
+        torch.cuda.synchronize()
+        reset_launches()
+        answers, walls = [], []
+        for server in servers:
+            t0 = time.perf_counter()
+            code, body = post_json(server.server_address[1], "/simulate",
+                                   {"rounds": rounds, "seed": 4})
+            walls.append(time.perf_counter() - t0)
+            if code != 200:
+                failures.append(f"/simulate answered {code}")
+            answers.append(body)
+        torch.cuda.synchronize()
+        counts = launches()
+        if counts != expected(scatter_max_apply=2 * rounds):
+            failures.append("bridge launches")
+        doc = json.loads(answers[0])
+        conv = doc.get("convergence") or []
+        if answers[0] != answers[1]:
+            failures.append("live and decoded answers differ")
+        if len(conv) != rounds or not all(0.0 <= c <= 1.0 for c in conv):
+            failures.append("convergence")
+    finally:
+        listener.stop()
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+        sink.close()
+    if listener._thread is not None:
+        listener._thread.join(timeout=30)
+    return counts, {
+        "hosts": hosts, "services_per_node": spn,
+        "records": len(records), "write_s": write_s,
+        "writer_records_per_s": len(records) / write_s,
+        "hub_version": head, "listener_posts": sink.posts,
+        "listener_bytes": sink.bytes, "listener_drain_s": drain_s,
+        "simulate_rounds": rounds, "simulate_wall_s": walls,
+        "answer_bytes": len(answers[0]),
+        "final_convergence": conv[-1] if conv else None,
+        "answers_equal": answers[0] == answers[1],
+        "k4a_launches": counts["scatter_max_apply"]}, failures
+
+
+def phase_live(n=LIVE_N, hosts=BRIDGE_HOSTS):
+    """The live catalog on the card: :func:`live_twin` and
+    :func:`live_bridge`.  Returns their launch counts."""
+    t_phase = time.perf_counter()
+    twin_counts, twin, twin_fail = live_twin(n)
+    bridge_counts, bridge, bridge_fail = live_bridge(hosts)
+    failures = twin_fail + bridge_fail
+    emit({"phase": "live", "twin": twin, "bridge": bridge,
+          "failures": failures, "phase_s": time.perf_counter() - t_phase,
+          "ok": not failures})
+    if failures:
+        raise SystemExit(f"live phase failed: {failures}")
+    return [twin_counts, bridge_counts]
+
+
+# -- phase 20: the shard groups over torch.distributed -------------------------
 
 DIST_EXACT_ROUNDS = {"nccl": 50, "gloo": 50}
 DIST_COMPRESSED_ROUNDS = {"nccl": 25, "gloo": 25}
@@ -6384,6 +6670,8 @@ def main(argv=None) -> int:
         runs += phase_bridge()
     if "oracle" in phases:
         runs += phase_oracle()
+    if "live" in phases:
+        runs += phase_live()
     if "dist" in phases:
         # Last: it reuses the north star's graph.
         runs += phase_dist(smi, topo, args.n, config5)

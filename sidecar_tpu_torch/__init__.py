@@ -39,10 +39,17 @@ so each counterpart is easy to find:
   generator);
 * ``bridge/sim_bridge.py`` — the simulator bridge: ``SimBridge``
   (``simulate``, ``sweep``, ``autopilot_recommend``) and its HTTP server
-  ``serve_bridge``; with what it reads: ``catalog/`` (the catalog's read
-  side and wire form, the flap damper), ``service.py`` (status names,
-  the service record), ``ops/suspicion.py``'s ``ProtocolParams`` and
+  ``serve_bridge``; with what it reads: ``catalog/`` (the catalog and
+  its wire form, the flap damper), ``service.py`` (status names, the
+  service record), ``ops/suspicion.py``'s ``ProtocolParams`` and
   ``telemetry/span.py``;
+* ``catalog/state.py``'s writer path, ``ops/digest.py``'s live ladder,
+  ``transport/antientropy.py``, ``query/``, ``catalog/url_listener.py``,
+  ``telemetry/coherence.py``, ``telemetry/propagation.py``,
+  ``runtime/looper.py`` and ``output.py`` — the live catalog: the
+  writer, digest-directed anti-entropy sessions, the versioned query
+  plane and its URL listener, and the monitors the writer feeds (host
+  code);
 * ``sim/oracle.py`` — the sequential NumPy oracle of the exact round;
 * ``convert.py`` — moving state, params and graphs across from the
   reference's numpy form.

@@ -1,7 +1,10 @@
 """Order-invariant catalog digests — the port of
 ``sidecar_tpu/ops/digest.py``: the coherence plane's one fingerprint
-definition, its device form over a packed belief matrix, and the
-reference's NumPy and pure-Python helpers, copied.
+definition, its device form over a packed belief matrix, the
+reference's NumPy and pure-Python helpers, copied, and the live
+catalog's host half: :class:`IncrementalDigest` and the Merkle ladder
+:class:`LadderDigest`, kept record by record by the catalog's writer,
+with the pure-Python fold and compares the anti-entropy session reads.
 
 A record ``(ident, packed key)`` hashes into two 32-bit lanes; the lanes
 add up, mod 2³², into one of ``B`` buckets chosen by the ident alone.
@@ -330,9 +333,10 @@ def catalog_idents(slot_names) -> np.ndarray:
 
 
 def digest_to_hex(dig) -> str:
-    """A digest (a ``[B, 2]`` array of uint32 lanes) in its wire form:
-    8 hex characters a lane, 16 a bucket."""
-    return "".join(f"{int(v) & _M32:08x}" for v in np.asarray(dig).ravel())
+    """A digest in its wire form (the push-pull annotation and
+    ``/api/digest.json``): 8 hex characters a lane, 16 a bucket.  Takes
+    any form :func:`digest_value` takes."""
+    return "".join(f"{v:08x}" for v in digest_value(dig))
 
 
 # -- pure-Python helpers --------------------------------------------------------
@@ -359,3 +363,205 @@ def live_key(updated: int, status: int) -> int:
     """The live record's 64-bit packed key ``(updated << 3) | status``
     mod 2⁶⁴."""
     return ((int(updated) << 3) | (int(status) & 7)) & _M64
+
+
+def bucket_of(ident: int, buckets: int) -> int:
+    """An ident's bucket at any power-of-two bucket count, the
+    pure-Python :func:`bucket_ids`.  The index at 2B buckets is the one
+    at B shifted left plus one more bit: a deeper ladder level refines
+    and never reshuffles."""
+    shift = _bucket_shift(buckets)
+    if shift >= 32:
+        return 0
+    return fmix32_py(((ident & _M32) * _K1) & _M32) >> shift
+
+
+def record_hash(ident: int, key: int, buckets: int = DEFAULT_BUCKETS):
+    """``(bucket, lane0, lane1)`` of one record in pure Python."""
+    ident &= _M32
+    key &= _M64
+    lo = key & _M32
+    hi = key >> 32
+    k = fmix32_py(lo) ^ ((fmix32_py(hi ^ _GOLD) * _K1) & _M32)
+    lane0 = fmix32_py(ident ^ k)
+    lane1 = fmix32_py(((ident + _GOLD) & _M32) ^ ((k * _K1) & _M32))
+    return bucket_of(ident, buckets), lane0, lane1
+
+
+class IncrementalDigest:
+    """The live catalog's flat digest: O(1) add and remove a record
+    (lane sums mod 2³² are invertible).  :meth:`value` is the canonical
+    form, a flat tuple of ``2 · B`` uint32 ints, lane-interleaved per
+    bucket, equal to the device and NumPy digests of the same records."""
+
+    __slots__ = ("buckets", "count", "_lanes")
+
+    def __init__(self, buckets: int = DEFAULT_BUCKETS):
+        _bucket_shift(buckets)
+        self.buckets = buckets
+        self.count = 0
+        self._lanes = [0] * (2 * buckets)
+
+    def add(self, ident: int, key: int) -> None:
+        b, l0, l1 = record_hash(ident, key, self.buckets)
+        i = 2 * b
+        self._lanes[i] = (self._lanes[i] + l0) & _M32
+        self._lanes[i + 1] = (self._lanes[i + 1] + l1) & _M32
+        self.count += 1
+
+    def remove(self, ident: int, key: int) -> None:
+        b, l0, l1 = record_hash(ident, key, self.buckets)
+        i = 2 * b
+        self._lanes[i] = (self._lanes[i] - l0) & _M32
+        self._lanes[i + 1] = (self._lanes[i + 1] - l1) & _M32
+        self.count -= 1
+
+    def value(self) -> tuple:
+        return tuple(self._lanes)
+
+    def hex(self) -> str:
+        return digest_to_hex(self._lanes)
+
+    @classmethod
+    def of(cls, records, buckets: int = DEFAULT_BUCKETS
+           ) -> "IncrementalDigest":
+        """From an iterable of ``(ident, key)`` pairs."""
+        dig = cls(buckets)
+        for ident, key in records:
+            dig.add(ident, key)
+        return dig
+
+
+class LadderDigest:
+    """The live catalog's Merkle ladder: one lane table a level (level k
+    has ``base << k`` buckets), all kept incrementally — one
+    :func:`record_hash` a mutation (the lanes do not depend on the
+    level, only the bucket does), then ``depth`` O(1) updates.
+    ``level(0)`` equals ``IncrementalDigest(base)`` over the same
+    records; the deeper levels serve the anti-entropy session's
+    narrowing."""
+
+    __slots__ = ("base", "depth", "count", "_shifts", "_lanes")
+
+    def __init__(self, base: int = DEFAULT_BUCKETS,
+                 depth: int = DEFAULT_LADDER_DEPTH):
+        if depth < 1:
+            raise ValueError(f"ladder depth must be >= 1, got {depth}")
+        self._shifts = [_bucket_shift(base << k) for k in range(depth)]
+        self.base = base
+        self.depth = depth
+        self.count = 0
+        self._lanes = [[0] * (2 * (base << k)) for k in range(depth)]
+
+    def _apply(self, ident: int, key: int, sign: int) -> None:
+        ident &= _M32
+        _, l0, l1 = record_hash(ident, key, 1)
+        mixed = fmix32_py((ident * _K1) & _M32)
+        for lanes, shift in zip(self._lanes, self._shifts):
+            i = 2 * (0 if shift >= 32 else mixed >> shift)
+            lanes[i] = (lanes[i] + sign * l0) & _M32
+            lanes[i + 1] = (lanes[i + 1] + sign * l1) & _M32
+
+    def add(self, ident: int, key: int) -> None:
+        self._apply(ident, key, 1)
+        self.count += 1
+
+    def remove(self, ident: int, key: int) -> None:
+        self._apply(ident, key, -1)
+        self.count -= 1
+
+    def buckets_at(self, level: int) -> int:
+        return self.base << level
+
+    @property
+    def buckets(self) -> int:
+        """The level-0 bucket count (``IncrementalDigest.buckets``)."""
+        return self.base
+
+    @property
+    def leaf_level(self) -> int:
+        return self.depth - 1
+
+    @property
+    def leaf_buckets(self) -> int:
+        return self.base << (self.depth - 1)
+
+    def level(self, k: int) -> tuple:
+        """Level ``k``'s digest as a canonical flat tuple."""
+        return tuple(self._lanes[k])
+
+    def hex(self, k: int = 0) -> str:
+        return digest_to_hex(self._lanes[k])
+
+    def value(self) -> tuple:
+        """The level-0 digest (``IncrementalDigest.value``)."""
+        return tuple(self._lanes[0])
+
+    def leaf_bucket(self, ident: int) -> int:
+        """The leaf bucket an ident's record lies in."""
+        return bucket_of(ident, self.leaf_buckets)
+
+    @classmethod
+    def of(cls, records, base: int = DEFAULT_BUCKETS,
+           depth: int = DEFAULT_LADDER_DEPTH) -> "LadderDigest":
+        """From an iterable of ``(ident, key)`` pairs."""
+        dig = cls(base, depth)
+        for ident, key in records:
+            dig.add(ident, key)
+        return dig
+
+
+def fold_digest_py(value) -> tuple:
+    """One ladder fold in pure Python, canonical flat tuple at 2B
+    buckets → B buckets (children ``2b`` and ``2b + 1`` lane-summed into
+    parent ``b``) — the reference's host ``fold_digest``
+    (``sidecar_tpu/ops/digest.py:549``); this module's
+    :func:`fold_digest` is the tensor fold."""
+    v = digest_value(value)
+    if len(v) < 4 or len(v) % 4:
+        raise ValueError(f"cannot fold digest of {len(v) // 2} buckets")
+    out = []
+    for i in range(0, len(v), 4):
+        out.append((v[i] + v[i + 2]) & _M32)
+        out.append((v[i + 1] + v[i + 3]) & _M32)
+    return tuple(out)
+
+
+def diff_bucket_ids(a, b) -> list:
+    """The ids of the buckets where two same-size digests differ."""
+    a = digest_value(a)
+    b = digest_value(b)
+    if len(a) != len(b):
+        raise ValueError(f"digest sizes differ: {len(a)} vs {len(b)}")
+    return [i // 2 for i in range(0, len(a), 2)
+            if a[i] != b[i] or a[i + 1] != b[i + 1]]
+
+
+def digest_value(dig) -> tuple:
+    """The canonical flat tuple of any digest form: a ``[B, 2]`` tensor
+    on the CPU or a card (the device digests), a NumPy array, or a flat
+    sequence of ints."""
+    if isinstance(dig, (tuple, list)) and \
+            all(type(v) is int for v in dig):
+        return tuple(map(_M32.__and__, dig))
+    if isinstance(dig, torch.Tensor):
+        dig = dig.detach().cpu().numpy()
+    arr = np.asarray(dig)
+    if arr.ndim == 2:
+        arr = arr.reshape(-1)
+    return tuple(map(_M32.__and__, arr.astype(np.int64).tolist()))
+
+
+def digest_from_hex(text: str) -> tuple:
+    """:func:`digest_to_hex`'s output back to the canonical flat tuple;
+    malformed input raises ``ValueError``."""
+    if len(text) % 16 or not text:
+        raise ValueError(f"digest hex length {len(text)} not a "
+                         "multiple of 16")
+    return tuple(int(text[i:i + 8], 16) for i in range(0, len(text), 8))
+
+
+def diff_buckets_py(a, b) -> int:
+    """The count of buckets where two digests differ — a lower bound on
+    the records they disagree on (the coherence monitor's estimate)."""
+    return len(diff_bucket_ids(a, b))

@@ -1,22 +1,23 @@
-"""The service record and its wire form — the port's own copy of what
-the simulator bridge reads from ``sidecar_tpu/service.py``: the status
-codes and their names (:func:`status_string`), the RFC 3339 nanosecond
-timestamps of the Go wire format, and :class:`Port` and
-:class:`Service` with their JSON forms.
+"""The service record and its wire form — the port of
+``sidecar_tpu/service.py``: the status codes and their names
+(:func:`status_string`), the lifespans, the RFC 3339 nanosecond
+timestamps of the Go wire format, :class:`Port` and :class:`Service`
+with their JSON forms and lifecycle predicates, :func:`decode` and
+:func:`format_service`.
 
 Timestamps are integer nanoseconds since the Unix epoch: the protocol
-relies on nanosecond resolution, which ``datetime`` would lose.  The
-record's lifecycle predicates, its own ``decode`` and the Docker and
-formatting helpers of the reference belong to the live node's writer
-and discovery planes and are not here.
+relies on nanosecond resolution (the +50 ns broadcast skew), which
+``datetime`` would lose.  The reference's ``to_service``, which turns a
+Docker container into a record, belongs to discovery and is not here.
 """
 
 from __future__ import annotations
 
 import calendar
 import dataclasses
+import json
 import time as _time
-from typing import Any
+from typing import Any, Optional
 
 # Status codes (service/service.go:17-23); SUSPECT is the simulator's
 # quarantine-before-tombstone code, which the live catalog never makes.
@@ -28,6 +29,16 @@ DRAINING = 4
 SUSPECT = 5
 
 NS_PER_SECOND = 1_000_000_000
+
+# Lifespans (catalog/services_state.go:26-37), in seconds.
+TOMBSTONE_LIFESPAN = 3 * 3600.0
+ALIVE_LIFESPAN = 80.0
+DRAINING_LIFESPAN = 600.0
+STALENESS_FUDGE = 60.0
+
+
+def now_ns() -> int:
+    return _time.time_ns()
 
 
 def status_string(status: int) -> str:
@@ -143,6 +154,55 @@ class Service:
     proxy_mode: str = "http"
     status: int = UNKNOWN
 
+    # -- predicates (service/service.go:50-72) -------------------------------
+
+    def is_alive(self) -> bool:
+        return self.status == ALIVE
+
+    def is_tombstone(self) -> bool:
+        return self.status == TOMBSTONE
+
+    def is_draining(self) -> bool:
+        return self.status == DRAINING
+
+    def invalidates(self, other: Optional["Service"]) -> bool:
+        """True when this record is strictly newer than ``other``."""
+        return other is not None and self.updated > other.updated
+
+    def is_stale(self, lifespan_s: float = TOMBSTONE_LIFESPAN,
+                 now: Optional[int] = None) -> bool:
+        """Older than ``lifespan_s`` plus the one-minute drift fudge."""
+        now = now_ns() if now is None else now
+        oldest = now - int((lifespan_s + STALENESS_FUDGE) * NS_PER_SECOND)
+        return self.updated < oldest
+
+    def tombstone(self, now: Optional[int] = None) -> None:
+        self.status = TOMBSTONE
+        self.updated = now_ns() if now is None else now
+
+    # -- accessors -----------------------------------------------------------
+
+    def status_string(self) -> str:
+        return status_string(self.status)
+
+    def version(self) -> str:
+        """The image's tag, or the whole image when it has none."""
+        parts = self.image.split(":")
+        return parts[1] if len(parts) > 1 else parts[0]
+
+    def port_for_service_port(self, find_port: int,
+                              ptype: str = "tcp") -> int:
+        """The published port mapped to ``find_port``; -1 when none."""
+        for p in self.ports:
+            if p.service_port == find_port and p.type == ptype:
+                return p.port
+        return -1
+
+    def listener_name(self) -> str:
+        return f"Service({self.name}-{self.id})"
+
+    # -- wire form -----------------------------------------------------------
+
     def to_json(self) -> dict:
         return {
             "ID": self.id,
@@ -173,3 +233,38 @@ class Service:
             or "http",
             status=_as_int(d.get("Status"), UNKNOWN),
         )
+
+    def encode(self) -> bytes:
+        return json.dumps(self.to_json(), separators=(",", ":")).encode()
+
+    def copy(self) -> "Service":
+        return dataclasses.replace(self, ports=[dataclasses.replace(p)
+                                                for p in self.ports])
+
+
+def decode(data: bytes | str) -> Service:
+    """A record from its JSON wire form; any malformed payload raises
+    ``ValueError`` (a wire boundary fed by untrusted peers: a leaked
+    ``TypeError`` would end the caller's receive loop)."""
+    try:
+        d = json.loads(data)
+    except (json.JSONDecodeError, UnicodeDecodeError) as exc:
+        raise ValueError(f"failed to decode service JSON: {exc}") from exc
+    if not isinstance(d, dict):
+        raise ValueError("failed to decode service JSON: not an object")
+    try:
+        return Service.from_json(d)
+    except (TypeError, AttributeError, KeyError, OverflowError) as exc:
+        raise ValueError(
+            f"failed to decode service JSON: malformed shape ({exc})"
+        ) from exc
+
+
+def format_service(svc: Service, now: Optional[int] = None) -> str:
+    """The record as one human-readable line (service/service.go:74-89)."""
+    from sidecar_tpu_torch.output import time_ago
+
+    now = now_ns() if now is None else now
+    ports = ",".join(f"{p.service_port}->{p.port}" for p in svc.ports)
+    return (f"      {svc.id} {svc.name:<30} {ports:<15} {svc.image:<45}  "
+            f"{time_ago(svc.updated, now):<15} {svc.status_string():<9}\n")

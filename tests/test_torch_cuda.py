@@ -1321,3 +1321,34 @@ def test_fleet_row_digests_on_card_equal_numpy(card, n, m):
                              torch.as_tensor(alive, device=card))
     assert got.dtype == np.uint32
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("m,depth", [(40, 5), (4096, 5), (3000, 3)])
+def test_live_ladder_equals_card_ladder(card, m, depth):
+    """A catalog built through the live writer keeps, at every ladder
+    level, the digest that ``ops/digest.ladder_digests`` computes on
+    the card over the same beliefs (the live phase's check, small)."""
+    from sidecar_tpu_torch import service as svc
+    from sidecar_tpu_torch.catalog import ServicesState
+    from sidecar_tpu_torch.ops import digest as digest_ops
+
+    rng = np.random.default_rng(m)
+    packed = np.where(rng.random(m) < 0.7,
+                      rng.integers(1, 1 << 20, m) << 3 |
+                      rng.choice([0, 1, 2, 4], m), 0).astype(np.int32)
+    names = [(f"h{j // 10}", f"s{j}") for j in range(m)]
+    idents = digest_ops.catalog_idents(names)
+    st = ServicesState(hostname="card", ladder_depth=depth)
+    st.set_clock(lambda: 1_000_000)
+    for j, v in enumerate(packed.tolist()):
+        if v:
+            st.add_service_entry(svc.Service(
+                id=names[j][1], name="app", image="i", hostname=names[j][0],
+                updated=v >> 3, status=v & 7))
+    packed_dev = torch.as_tensor(packed[None, :], device=card)
+    levels = digest_ops.ladder_digests(
+        packed_dev, torch.as_tensor(idents.astype(np.int64), device=card),
+        st.ladder_geometry()[0], depth)
+    assert levels[0].device == packed_dev.device
+    for k in range(depth):
+        assert st.digest_level(k) == digest_ops.digest_value(levels[k][0]), k

@@ -76,10 +76,13 @@ def test_every_port_module_is_checked():
                      "scenarios.py", "fit.py", "objective.py", "search.py",
                      "controller.py", "slo.py", "checkpoint.py",
                      "sim_bridge.py", "oracle.py", "service.py",
-                     "damping.py", "state.py", "span.py"):
+                     "damping.py", "state.py", "span.py", "looper.py",
+                     "output.py", "propagation.py", "coherence.py",
+                     "snapshot.py", "hub.py", "url_listener.py",
+                     "antientropy.py"):
         assert expected in names, expected
     for package in ("chaos", "fleet", "sim", "autopilot", "telemetry",
-                    "bridge", "catalog"):
+                    "bridge", "catalog", "runtime", "query", "transport"):
         assert any(p.parent.name == package for p in PORT_FILES), package
 
 
