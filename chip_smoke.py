@@ -12,8 +12,9 @@ workload — with its execution modes and over node shards, the chaos
 round and the partition hooks (config 5 and config 6 of the port's
 ``sim/scenarios.py``), the scenario fleet of all three families, the
 autopilot's closed loop, the scenario configs and a checkpoint resume,
-the simulator bridge over HTTP and the exact model against the NumPy
-oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
+the simulator bridge over HTTP, the exact model against the NumPy
+oracle, the live catalog and the live node's gossip transport, plus
+the scatter experiment of ``benchmarks/pallas_scatter.py``:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — ``nvcc`` builds the kernels from
@@ -115,9 +116,9 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    ``ring`` twin's trace equal to the single device's; the compressed
    digest and deltas at n=4,096 (sparse streams equal to dense); and
    card against CPU, dense and sparse, every stream field equal: the
-   exact model at n=1,024 × 10 (20 rounds, all planes), the compressed
+   exact model at n=512 × 10 (20 rounds, all planes), the compressed
    trace and provenance at n=4,096 (30 rounds), its digest and deltas at
-   n=1,024 (20 rounds).  ``north_star_mode`` also holds the registry's
+   n=1,024 (10 rounds).  ``north_star_mode`` also holds the registry's
    ``sparse.*`` counters against the arbiter's;
 12. sharded exact — the node-sharded exact twin (``ShardedSim``) on the
    ``value`` workload at full size, its shards sharing the card, in
@@ -236,7 +237,32 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    the same request on ``decode(state.encode())`` (K4a once a round of
    each); the hub's versions, the listener's POSTs and the writer's
    rate;
-20. dist — the twins and the fleet's scenario and node axes over a
+20. gossip — the live node's transport (``transport/gossip.py``,
+   ``runtime/scheduler.py``, ``chaos/live_inject.py``, ``web/``): the
+   native engine built with ``g++`` from ``native/transport.cc`` (its
+   compiler and seconds); ``tests/test_chaos.py``'s cross-validation
+   plan (a split of node a from b and c over rounds 10–50, 20 % loss and
+   a 20 % one-round delay on (b, c) → a) on three live port nodes on
+   loopback and on the card's ``ChaosExactSim`` (n = 3, the complete
+   graph, 100 rounds, K4a once a round), b draining and c re-minting at
+   round 20: both end at [ALIVE, DRAINING, ALIVE] with a's mid-split
+   view of b stale, and the live injector's counters move; then 16 port
+   nodes × 10 services in this process at the reference's protocol
+   constants (gossip every 0.2 s to 3 nodes, 15 messages), each with a
+   ``Scheduler`` driving ``broadcast_services_step`` and
+   ``broadcast_tombstones_step`` over its static list: the wall and the
+   gossip rounds from the last write until every node holds one catalog
+   set (the wait ends two push-pull periods after 99 % of the (node,
+   record) pairs are held), the seconds until half, nine tenths and
+   99 % are held, each node's engine packets and bytes, the threads a
+   node; node 0's catalog through the
+   bridge on the card (its round-0 projection equal to node 0's
+   statuses; the rounds to ε predicted from every node cold beside the
+   live rounds; K4a once a simulated round); and the HTTP API on node 0
+   (``/api/state.json`` decodes to its catalog, ``/api/metrics`` carries
+   the ``engine.*`` and ``transport.*`` series, the latter from a join
+   to a dead seed);
+21. dist — the twins and the fleet's scenario and node axes over a
    ``torch.distributed`` group on the one card (``parallel/dist.py``,
    started by ``parallel/launch.spawn_group``): NCCL with one rank
    holding d = 4 shards — the exact twin at the ``value`` shape in
@@ -246,7 +272,7 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    tensor copied through the host — the exact twin in ``all_gather``
    and ``ring`` (50 rounds), the compressed twin at n = 16,384 in
    ``all_gather`` and ``all_to_all`` (25 rounds), the 64-point grid
-   at n = 1,024 over the two ranks (100 rounds), and the fleet's node
+   at n = 1,024 over the two ranks (50 rounds), and the fleet's node
    axis: that grid and the ``fleet`` phase's chaos batch at 4,096 × 10
    (50 rounds) with each scenario's nodes split over the two ranks.
    Then, on each group,
@@ -254,7 +280,8 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    digest and provenance in one run beside the untraced run, the
    compressed twin's trace (the north star on NCCL, 16,384 on gloo) and
    deltas (4,096), both pipelined rounds, and config5 at its declared
-   1M × 64 (NCCL, against the ``chaos`` phase's single-device run) or
+   1M × 64 (NCCL, its split and 150 heal rounds against that prefix of
+   the ``chaos`` phase's single-device run) or
    config4 at 16,384 × 10 (gloo, 100 rounds).  Each job's final state
    (SHA-256 of each rank's part) and curve, every stream field, each
    rank's part of a pipelined carry, or every row of the grid's table,
@@ -263,12 +290,14 @@ oracle, plus the scatter experiment of ``benchmarks/pallas_scatter.py``:
    summed over the ranks),
    and each rank must launch its kernels as ``dist_expected`` says; per
    rank its wall, rounds/s (a traced job: ms a round traced and
-   untraced), a 5-round profile (busy ms and idle share a round), peak
+   untraced), a 5-round profile (busy ms and idle share a round) of the
+   first exact and compressed job and of the node-axis chaos job, peak
    memory, the bytes it sent and gloo's host staging bytes.  On one
    card this measures launches and host staging, not a link between
    cards.
 
-Each phase prints one JSON line; then the ``kernels`` line, the card's
+Each phase prints one JSON line; then a ``walls`` line (each phase's
+seconds and the script's), the ``kernels`` line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, as does a machine without a CUDA device.
@@ -277,6 +306,7 @@ that line, as does a machine without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -285,7 +315,8 @@ import time
 PHASES = ("device", "build", "kernels", "row_gather_windows", "lockstep",
           "north_star", "sharded", "scatter", "exact_lockstep", "exact",
           "exact_modes", "telemetry", "sharded_exact", "chaos", "fleet",
-          "autopilot", "scenarios", "bridge", "oracle", "live", "dist")
+          "autopilot", "scenarios", "bridge", "oracle", "live", "gossip",
+          "dist")
 # Board rows a pass of the row-gather kernel covers, at K = 256 (2 KiB of
 # bval and bslot a row); the kernel ships with 1,536 (3 MiB).
 ROW_GATHER_WINDOWS = (384, 768, 1024, 1536, 2048, 4096, 8000)
@@ -2711,6 +2742,10 @@ TELEMETRY_EXACT_ROUNDS = 20
 # The compressed digest and deltas' card-against-CPU rounds (20 until
 # the script's time limit asked for a cut; about 1 s a round on the CPU).
 TELEMETRY_CPU_ROUNDS = 10
+# The exact planes card against CPU: 512 × 10 (M = 5,120, still the
+# two-stage select) is about a ninth of 1,024 × 10's CPU time, whose
+# [N, M] passes outgrow the host's caches.
+TELEMETRY_CPU_EXACT_N = 512
 TELEMETRY_BUCKETS = 64
 
 
@@ -3144,10 +3179,11 @@ def phase_telemetry(topo, fused, exact_n=4096):
     """The telemetry planes (``models/planes.py``) on both models: the
     exact ``value`` workload, the compressed north star (trace and
     provenance, and the twin's trace), the compressed digest and deltas
-    at the lockstep size, and card against CPU at the exact lockstep's
-    size (n = 1,024 × 10) and, for the compressed trace and provenance,
-    the lockstep's (n = 4,096; its digest and deltas at n = 1,024, where
-    the CPU's [N, M] belief view takes well under a second a round).
+    at the lockstep size, and card against CPU: the exact planes at half
+    the exact lockstep's size (n = 512 × 10), the compressed trace and
+    provenance at the lockstep's (n = 4,096), its digest and deltas at
+    n = 1,024, where the CPU's [N, M] belief view takes well under a
+    second a round.
     Returns the launch counts of the card runs."""
     from sidecar_tpu_torch.models.compressed import CompressedSim
     from sidecar_tpu_torch.models.exact import ExactSim, SimParams
@@ -3176,7 +3212,7 @@ def phase_telemetry(topo, fused, exact_n=4096):
     ok = ok and small["ok"]
     t0 = time.perf_counter()
 
-    xn = min(1024, exact_n)
+    xn = min(TELEMETRY_CPU_EXACT_N, exact_n)
     xp = SimParams(n=xn, services_per_node=10, fanout=3, budget=15,
                    drop_prob=0.1)
     xtopo = erdos_renyi(xn, avg_degree=8.0, seed=3)
@@ -5845,12 +5881,551 @@ def phase_live(n=LIVE_N, hosts=BRIDGE_HOSTS):
     return [twin_counts, bridge_counts]
 
 
-# -- phase 20: the shard groups over torch.distributed -------------------------
+# -- phase 20: the live node's transport ----------------------------------------
+
+GOSSIP_ROUND_S = 0.05             # the cross-check's gossip interval
+GOSSIP_NAMES = ("chaos-a", "chaos-b", "chaos-c")
+GOSSIP_SPLIT = (10, 50)           # the plan's split rounds [start, end)
+GOSSIP_CHURN_ROUND = 20
+GOSSIP_SIM_ROUNDS = 100
+GOSSIP_SEED = 77
+# 16 nodes, not 32: 32 × 10 nodes sharing this one interpreter did not
+# reach one catalog set within 50 s (their writers shed inbound records
+# under the burst; PERF.md §4).
+GOSSIP_NODES, GOSSIP_SPN = 16, 10
+GOSSIP_INTERVAL = 0.2             # the reference's protocol constants
+GOSSIP_FANOUT, GOSSIP_MESSAGES = 3, 15
+GOSSIP_BRIDGE_ROUNDS = 60
+
+
+def gossip_plan():
+    """``tests/test_chaos.py``'s cross-validation plan: a clean split of
+    a from (b, c) over rounds [10, 50), with 20 % loss and a 20 %
+    one-round delay on the (b, c) → a direction for the whole run."""
+    from sidecar_tpu_torch.chaos import EdgeFault, FaultPlan
+
+    side_a, side_b = (0,), (1, 2)
+    return FaultPlan(
+        seed=GOSSIP_SEED,
+        edges=(EdgeFault(src=side_b, dst=side_a, drop_prob=0.2),
+               EdgeFault(src=side_b, dst=side_a, delay_rounds=1,
+                         delay_prob=0.2)),
+    ).with_edges(*FaultPlan.partition(side_a, side_b, *GOSSIP_SPLIT))
+
+
+def wait_until(predicate, timeout, step=0.02) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(step)
+    return False
+
+
+class LiveNode:
+    """One port node on loopback: a catalog, its writer thread and a
+    gossip transport (started by :meth:`start`)."""
+
+    def __init__(self, name, cluster, **kw):
+        import threading
+
+        from sidecar_tpu_torch.catalog import ServicesState
+        from sidecar_tpu_torch.runtime import TimedLooper
+        from sidecar_tpu_torch.transport import GossipTransport
+
+        self.state = ServicesState(hostname=name, cluster_name=cluster)
+        self.transport = GossipTransport(
+            node_name=name, cluster_name=cluster, bind_ip="127.0.0.1",
+            bind_port=0, advertise_ip="127.0.0.1", **kw)
+        self.looper = TimedLooper(0.0)
+        self.writer = threading.Thread(
+            target=self.state.process_service_msgs, args=(self.looper,),
+            name=f"writer-{name}", daemon=True)
+        self.writer.start()
+        self.scheduler = None
+        self.loopers = []
+
+    def start(self, seeds=None) -> int:
+        return self.transport.start(self.state, seeds=seeds)
+
+    def records(self) -> set:
+        with self.state._lock:
+            return {(h, s.id, s.status, s.updated)
+                    for h, _, s in self.state.each_service()}
+
+    def status_of(self, owner, sid):
+        server = self.state.servers.get(owner)
+        svc = server.services.get(sid) if server else None
+        return None if svc is None else svc.status
+
+    def engine_stats(self) -> dict:
+        return {name.split(".", 1)[1]: v
+                for name, v in self.transport.engine_stats().items()}
+
+    def stop(self):
+        for looper in self.loopers:
+            looper.quit()
+        if self.scheduler is not None:
+            self.scheduler.stop()
+        self.transport.stop()
+        # The sentinel first: a writer quit before it could leave a full
+        # queue that the sentinel's put would wait on forever.
+        self.state.stop_processing()
+        self.looper.quit()
+        self.writer.join(timeout=5.0)
+
+
+def stop_all(nodes):
+    """Stop the nodes together: each stop joins its node's threads."""
+    import threading
+
+    threads = [threading.Thread(target=node.stop) for node in nodes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+
+def os_threads() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("Threads:"):
+                return int(line.split()[1])
+    return -1
+
+
+def gossip_cross_live():
+    """Part 2a: the plan on three live port nodes (``test_chaos``'s live
+    path).  Returns ``(the line's fields, failures)``."""
+    from sidecar_tpu_torch import metrics
+    from sidecar_tpu_torch import service as svc
+    from sidecar_tpu_torch.chaos import LiveChaosController, LiveInjector
+    from sidecar_tpu_torch.runtime import FreeLooper
+
+    failures = []
+    plan = gossip_plan()
+    names = list(GOSSIP_NAMES)
+    before = {k: metrics.counter(f"chaos.live.{k}") for k in (
+        "droppedRecords", "delayedRecords", "partitionEdgesCut")}
+    injectors = {n: LiveInjector(plan, names, n, GOSSIP_ROUND_S)
+                 for n in names}
+    nodes = {}
+    controller = ctl_thread = None
+    sids = {n: f"svc-{n[-1]}" for n in names}
+    t_start = time.perf_counter()
+    try:
+        for n in names:
+            nodes[n] = LiveNode(n, "chaos-xv", gossip_interval=GOSSIP_ROUND_S,
+                                push_pull_interval=1.0, probe_interval=5.0,
+                                suspect_timeout=60.0,
+                                fault_injector=injectors[n])
+        controller = LiveChaosController(
+            plan, {n: nodes[n].transport for n in names}, GOSSIP_ROUND_S)
+        recs = {}
+        port_a = nodes[names[0]].start()
+        for n in names:
+            if n != names[0]:
+                nodes[n].start()
+                nodes[n].transport.join("127.0.0.1", port_a)
+            recs[n] = svc.Service(
+                id=sids[n], name="web", image="i:1", hostname=n,
+                updated=svc.now_ns(), status=svc.ALIVE,
+                ports=[svc.Port("tcp", 1000, 80, "127.0.0.1")])
+            nodes[n].state.add_service_entry(recs[n].copy())
+            nodes[n].state.send_services([recs[n]], FreeLooper(3))
+        if not wait_until(lambda: all(
+                nodes[n].status_of(o, sids[o]) == svc.ALIVE
+                for n in names for o in names), 20.0):
+            raise SystemExit("gossip: the three nodes did not converge "
+                             "before the plan")
+        t0 = time.monotonic()
+        for inj in injectors.values():
+            inj.start(t0)
+        controller.start(t0)
+        ctl_thread = controller.run(poll_s=GOSSIP_ROUND_S / 2)
+        anchor = injectors[names[0]]
+        wait_until(lambda: anchor.round_now() >= GOSSIP_CHURN_ROUND, 5.0,
+                   step=0.005)
+        for n, status in ((names[1], svc.DRAINING), (names[2], svc.ALIVE)):
+            rec = recs[n].copy()
+            rec.status, rec.updated = status, svc.now_ns()
+            nodes[n].state.add_service_entry(rec.copy())
+            nodes[n].state.send_services([rec], FreeLooper(3))
+        same_side = wait_until(lambda: nodes[names[2]].status_of(
+            names[1], sids[names[1]]) == svc.DRAINING, 5.0)
+        wait_until(lambda: anchor.round_now() >= GOSSIP_SPLIT[1] - 5, 5.0,
+                   step=0.005)
+        mid_a = nodes[names[0]].status_of(names[1], sids[names[1]])
+        # The round after the read: the sample is inside the split only
+        # if this is.
+        mid_round = anchor.round_now()
+        if not same_side:
+            failures.append("cross live: c did not hear b's drain")
+        if mid_round >= GOSSIP_SPLIT[1]:
+            failures.append(f"cross live: mid-split sample taken at round "
+                            f"{mid_round} >= {GOSSIP_SPLIT[1]}")
+        elif mid_a != svc.ALIVE:
+            failures.append("cross live: the split leaked the drain")
+        truth = {names[0]: svc.ALIVE, names[1]: svc.DRAINING,
+                 names[2]: svc.ALIVE}
+        t_heal = time.perf_counter()
+        healed = wait_until(lambda: all(
+            nodes[n].status_of(o, sids[o]) == truth[o]
+            for n in names for o in names), 20.0)
+        heal_s = time.perf_counter() - t_heal
+        if not healed:
+            failures.append("cross live: no convergence after the heal")
+
+        def provoked():
+            rec = recs[names[2]].copy()
+            rec.updated = svc.now_ns()
+            nodes[names[2]].state.add_service_entry(rec.copy())
+            nodes[names[2]].state.send_services([rec], FreeLooper(2))
+            return all(metrics.counter(f"chaos.live.{k}") > before[k]
+                       for k in before)
+
+        if not wait_until(provoked, 15.0, step=0.3):
+            failures.append("cross live: the injector counters did not "
+                            "move")
+        statuses = [nodes[names[0]].status_of(o, sids[o]) for o in names]
+    finally:
+        if controller is not None:
+            controller.stop()
+        if ctl_thread is not None:
+            ctl_thread.join(timeout=5.0)
+        stop_all(nodes.values())
+    return {"nodes": len(names), "round_s": GOSSIP_ROUND_S,
+            "mid_split_round": mid_round,
+            "mid_split_a_view_of_b": mid_a, "heal_s": heal_s,
+            "statuses": statuses,
+            "injected": {k: metrics.counter(f"chaos.live.{k}") - before[k]
+                         for k in before},
+            "wall_s": time.perf_counter() - t_start}, failures
+
+
+def gossip_cross_sim():
+    """Part 2b: the plan on the card's ``ChaosExactSim`` (n = 3, the
+    complete graph, ``test_sim_path``'s clock), 100 rounds with b's drain
+    and c's re-mint at round 20.  Returns ``(launch counts, the line's
+    fields, failures)``."""
+    import torch
+
+    from sidecar_tpu_torch.chaos import ChaosExactSim
+    from sidecar_tpu_torch.models.exact import SimParams
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+    from sidecar_tpu_torch.ops import topology
+    from sidecar_tpu_torch.ops.status import (ALIVE, DRAINING, pack,
+                                              unpack_status)
+
+    failures = []
+    cfg = TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
+    sim = ChaosExactSim(SimParams(n=3, services_per_node=1, fanout=2,
+                                  budget=3),
+                        topology.complete(3), cfg, gossip_plan(),
+                        device=DEVICE)
+    gen = sim.default_generator(1)
+    cst = sim.init_state()
+    curve, mid = [], None
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for r in range(GOSSIP_SIM_ROUNDS):
+        if r + 1 == GOSSIP_CHURN_ROUND:
+            tick = (r + 1) * cfg.round_ticks
+            for slot, status in ((1, DRAINING), (2, ALIVE)):
+                cst.sim.known[slot, slot] = int(pack(tick, status))
+                cst.sim.sent[slot, slot] = 0
+        cst = sim.step(cst, generator=gen)
+        curve.append(float(sim.convergence(cst)))
+        if r + 1 == GOSSIP_SPLIT[1] - 5:
+            mid = int(unpack_status(cst.sim.known[0, 1]))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launches()
+    if counts != expected(scatter_max_apply=GOSSIP_SIM_ROUNDS):
+        failures.append(f"cross sim launches {counts}")
+    known = cst.sim.known.cpu()
+    truth = known.max(dim=0).values
+    final = [int(s) for s in unpack_status(truth)]
+    if mid == DRAINING:
+        failures.append("cross sim: a heard the drain through the split")
+    if not bool((known == truth[None, :]).all()) or \
+            final != [ALIVE, DRAINING, ALIVE]:
+        failures.append(f"cross sim: final {final}")
+    eps_round = next((i + 1 for i, c in enumerate(curve) if c == 1.0
+                      and i + 1 >= GOSSIP_SPLIT[1]), None)
+    return counts, {"n": 3, "rounds": GOSSIP_SIM_ROUNDS,
+                    "mid_split_a_view_of_b": mid, "statuses": final,
+                    "final_convergence": curve[-1],
+                    "heal_round_converged": eps_round,
+                    "injection_counts": sim.injection_counts(cst),
+                    "run_s": run_s,
+                    "k4a_launches": counts["scatter_max_apply"]}, failures
+
+
+def gossip_services(node, spn, t_ns):
+    from sidecar_tpu_torch import service as svc
+
+    host = node.state.hostname
+    return [svc.Service(id=f"{host}-s{j}", name=f"app{j}", image="app:1",
+                        hostname=host, created=t_ns, updated=t_ns + j,
+                        status=svc.ALIVE,
+                        ports=[svc.Port("tcp", 20_000 + j, 80,
+                                        "127.0.0.1")])
+            for j in range(spn)]
+
+
+def gossip_cluster(n=GOSSIP_NODES, spn=GOSSIP_SPN,
+                   bridge_rounds=GOSSIP_BRIDGE_ROUNDS):
+    """Parts 3-5: ``n`` port nodes in this process on loopback at the
+    reference's protocol constants, each with a scheduler driving
+    ``broadcast_services_step`` and ``broadcast_tombstones_step`` over a
+    static list of ``spn`` local services (empty until the write); the
+    write, and the wall until every node holds one catalog set; the HTTP
+    API on node 0; then, the cluster stopped, node 0's catalog into the
+    bridge on the card.
+    Returns ``(launch counts, the line's fields, failures)``."""
+    import socket
+    import threading
+    import urllib.request
+
+    import torch
+
+    from sidecar_tpu_torch import metrics
+    from sidecar_tpu_torch import service as svc
+    from sidecar_tpu_torch.bridge import SimBridge
+    from sidecar_tpu_torch.catalog import decode
+    from sidecar_tpu_torch.models.timecfg import TimeConfig
+    from sidecar_tpu_torch.runtime import TimedLooper
+    from sidecar_tpu_torch.runtime.scheduler import Scheduler
+    from sidecar_tpu_torch.web import SidecarApi, serve_http
+
+    failures = []
+    threads0, pythreads0 = os_threads(), threading.active_count()
+    nodes, server = [], None
+    local = {}
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            node = LiveNode(f"node-{i:02d}", "gossip",
+                            gossip_interval=GOSSIP_INTERVAL,
+                            gossip_nodes=GOSSIP_FANOUT,
+                            gossip_messages=GOSSIP_MESSAGES)
+            local[node.state.hostname] = []
+            names = local[node.state.hostname]
+            node.scheduler = Scheduler(name=f"sched-{i:02d}")
+            for interval, step, label in (
+                    (1.0, node.state.broadcast_services_step,
+                     "broadcast-services"),
+                    (2.0, node.state.broadcast_tombstones_step,
+                     "broadcast-tombstones")):
+                looper = TimedLooper(interval)
+                node.loopers.append(looper)
+                node.scheduler.drive(looper, step(lambda names=names:
+                                                  list(names)), name=label)
+            nodes.append(node)
+        seed = f"127.0.0.1:{nodes[0].start()}"
+        for node in nodes[1:]:
+            node.start(seeds=[seed])
+        start_s = time.perf_counter() - t0
+        if not wait_until(lambda: all(len(nd.transport.members()) == n
+                                      for nd in nodes), 30.0, step=0.1):
+            seen = sorted(len(nd.transport.members()) for nd in nodes)
+            raise SystemExit(f"gossip: membership did not converge in "
+                             f"30 s (members seen: {seen})")
+        members_s = time.perf_counter() - t0
+        threads = os_threads() - threads0
+        pythreads = threading.active_count() - pythreads0
+        stats0 = [nd.engine_stats() for nd in nodes]
+
+        # The write: each node's services join its scheduler's list (so
+        # the tombstone step keeps them), then enter its catalog.
+        t_ns = svc.now_ns()
+        for node in nodes:
+            recs = gossip_services(node, spn, t_ns)
+            local[node.state.hostname].extend(recs)
+            for rec in recs:
+                node.state.add_service_entry(rec.copy())
+        t_write = time.perf_counter()
+        want = set().union(*(nd.records() for nd in nodes))
+        if len(want) != n * spn:
+            failures.append(f"gossip: {len(want)} records written")
+        # Each poll also samples the share of (node, record) pairs held,
+        # to show how much the gossip carries and what waits for a
+        # push-pull.
+        shares = []
+
+        def one_set():
+            held = [nd.records() & want for nd in nodes]
+            shares.append((time.perf_counter() - t_write,
+                           sum(map(len, held)) / (n * len(want))))
+            return all(len(nd.state.servers) == n and nd.records() == want
+                       for nd in nodes)
+
+        # The gossip carries most records and a node's next push-pull
+        # the rest, so the wait ends two push-pull periods after 99 % of
+        # the pairs are held (three after the write until they are), not
+        # at a fixed time that a slower host would miss.
+        pp = nodes[0].transport.push_pull_interval
+        t99 = None
+        while not (converged := one_set()):
+            if t99 is None and shares[-1][1] >= 0.99:
+                t99 = shares[-1][0]
+            if shares[-1][0] > (3 * pp if t99 is None else t99 + 2 * pp):
+                break
+            time.sleep(0.02)
+        converge_s = time.perf_counter() - t_write
+        held_share_s = {str(q): next((t for t, share in shares
+                                      if share >= q), None)
+                        for q in (0.5, 0.9, 0.99)}
+        if not converged:
+            missing = [n * spn - len(nd.records()) for nd in nodes]
+            failures.append(f"gossip: no convergence {converge_s:.1f} s "
+                            f"after the write (99 % held at {t99} s), "
+                            f"missing {missing}")
+        stats1 = [nd.engine_stats() for nd in nodes]
+
+        # A dead seed: the retry discipline's counters.
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            dead = s.getsockname()[1]
+        retry_ok = nodes[0].transport.join_with_retry("127.0.0.1", dead)
+
+        # The HTTP API on node 0, live.
+        cat = nodes[0].records()
+        node0_doc = nodes[0].state.encode()
+        server = serve_http(SidecarApi(nodes[0].state,
+                                       members_fn=nodes[0].transport.members,
+                                       cluster_name="gossip"),
+                            bind="127.0.0.1", port=0)
+        port = server.server_address[1]
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/api/state.json", timeout=30) as r:
+            state_doc = r.read()
+        served = decode(state_doc)
+        served_set = {(h, s.id, s.status, s.updated)
+                      for h, _, s in served.each_service()}
+        if served_set != cat:
+            failures.append("api: /api/state.json differs from node 0")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/api/metrics", timeout=30) as r:
+            prom = r.read().decode()
+        series = [line.split()[0] for line in prom.splitlines()
+                  if line and not line.startswith("#")]
+        engine_series = [s for s in series if s.startswith("sidecar_engine_")]
+        transport_series = [s for s in series
+                            if s.startswith("sidecar_transport_")]
+        if not engine_series or not transport_series:
+            failures.append(f"api: /api/metrics series {engine_series} "
+                            f"{transport_series}")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        t_stop = time.perf_counter()
+        stop_all(nodes)
+        stop_s = time.perf_counter() - t_stop
+
+    # Node 0's catalog into the bridge on the card, once the cluster is
+    # stopped (its threads would share the host with the dispatches).
+    bridge = SimBridge(decode(node0_doc), TimeConfig())
+    st, params, mapping, _ = bridge.snapshot()
+    proj0 = bridge._project(st.known.cpu().numpy(), mapping, params)
+    statuses = {sid: svc.status_string(stat) for _, sid, stat, _ in cat}
+    if any(proj0[h] != statuses for h in mapping.hostnames):
+        failures.append("bridge: the round-0 projection is not node "
+                        "0's catalog")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = bridge.simulate(bridge_rounds, seed=4,
+                          cold_nodes=list(mapping.hostnames),
+                          eps=1e-5)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    counts = launches()
+    if counts != expected(scatter_max_apply=bridge_rounds):
+        failures.append(f"bridge launches {counts}")
+    if len(rep.convergence) != bridge_rounds:
+        failures.append("bridge: convergence curve")
+
+    def per_node(key):
+        vals = [b[key] - a[key] for a, b in zip(stats0, stats1)]
+        return {"mean": sum(vals) / len(vals), "max": max(vals)}
+
+    totals = {k: sum(s[k] for s in stats1) / len(stats1)
+              for k in stats1[0]}
+    return counts, {
+        "nodes": n, "services_per_node": spn,
+        "gossip_interval_s": GOSSIP_INTERVAL, "gossip_nodes": GOSSIP_FANOUT,
+        "gossip_messages": GOSSIP_MESSAGES, "start_s": start_s,
+        "membership_s": members_s, "converged": converged,
+        "write_to_converged_s": converge_s,
+        "write_to_converged_rounds": converge_s / GOSSIP_INTERVAL,
+        "held_share_s": held_share_s, "push_pull_interval_s": pp,
+        "engine_write_to_converged_per_node": {
+            k: per_node(k) for k in ("udpOut", "udpBytesOut", "udpIn",
+                                     "udpBytesIn", "pushPullOut",
+                                     "pushPullIn")},
+        "engine_total_mean_per_node": totals,
+        "os_threads_per_node": threads / n,
+        "python_threads_per_node": pythreads / n,
+        "dead_seed_join": retry_ok,
+        "transport_counters": {k: v for k, v in metrics.snapshot()[
+            "counters"].items() if k.startswith("transport.")},
+        "bridge": {"rounds": bridge_rounds, "cold_nodes": n,
+                   "eps": 1e-5, "predicted_eps_round": rep.eps_round,
+                   "predicted_eps_s": None if rep.eps_round is None
+                   else rep.eps_round * GOSSIP_INTERVAL,
+                   "live_rounds": converge_s / GOSSIP_INTERVAL,
+                   "final_convergence": rep.convergence[-1],
+                   "simulate_s": sim_s,
+                   "k4a_launches": counts["scatter_max_apply"]},
+        "api": {"state_bytes": len(state_doc),
+                "engine_series": len(engine_series),
+                "transport_series": len(transport_series)},
+        "stop_s": stop_s}, failures
+
+
+def phase_gossip(n=GOSSIP_NODES):
+    """The live node's transport: the engine's build, the cross-check of
+    one plan on live port nodes and on the card's ``ChaosExactSim``, a
+    live cluster of ``n`` nodes, the bridge on its catalog and the HTTP
+    API.  Returns the launch counts of the card's runs."""
+    from sidecar_tpu_torch.transport import gossip
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib = gossip.build_native()
+    build_s = time.perf_counter() - t0
+    gossip.load_native()
+    live, live_fail = gossip_cross_live()
+    sim_counts, sim, sim_fail = gossip_cross_sim()
+    cluster_counts, cluster, cluster_fail = gossip_cluster(n)
+    failures = live_fail + sim_fail + cluster_fail
+    if live["statuses"] != sim["statuses"]:
+        failures.append(f"cross: live {live['statuses']} sim "
+                        f"{sim['statuses']}")
+    gxx = subprocess.run([gossip.compiler(), "--version"],
+                         capture_output=True, text=True, check=True)
+    emit({"phase": "gossip", "engine": {"compiler":
+                                        gxx.stdout.splitlines()[0],
+                                        "library": lib.name,
+                                        "build_s": build_s},
+          "cross_live": live, "cross_sim": sim, "cluster": cluster,
+          "failures": failures, "phase_s": time.perf_counter() - t_phase,
+          "ok": not failures})
+    if failures:
+        raise SystemExit(f"gossip phase failed: {failures}")
+    return [sim_counts, cluster_counts]
+
+
+# -- phase 21: the shard groups over torch.distributed -------------------------
 
 DIST_EXACT_ROUNDS = {"nccl": 50, "gloo": 50}
 DIST_COMPRESSED_ROUNDS = {"nccl": 25, "gloo": 25}
 DIST_CONV_EVERY = 25
-DIST_GRID_ROUNDS = 100
+DIST_GRID_ROUNDS = 50             # of the fleet phase's 100
 DIST_GLOO_N = 16_384
 # The twins' other paths over the group: the telemetry planes, the
 # pipelined round and configs 4 and 5.
@@ -5864,6 +6439,10 @@ DIST_DELTA_CAP = 1 << 16
 DIST_CONFIG4_SCALE = 0.25           # 16,384 × 10
 DIST_CONFIG4_ROUNDS = 100           # of its 400: ε falls at round 75
 DIST_CONFIG5_SCALE = 1.0            # the declared 1M × 64
+# The split's 150 rounds and the first 150 of the heal's 450, held
+# against that prefix of the single-device run (ε falls at round 590,
+# which the chaos phase reaches).
+DIST_CONFIG5_HEAL_ROUNDS = 150
 DIST_PATHS = ("exact_planes", "compressed_trace", "compressed_deltas",
               "exact_pipelined", "compressed_pipelined", "config4",
               "config5")
@@ -5891,7 +6470,7 @@ def dist_jobs(north_star_n):
           DIST_PATH_ROUNDS),
          ("config5", None, 4,
           int(1000 * DIST_CONFIG5_SCALE ** 0.5) ** 2,
-          CONFIG5_RUN["split_rounds"] + CONFIG5_RUN["heal_rounds"])]
+          CONFIG5_RUN["split_rounds"] + DIST_CONFIG5_HEAL_ROUNDS)]
     gloo = [("exact", mode, 4, 4096, DIST_EXACT_ROUNDS["gloo"])
             for mode in ("all_gather", "ring")] + \
         [("compressed", mode, 4, DIST_GLOO_N, DIST_COMPRESSED_ROUNDS["gloo"])
@@ -6035,21 +6614,16 @@ def dist_path(kind, mode, d, n, rounds, group, device, graphs):
     trace, digest and provenance in one run beside the untraced run; the
     compressed twin's trace (or deltas) beside ``run_fast``; either
     twin's pipelined run; config4 or config5 through ``group=``.
-    Returns ``(record, sim, final state, profile drive)``: the record
-    holds the timed run's wall (and the untraced one's), its curve,
-    every stream's fields on the host, the carry and whether the traced
-    run ended where the untraced one did."""
-    import math
-
+    Returns ``(record, sim, final state)``, a config's with no sim and
+    no state: the record holds the timed run's wall (and the untraced
+    one's), its curve, every stream's fields on the host, the carry and
+    whether the traced run ended where the untraced one did."""
     import torch
 
     from sidecar_tpu_torch.models.timecfg import TimeConfig
     from sidecar_tpu_torch.ops import provenance as prov_ops
     from sidecar_tpu_torch.ops import trace as trace_ops
-    from sidecar_tpu_torch.parallel import (
-        LocalShardGroup,
-        ShardedCompressedSim,
-    )
+    from sidecar_tpu_torch.parallel import LocalShardGroup
     from sidecar_tpu_torch.sim import scenarios
 
     rec = {}
@@ -6060,23 +6634,16 @@ def dist_path(kind, mode, d, n, rounds, group, device, graphs):
                 lambda: scenarios.config4_ba_antientropy(
                     rounds=rounds, scale=DIST_CONFIG4_SCALE, device=device,
                     group=g))
-            sim = scenarios.config4_sim(DIST_CONFIG4_SCALE, device=device,
-                                        group=g)
         else:
             res, rec["wall_s"] = dist_timed(
                 lambda: scenarios.config5_split_heal(
                     scale=DIST_CONFIG5_SCALE,
                     split_rounds=CONFIG5_RUN["split_rounds"],
-                    heal_rounds=CONFIG5_RUN["heal_rounds"], device=device,
-                    group=g))
-            sim = ShardedCompressedSim(
-                scenarios.config5_params(res.n),
-                scenarios.split_mesh(math.isqrt(res.n))[0],
-                scenarios.CONFIG5_TIME, d=d, device=device, group=g)
+                    heal_rounds=rounds - CONFIG5_RUN["split_rounds"],
+                    device=device, group=g))
         rec.update(n=res.n, curve=[float(c) for c in res.convergence],
                    eps_round=res.eps_round)
-        final = sim.mint(sim.init_state(), burst(sim.p.m, 0.001), 10)
-        return rec, sim, final, None
+        return rec, None, None
     topo = dist_topology(n, graphs)
     timecfg = None
     if kind == "exact_pipelined":
@@ -6085,7 +6652,6 @@ def dist_path(kind, mode, d, n, rounds, group, device, graphs):
     sim = dist_sim("exact" if kind.startswith("exact") else "compressed",
                    mode, d, n, topo, group, device, timecfg)
     gen = sim.default_generator(0)
-    drive = None
     if kind == "exact_planes":
         draws = [sim.draw(gen, r) for r in range(1, rounds + 1)]
         (plain, plain_conv), rec["untraced_wall_s"] = dist_timed(
@@ -6101,12 +6667,6 @@ def dist_path(kind, mode, d, n, rounds, group, device, graphs):
                                            and bool(torch.equal(
                                                plain_conv, conv))))
         del plain
-
-        def drive(st, draws):
-            return sim._run(st, len(draws), True, None, draws, False,
-                            plane=AllPlanes(sim, st, len(draws),
-                                            DIST_EXACT_PLANES, 0,
-                                            (0,)))[0]
     elif kind in ("compressed_trace", "compressed_deltas"):
         draws = [sim.draw(gen, r) for r in range(1, rounds + 1)]
         state = sim.mint(sim.init_state(), burst(sim.p.m, 0.001), 10)
@@ -6126,12 +6686,6 @@ def dist_path(kind, mode, d, n, rounds, group, device, graphs):
         rec.update(streams={plane: stream_host(stream)},
                    traced_equals_untraced=not states_equal(plain, final))
         del plain
-
-        def drive(st, draws):
-            if plane == "trace":
-                return sim.run_with_trace(st, len(draws), draws=draws)[0]
-            return sim.run_with_deltas(st, len(draws), DIST_DELTA_CAP,
-                                       draws=draws)[0]
     else:
         if kind == "exact_pipelined":
             (final, conv, inflight), rec["wall_s"] = dist_timed(
@@ -6144,11 +6698,7 @@ def dist_path(kind, mode, d, n, rounds, group, device, graphs):
                                           generator=gen))
         rec.update(curve=curve_list(conv),
                    carry=[t.cpu().numpy() for t in inflight.publish])
-
-        def drive(st, draws):
-            return sim.run_fast_pipelined(
-                st, len(draws) - 1, generator=sim.default_generator(7))[0]
-    return rec, sim, final, drive
+    return rec, sim, final
 
 
 def dist_path_expected(kind, d, world, rounds):
@@ -6177,15 +6727,16 @@ def dist_path_expected(kind, d, world, rounds):
 def dist_rank(ctx, jobs, topo_data):
     """A rank of the ``dist`` phase: each job through a group over the
     ranks; returns per job the rank's digests, curve or table (and a path
-    job's streams and carry), wall, launches, peak memory, exchange
-    accounting and a 5-round profile."""
+    job's streams and carry), wall, launches, peak memory and exchange
+    accounting, and a 5-round profile of the first exact and the first
+    compressed job and of the node-axis chaos job."""
     import torch
 
     from sidecar_tpu_torch import convert
 
     big = convert.topology_from_numpy(*topo_data)
     graphs = {big.n: big}
-    out = []
+    out, profiled = [], set()
     for kind, mode, d, n, rounds in jobs:
         t_setup = time.perf_counter()
         g = ctx.group(d)
@@ -6205,8 +6756,8 @@ def dist_rank(ctx, jobs, topo_data):
         elif kind == "chaos_nodes":
             fleet, run = dist_chaos_fleet(ctx.device, n, rounds, g, d)
         elif kind in DIST_PATHS:
-            path, sim, final, drive = dist_path(kind, mode, d, n, rounds, g,
-                                                ctx.device, graphs)
+            path, sim, final = dist_path(kind, mode, d, n, rounds, g,
+                                         ctx.device, graphs)
         else:
             final, curve = dist_drive(sim, kind, rounds)
         torch.cuda.synchronize()
@@ -6242,10 +6793,11 @@ def dist_rank(ctx, jobs, topo_data):
                     rec["digests"] = field_digests(
                         convert.state_to_numpy(final))
             rec["digest_s"] = time.perf_counter() - t_check
-            t_check = time.perf_counter()
-            rec["profile"] = profile_rounds(
-                sim, final, drive=None if path is None else drive)
-            rec["profile_s"] = time.perf_counter() - t_check
+            if kind in ("exact", "compressed") and kind not in profiled:
+                profiled.add(kind)
+                t_check = time.perf_counter()
+                rec["profile"] = profile_rounds(sim, final)
+                rec["profile_s"] = time.perf_counter() - t_check
             del sim, final
         out.append(rec)
         fleet = run = None
@@ -6316,17 +6868,21 @@ def dist_reference(kind, mode, d, n, rounds, world, graphs, config5=None,
             res = scenarios.config5_split_heal(
                 scale=DIST_CONFIG5_SCALE,
                 split_rounds=CONFIG5_RUN["split_rounds"],
-                heal_rounds=CONFIG5_RUN["heal_rounds"], device=DEVICE)
+                heal_rounds=rounds - CONFIG5_RUN["split_rounds"],
+                device=DEVICE)
             config5 = {"curve": [float(c) for c in res.convergence],
                        "n": res.n}
+        # A sample every CONFIG5_RUN["every"] rounds; the job's rounds
+        # are a prefix of the chaos phase's.
+        curve = config5["curve"][:rounds // CONFIG5_RUN["every"]]
         eps_round = scenarios._eps_round(
-            np.asarray(config5["curve"], np.float32), CONFIG5_RUN["eps"],
-            rounds // len(config5["curve"]))
-        return {**config5, "eps_round": eps_round,
+            np.asarray(curve, np.float32), CONFIG5_RUN["eps"],
+            CONFIG5_RUN["every"])
+        return {**config5, "curve": curve, "eps_round": eps_round,
                 "wall_s": time.perf_counter() - t0,
                 "launches": launches(), "single_device": True}
     if kind in DIST_PATHS:
-        path, sim, final, _ = dist_path(kind, mode, d, n, rounds, None,
+        path, sim, final = dist_path(kind, mode, d, n, rounds, None,
                                         DEVICE, graphs)
         counts = launches()
         ref = {**dist_path_digests(path), "wall_s": path["wall_s"],
@@ -6572,6 +7128,16 @@ def main(argv=None) -> int:
                          "this))")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    t_main, walls = time.perf_counter(), {}
+
+    @contextlib.contextmanager
+    def timed(name):
+        # Each phase's wall, printed before the kernels line.
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
 
     import torch
 
@@ -6591,9 +7157,10 @@ def main(argv=None) -> int:
         variants = (row_gather_variants().values()
                     if "row_gather_windows" in phases else ())
         libs = build.build(variants=variants)
+        walls["build"] = time.perf_counter() - t0
         emit({"phase": "build", "libraries": {k: v.name
                                               for k, v in libs.items()},
-              "seconds": time.perf_counter() - t0,
+              "seconds": walls["build"],
               **{kernel: ptxas_report(build.build_log("publish_gather"),
                                       kernel)
                  for kernel in ("publish_board_kernel",
@@ -6610,43 +7177,55 @@ def main(argv=None) -> int:
         # on the host at n=100,000.
         t0 = time.perf_counter()
         topo = erdos_renyi(args.n, avg_degree=8.0, seed=3)
-        graph_s = time.perf_counter() - t0
+        graph_s = walls["graph"] = time.perf_counter() - t0
     records = {}
     if "kernels" in phases:
-        records = phase_kernels(args.n, 256, 3, args.exact_n,
-                                args.exact_n * 10, topo)
+        with timed("kernels"):
+            records = phase_kernels(args.n, 256, 3, args.exact_n,
+                                    args.exact_n * 10, topo)
     if "row_gather_windows" in phases:
-        phase_row_gather_windows(args.n)
+        with timed("row_gather_windows"):
+            phase_row_gather_windows(args.n)
     if "lockstep" in phases:
-        phase_lockstep()
+        with timed("lockstep"):
+            phase_lockstep()
     # The main paths' runs, each with its counts set to 0 just before it
     # and read just after.
     runs = []
     if phases & {"north_star", "sharded", "telemetry"}:
-        counts, reference, fused = phase_north_star(topo, graph_s,
-                                                    **NORTH_STAR_RUN)
-        runs += counts
-        runs += north_star_modes(topo, fused, **NORTH_STAR_RUN)
+        with timed("north_star"):
+            counts, reference, fused = phase_north_star(topo, graph_s,
+                                                        **NORTH_STAR_RUN)
+            runs += counts
+            runs += north_star_modes(topo, fused, **NORTH_STAR_RUN)
         if "sharded" in phases:
-            runs += phase_sharded(topo, reference, **NORTH_STAR_RUN)
+            with timed("sharded"):
+                runs += phase_sharded(topo, reference, **NORTH_STAR_RUN)
         del reference
     if "scatter" in phases:
-        runs.append(phase_scatter(args.exact_n))
+        with timed("scatter"):
+            runs.append(phase_scatter(args.exact_n))
     if "exact_lockstep" in phases:
-        phase_exact_lockstep(min(1024, args.exact_n))
+        with timed("exact_lockstep"):
+            phase_exact_lockstep(min(1024, args.exact_n))
     if "exact" in phases:
-        runs.append(phase_exact(args.exact_n))
+        with timed("exact"):
+            runs.append(phase_exact(args.exact_n))
     if "exact_modes" in phases:
-        runs.append(phase_exact_modes(args.exact_n))
+        with timed("exact_modes"):
+            runs.append(phase_exact_modes(args.exact_n))
     if "telemetry" in phases:
-        runs += phase_telemetry(topo, fused, args.exact_n)
+        with timed("telemetry"):
+            runs += phase_telemetry(topo, fused, args.exact_n)
     del fused
     if "sharded_exact" in phases:
-        runs += phase_sharded_exact(args.exact_n,
-                                    cpu_n=min(1024, args.exact_n))
+        with timed("sharded_exact"):
+            runs += phase_sharded_exact(args.exact_n,
+                                        cpu_n=min(1024, args.exact_n))
     if "chaos" in phases:
-        counts, errs, config5 = phase_chaos(args.exact_n,
-                                            cpu_n=min(1024, args.exact_n))
+        with timed("chaos"):
+            counts, errs, config5 = phase_chaos(
+                args.exact_n, cpu_n=min(1024, args.exact_n))
         runs += counts
         # The kernels' worst differences include the chaos path's own.
         for name, err in errs.items():
@@ -6654,28 +7233,29 @@ def main(argv=None) -> int:
                 records[name]["max_abs_err"] = max(
                     records[name]["max_abs_err"], err)
     if "fleet" in phases:
-        counts, errs = phase_fleet(topo, min(1024, args.exact_n),
-                                   args.exact_n)
+        with timed("fleet"):
+            counts, errs = phase_fleet(topo, min(1024, args.exact_n),
+                                       args.exact_n)
         runs += counts
         # ... and the fleet path's own.
         for name, err in errs.items():
             if name in records:
                 records[name]["max_abs_err"] = max(
                     records[name]["max_abs_err"], err)
-    if "autopilot" in phases:
-        runs += phase_autopilot()
-    if "scenarios" in phases:
-        runs += phase_scenarios()
-    if "bridge" in phases:
-        runs += phase_bridge()
-    if "oracle" in phases:
-        runs += phase_oracle()
-    if "live" in phases:
-        runs += phase_live()
+    for name, phase in (("autopilot", phase_autopilot),
+                        ("scenarios", phase_scenarios),
+                        ("bridge", phase_bridge), ("oracle", phase_oracle),
+                        ("live", phase_live), ("gossip", phase_gossip)):
+        if name in phases:
+            with timed(name):
+                runs += phase()
     if "dist" in phases:
         # Last: it reuses the north star's graph.
-        runs += phase_dist(smi, topo, args.n, config5)
+        with timed("dist"):
+            runs += phase_dist(smi, topo, args.n, config5)
     del topo
+    emit({"phase": "walls", "seconds": walls,
+          "total_s": time.perf_counter() - t_main})
     if records:
         emit({"kernels": [
             {"name": f"{name}_kernel", "route": "cuda",

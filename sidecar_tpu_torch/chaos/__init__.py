@@ -1,11 +1,13 @@
-"""Chaos and adversary — the port of ``sidecar_tpu/chaos/``'s simulator
-half: one seeded :class:`FaultPlan` (``chaos/plan.py``) and an optional
+"""Chaos and adversary — the port of ``sidecar_tpu/chaos/``: one seeded
+:class:`FaultPlan` (``chaos/plan.py``) and an optional
 :class:`AdversaryPlan` (``chaos/adversary.py``) drive
 :class:`ChaosExactSim` (``chaos/sim_inject.py``), the exact model's
 round with per-edge drop, delay and duplicate schedules, asymmetric
 partitions, node pause and crash windows, clock skew, forged records
-and the per-origin defences.  The live transport injector of the
-reference (``live_inject.py``) holds no device code and is not ported.
+and the per-origin defences; and the same plans on the live cluster
+(``chaos/live_inject.py``): :class:`LiveInjector` at a node's transport
+boundary, :class:`AdversaryInjector` forging catalog pushes, and
+:class:`LiveChaosController` cutting partitions in the gossip engines.
 """
 
 from sidecar_tpu_torch.chaos.adversary import (
@@ -13,6 +15,11 @@ from sidecar_tpu_torch.chaos.adversary import (
     AdversaryPlan,
     Attack,
     CompiledAdversaryPlan,
+)
+from sidecar_tpu_torch.chaos.live_inject import (
+    AdversaryInjector,
+    LiveChaosController,
+    LiveInjector,
 )
 from sidecar_tpu_torch.chaos.plan import (
     FOREVER,
@@ -33,6 +40,7 @@ from sidecar_tpu_torch.chaos.sim_inject import (
 
 __all__ = [
     "ATTACK_KINDS",
+    "AdversaryInjector",
     "AdversaryPlan",
     "Attack",
     "ChaosExactSim",
@@ -45,6 +53,8 @@ __all__ = [
     "FaultDraws",
     "FaultPlan",
     "HealthFault",
+    "LiveChaosController",
+    "LiveInjector",
     "NodeFault",
     "coin",
     "resolve_nodes",

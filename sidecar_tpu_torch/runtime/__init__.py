@@ -1,6 +1,7 @@
-"""Host-side loop runners of the live node (``looper.py``): every
-background loop takes a ``Looper``, so a test runs it exactly n times
-with ``FreeLooper(n)``."""
+"""Host-side loop runners of the live node: every background loop takes
+a ``Looper`` (``looper.py``), so a test runs it exactly n times with
+``FreeLooper(n)``; ``scheduler.py``'s ``Scheduler`` drives any number
+of periodic loops on one thread."""
 
 from sidecar_tpu_torch.runtime.looper import (
     FreeLooper,

@@ -17,9 +17,10 @@ variables; the port reads none: :func:`set_phases` turns the scopes on
 or off, and :func:`forced_phases` pins the switch for a block.  The
 check runs per call, so a switch takes effect at the next round.
 
-The reference's other half — compiled-HLO cost reports, collective
-byte parsing and profile-trace reduction — reads XLA's programs and is
-not ported.
+:func:`snapshot` is the document of ``GET /api/cost.json``.  The
+reference's compiled-HLO cost reports, collective byte parsing and
+profile-trace reduction read XLA's programs and are not ported, so its
+``programs`` block is empty.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import functools
 from typing import Optional
 
 import torch
+
+from sidecar_tpu_torch import metrics
 
 PHASE_PREFIX = "sidecar.phase."
 
@@ -85,3 +88,19 @@ def forced_phases(enabled: bool = True):
         yield
     finally:
         set_phases(old)
+
+
+def snapshot() -> dict:
+    """The view behind ``GET /api/cost.json``: the phase-scope state,
+    the phase taxonomy, the ``compile.*`` counters and the compiled
+    programs' reports — none in the port, which compiles no XLA
+    program."""
+    return {
+        "phases_enabled": phases_enabled(),
+        "phase_taxonomy": list(PHASES),
+        "programs": {},
+        "compile": {
+            "count": metrics.counter("compile.count"),
+            "cache_hits": metrics.counter("compile.cache_hit"),
+        },
+    }

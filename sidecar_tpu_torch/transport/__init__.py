@@ -1,6 +1,7 @@
-"""The live node's transport plane: digest-directed anti-entropy
-sessions between two catalogs (``antientropy.py``).  The gossip
-transport, which loads the native engine, is not ported yet."""
+"""The live node's transport plane: the native gossip engine and the
+delegate that bridges it to the catalog (``gossip.py``), and
+digest-directed anti-entropy sessions between two catalogs
+(``antientropy.py``)."""
 
 from sidecar_tpu_torch.transport.antientropy import (
     AntiEntropyResponder,
@@ -10,6 +11,8 @@ from sidecar_tpu_torch.transport.antientropy import (
     SessionReport,
     reconcile,
 )
+from sidecar_tpu_torch.transport.gossip import GossipTransport, load_native
 
-__all__ = ["AntiEntropyResponder", "LoopbackChannel", "ReconcileSession",
-           "SessionConfig", "SessionReport", "reconcile"]
+__all__ = ["GossipTransport", "load_native", "AntiEntropyResponder",
+           "LoopbackChannel", "ReconcileSession", "SessionConfig",
+           "SessionReport", "reconcile"]

@@ -1352,3 +1352,49 @@ def test_live_ladder_equals_card_ladder(card, m, depth):
     assert levels[0].device == packed_dev.device
     for k in range(depth):
         assert st.digest_level(k) == digest_ops.digest_value(levels[k][0]), k
+
+
+def test_cross_validation_plan_on_card_equals_cpu(card):
+    """The live cross-check's sim half (``tests/test_chaos.py``'s plan:
+    a split of node a from b and c over rounds [10, 50), 20 % loss and a
+    20 % one-round delay on (b, c) → a) at n = 3 on the complete graph,
+    100 rounds with b's drain and c's re-mint at round 20, on the card
+    and on the CPU from one set of draws: equal every round, K4a once a
+    round, a's view of b stale through the split, and [ALIVE, DRAINING,
+    ALIVE] everywhere at the end."""
+    from sidecar_tpu_torch.chaos import ChaosExactSim, EdgeFault, FaultPlan
+    from sidecar_tpu_torch.ops.status import (ALIVE, DRAINING, pack,
+                                              unpack_status)
+
+    plan = FaultPlan(seed=77, edges=(
+        EdgeFault(src=(1, 2), dst=(0,), drop_prob=0.2),
+        EdgeFault(src=(1, 2), dst=(0,), delay_rounds=1, delay_prob=0.2),
+    )).with_edges(*FaultPlan.partition((0,), (1, 2), 10, 50))
+    p = SimParams(n=3, services_per_node=1, fanout=2, budget=3)
+    t = TimeConfig(refresh_interval_s=10_000.0, push_pull_interval_s=2.0)
+    cpu = ChaosExactSim(p, topology.complete(3), t, plan, device="cpu")
+    gpu = ChaosExactSim(p, topology.complete(3), t, plan)
+    gen = torch.Generator().manual_seed(1)
+    draws = [cpu.draw(gen, r) for r in range(1, 101)]
+    faults = [cpu.fault_draw(r) for r in range(1, 101)]
+    x, y = cpu.init_state(), gpu.init_state()
+    before = sm.scatter_max_apply_cuda.launches
+    for r in range(100):
+        if r + 1 == 20:
+            for st in (x, y):
+                for slot, status in ((1, DRAINING), (2, ALIVE)):
+                    st.sim.known[slot, slot] = int(pack(20 * t.round_ticks,
+                                                        status))
+                    st.sim.sent[slot, slot] = 0
+        x = cpu.step(x, draws=draws[r], fault_draws=faults[r])
+        y = gpu.step(y, draws=draws[r], fault_draws=faults[r])
+        assert torch.equal(x.sim.known, y.sim.known.cpu()), r
+        assert torch.equal(x.sim.sent, y.sim.sent.cpu()), r
+        if r + 1 == 45:
+            assert int(unpack_status(y.sim.known[0, 1])) != DRAINING
+    torch.cuda.synchronize()
+    assert sm.scatter_max_apply_cuda.launches - before == 100
+    truth = y.sim.known.cpu().max(dim=0).values
+    assert bool((y.sim.known.cpu() == truth[None, :]).all())
+    assert [int(s) for s in unpack_status(truth)] == [ALIVE, DRAINING, ALIVE]
+    assert cpu.injection_counts(x) == gpu.injection_counts(y)

@@ -79,10 +79,12 @@ def test_every_port_module_is_checked():
                      "damping.py", "state.py", "span.py", "looper.py",
                      "output.py", "propagation.py", "coherence.py",
                      "snapshot.py", "hub.py", "url_listener.py",
-                     "antientropy.py"):
+                     "antientropy.py", "scheduler.py", "live_inject.py",
+                     "prometheus.py", "api.py", "server.py"):
         assert expected in names, expected
     for package in ("chaos", "fleet", "sim", "autopilot", "telemetry",
-                    "bridge", "catalog", "runtime", "query", "transport"):
+                    "bridge", "catalog", "runtime", "query", "transport",
+                    "web"):
         assert any(p.parent.name == package for p in PORT_FILES), package
 
 
